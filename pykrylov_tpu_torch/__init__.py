@@ -1,0 +1,29 @@
+"""pykrylov_tpu_torch — the Krylov solver framework on PyTorch and CUDA.
+
+A port of ``pykrylov_tpu`` (JAX, XLA and Pallas on a TPU) to PyTorch on an
+NVIDIA H100, module by module with the same paths and public names.  Plain
+tensor code is PyTorch; each Pallas kernel becomes a CUDA kernel written
+for Hopper, compiled from ``csrc/`` at first use.  This package imports
+torch and NumPy, never JAX.
+
+Ported so far: the operator layer, CG, the sparse containers with their
+plain products, the CUDA DIA SpMV kernel, automatic format choice,
+MatrixMarket reading, the bundled matrices, the Poisson gallery and
+``solve(A, b)`` for symmetric positive definite systems.
+"""
+
+from .version import __version__
+
+from . import utils
+from . import ops
+from . import solvers
+from . import sparse
+from . import io
+from . import gallery
+from . import convert
+from .ops import LinearOperator
+from .solvers import SolveResult
+from .solve import solve
+
+__all__ = ["__version__", "solve", "LinearOperator", "SolveResult",
+           "utils", "ops", "solvers", "sparse", "io", "gallery", "convert"]

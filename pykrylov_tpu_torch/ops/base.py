@@ -1,0 +1,507 @@
+"""Linear operators over torch tensors.
+
+Counterpart of ``pykrylov_tpu/ops/base.py``.  The JAX package makes every
+operator a pytree of parameters plus pure ``(params, x)`` functions so that
+solvers can take it through ``jit``.  PyTorch runs eagerly, so here an
+operator is a plain Python object whose products are closures over tensors
+held on an explicit ``device``.  The semantics are the reference's
+(``linop/linop.py``), as in the JAX package:
+
+  * shape/dtype/symmetric/hermitian metadata and dtype promotion through all
+    algebra (``linop.py:307-452``);
+  * ``op.T`` / ``op.H`` are linked twins: ``op.T.T is op``
+    (``linop.py:148-204``);
+  * missing transpose/adjoint rules are inferred by conjugation for complex
+    dtypes (``linop.py:211-254``);
+  * scalar*op, op*op (the transpose reverses the order), op+op, op-op,
+    op/scalar, op**k, -op, and 0*op -> ZeroOperator;
+  * shape-checked application raising ``ShapeError`` (``linop.py:271-298``);
+  * a host-side application counter ``nMatvec``.
+
+A 2-D right-hand side is applied column by column through the matvec; the
+block-product kernels arrive with the batched solver family.
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import numpy as np
+import torch
+
+from ..utils.types import as_dtype, result_type, to_tensor
+
+__all__ = [
+    "ShapeError",
+    "BaseLinearOperator",
+    "LinearOperator",
+    "IdentityOperator",
+    "DiagonalOperator",
+    "ZeroOperator",
+    "MatrixOperator",
+    "aslinearoperator",
+]
+
+
+class ShapeError(ValueError):
+    """Raised when operator/vector dimensions do not agree.
+
+    Parity: ``linop/linop.py:626-635``.
+    """
+
+
+def _is_scalar(x):
+    """Python/NumPy scalars and 0-d tensors or arrays."""
+    if isinstance(x, numbers.Number):
+        return True
+    return isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim == 0
+
+
+def _scalar_value(x):
+    """(Python number, dtype) of a scalar operand."""
+    if isinstance(x, (torch.Tensor, np.ndarray, np.generic)):
+        return x.item(), result_type(x)
+    return x, result_type(x)
+
+
+class BaseLinearOperator:
+    """Shape/dtype/symmetry metadata plus the host-side matvec counter.
+
+    Parity: ``linop/linop.py:14-104``.
+    """
+
+    def __init__(self, nargin, nargout, symmetric=False, hermitian=False,
+                 dtype=None, name=None, device=None):
+        self.__nargin = int(nargin)
+        self.__nargout = int(nargout)
+        self.__symmetric = bool(symmetric)
+        self.__hermitian = bool(hermitian)
+        self.__dtype = (as_dtype(dtype) if dtype is not None
+                        else torch.get_default_dtype())
+        self.__device = torch.device(device if device is not None else "cpu")
+        self._nMatvec = 0
+        self.name = name
+
+    @property
+    def nargin(self):
+        """Dimension of the operator's domain (length of x in A*x)."""
+        return self.__nargin
+
+    @property
+    def nargout(self):
+        """Dimension of the operator's range (length of A*x)."""
+        return self.__nargout
+
+    @property
+    def shape(self):
+        return (self.__nargout, self.__nargin)
+
+    @property
+    def symmetric(self):
+        return self.__symmetric
+
+    @property
+    def hermitian(self):
+        return self.__hermitian
+
+    @property
+    def dtype(self):
+        return self.__dtype
+
+    @property
+    def device(self):
+        """The device of the tensors the operator holds."""
+        return self.__device
+
+    @property
+    def nMatvec(self):
+        """Number of shape-checked applications of this operator."""
+        return self._nMatvec
+
+    def reset_counters(self):
+        self._nMatvec = 0
+
+    def __call__(self, *args, **kwargs):
+        return self.__mul__(*args, **kwargs)
+
+    def __mul__(self, x):
+        raise NotImplementedError("subclass must implement __mul__")
+
+    def __repr__(self):
+        sym = "symmetric" if self.symmetric else "unsymmetric"
+        return "<%s %s %dx%d %s>" % (
+            self.__class__.__name__, sym, self.nargout, self.nargin,
+            self.dtype)
+
+
+def _apply_fn(fn, x):
+    if fn is None:
+        raise NotImplementedError("operator does not define this product")
+    return fn(x)
+
+
+def _conj_mv(inner):
+    def mv(x):
+        return torch.conj(_apply_fn(inner, torch.conj(x))).resolve_conj()
+    return mv
+
+
+def _scaled(alpha, rdt, y):
+    return y.to(torch.promote_types(y.dtype, rdt)) * alpha
+
+
+class LinearOperator(BaseLinearOperator):
+    """A linear operator ``y = A @ x`` given by its product closures.
+
+    Constructor mirrors the reference signature (``linop/linop.py:114``):
+    ``LinearOperator(nargin, nargout, matvec, matvec_transp=None,
+    matvec_adj=None, symmetric=..., hermitian=...)`` with each product a
+    function of the vector alone.
+    """
+
+    def __init__(self, nargin, nargout, matvec, matvec_transp=None,
+                 matvec_adj=None, symmetric=False, hermitian=False,
+                 dtype=None, name=None, device=None):
+        super().__init__(nargin, nargout, symmetric=symmetric,
+                         hermitian=hermitian, dtype=dtype, name=name,
+                         device=device)
+        mv, rmv, hmv = matvec, matvec_transp, matvec_adj
+        # Fill in transpose/adjoint rules from symmetry and conjugation,
+        # mirroring linop/linop.py:148-254.
+        if self.symmetric and rmv is None:
+            rmv = mv
+        if self.hermitian and hmv is None:
+            hmv = mv
+        if not self.dtype.is_complex:
+            # Real: transpose and adjoint coincide.
+            if rmv is None and hmv is not None:
+                rmv = hmv
+            if hmv is None and rmv is not None:
+                hmv = rmv
+        else:
+            if hmv is None and rmv is not None:
+                hmv = _conj_mv(rmv)
+            if rmv is None and hmv is not None:
+                rmv = _conj_mv(hmv)
+        self._mv = mv
+        self._rmv = rmv
+        self._hmv = hmv
+        # Linked twins (built lazily; back-pointers give op.T.T is op).
+        self._transpose_of = None
+        self._adjoint_of = None
+        self._conjugate_of = None
+
+    def _like(self, nargin, nargout, matvec, matvec_transp=None,
+              matvec_adj=None, symmetric=False, hermitian=False, dtype=None,
+              suffix=None):
+        """A derived operator on this operator's device."""
+        return LinearOperator(
+            nargin, nargout, matvec, matvec_transp, matvec_adj,
+            symmetric=symmetric, hermitian=hermitian,
+            dtype=self.dtype if dtype is None else dtype,
+            name=None if (self.name is None or suffix is None)
+            else self.name + suffix,
+            device=self.device)
+
+    # -- core application --------------------------------------------------
+    def _as_tensor(self, x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return to_tensor(x, device=self.device)
+
+    def _apply(self, fn, x, in_dim, out_dim):
+        x = self._as_tensor(x)
+        if x.ndim not in (1, 2) or x.shape[0] != in_dim:
+            raise ShapeError(
+                "operator %s cannot be applied to array of shape %s"
+                % (repr(self), (tuple(x.shape),)))
+        self._nMatvec += 1
+        if x.ndim == 1:
+            y = _apply_fn(fn, x)
+        else:  # one column at a time through the 1-D product
+            y = torch.stack([_apply_fn(fn, x[:, j])
+                             for j in range(x.shape[1])], dim=1)
+        if y.shape[0] != out_dim:
+            raise ShapeError(
+                "operator %s produced array of leading dim %d, expected %d"
+                % (repr(self), y.shape[0], out_dim))
+        return y
+
+    def matvec(self, x):
+        """y = A @ x with shape checks (scipy-style alias: ``dot``)."""
+        return self._apply(self._mv, x, self.nargin, self.nargout)
+
+    def rmatvec(self, x):
+        """y = A.H @ x — scipy.sparse.linalg compat (``linop.py:300``)."""
+        return self._apply(self._hmv, x, self.nargout, self.nargin)
+
+    dot = matvec
+
+    def to_array(self):
+        """Densify by applying to the identity (``linop.py:256-269``)."""
+        eye = torch.eye(self.nargin, dtype=self.dtype, device=self.device)
+        return torch.stack([_apply_fn(self._mv, eye[:, j])
+                            for j in range(self.nargin)], dim=1)
+
+    full = to_array
+
+    # -- transpose / adjoint / conjugate ------------------------------------
+    @property
+    def T(self):
+        if self._transpose_of is not None:
+            return self._transpose_of
+        if self.symmetric and self.nargin == self.nargout:
+            return self
+        t = self._like(
+            self.nargout, self.nargin, self._rmv, self._mv,
+            _conj_mv(self._mv) if self._rmv is not None else None,
+            symmetric=self.symmetric, hermitian=self.hermitian, suffix=".T")
+        t._transpose_of = self
+        self._transpose_of = t
+        return t
+
+    @property
+    def H(self):
+        if self._adjoint_of is not None:
+            return self._adjoint_of
+        if self.hermitian and self.nargin == self.nargout:
+            return self
+        if not self.dtype.is_complex:
+            return self.T
+        h = self._like(
+            self.nargout, self.nargin, self._hmv,
+            _conj_mv(self._mv) if self._hmv is not None else None,
+            self._mv,
+            symmetric=self.symmetric, hermitian=self.hermitian, suffix=".H")
+        h._adjoint_of = self
+        self._adjoint_of = h
+        return h
+
+    @property
+    def bar(self):
+        """Complex-conjugate operator (``linop.py:206-254``)."""
+        return self.conjugate()
+
+    def conjugate(self):
+        if self._conjugate_of is not None:
+            return self._conjugate_of
+        if not self.dtype.is_complex:
+            return self
+        c = self._like(
+            self.nargin, self.nargout, _conj_mv(self._mv),
+            _conj_mv(self._rmv) if self._rmv is not None else None,
+            _conj_mv(self._hmv) if self._hmv is not None else None,
+            symmetric=self.symmetric, hermitian=self.hermitian,
+            suffix=".bar")
+        c._conjugate_of = self
+        self._conjugate_of = c
+        return c
+
+    # -- algebra -------------------------------------------------------------
+    def _mul_scalar(self, alpha):
+        value, adt = _scalar_value(alpha)
+        rdt = result_type(self.dtype, adt)
+        # 0 * op -> ZeroOperator (linop.py:307-314)
+        if isinstance(alpha, numbers.Number) and value == 0:
+            return ZeroOperator(self.nargin, self.nargout, dtype=rdt,
+                                device=self.device)
+        mv, rmv, hmv = self._mv, self._rmv, self._hmv
+        conj_value = value.conjugate()
+        return self._like(
+            self.nargin, self.nargout,
+            lambda x: _scaled(value, rdt, _apply_fn(mv, x)),
+            (lambda x: _scaled(value, rdt, _apply_fn(rmv, x)))
+            if rmv is not None else None,
+            (lambda x: _scaled(conj_value, rdt, _apply_fn(hmv, x)))
+            if hmv is not None else None,
+            symmetric=self.symmetric,
+            hermitian=self.hermitian and not rdt.is_complex, dtype=rdt)
+
+    def _mul_linop(self, other):
+        if self.nargin != other.nargout:
+            raise ShapeError("cannot multiply %s with %s"
+                             % (repr(self), repr(other)))
+        a, b = self, other
+        # (AB)^T = B^T A^T
+        return self._like(
+            other.nargin, self.nargout,
+            lambda x: _apply_fn(a._mv, _apply_fn(b._mv, x)),
+            (lambda x: _apply_fn(b._rmv, _apply_fn(a._rmv, x)))
+            if (a._rmv is not None and b._rmv is not None) else None,
+            (lambda x: _apply_fn(b._hmv, _apply_fn(a._hmv, x)))
+            if (a._hmv is not None and b._hmv is not None) else None,
+            dtype=result_type(self.dtype, other.dtype))
+
+    def __mul__(self, x):
+        if isinstance(x, BaseLinearOperator):
+            return self._mul_linop(x)
+        if _is_scalar(x):
+            return self._mul_scalar(x)
+        if isinstance(x, (torch.Tensor, np.ndarray, list, tuple)):
+            return self._apply(self._mv, x, self.nargin, self.nargout)
+        return NotImplemented
+
+    def __rmul__(self, x):
+        if _is_scalar(x):
+            return self._mul_scalar(x)
+        raise ValueError("cannot pre-multiply an operator by %s" % type(x))
+
+    def __matmul__(self, x):
+        return self.__mul__(x)
+
+    def __add__(self, other):
+        if not isinstance(other, BaseLinearOperator):
+            raise ValueError("cannot add %s to an operator" % type(other))
+        if self.shape != other.shape:
+            raise ShapeError("cannot add %s and %s"
+                             % (repr(self), repr(other)))
+        a, b = self, other
+
+        def both(fa, fb):
+            if fa is None or fb is None:
+                return None
+            return lambda x: _apply_fn(fa, x) + _apply_fn(fb, x)
+
+        return self._like(
+            self.nargin, self.nargout, both(a._mv, b._mv),
+            both(a._rmv, b._rmv), both(a._hmv, b._hmv),
+            symmetric=a.symmetric and b.symmetric,
+            hermitian=a.hermitian and b.hermitian,
+            dtype=result_type(a.dtype, b.dtype))
+
+    def __neg__(self):
+        return self._mul_scalar(-1)
+
+    def __sub__(self, other):
+        if not isinstance(other, BaseLinearOperator):
+            raise ValueError("cannot subtract %s from an operator"
+                             % type(other))
+        return self.__add__(-other)
+
+    def __truediv__(self, other):
+        if _is_scalar(other):
+            if isinstance(other, numbers.Number) and other == 0:
+                raise ZeroDivisionError("cannot divide operator by zero")
+            value, _ = _scalar_value(other)
+            return self._mul_scalar(1.0 / value)
+        raise ValueError("cannot divide operator by %s" % type(other))
+
+    def __pow__(self, k):
+        if not isinstance(k, int) or k < 0:
+            raise ValueError("power must be a nonnegative integer")
+        if self.nargin != self.nargout:
+            raise ShapeError("can only raise square operators to a power")
+        if k == 0:
+            return IdentityOperator(self.nargin, dtype=self.dtype,
+                                    device=self.device)
+        if k == 1:
+            return self
+
+        def power(fn):
+            if fn is None:
+                return None
+
+            def mv(x):
+                for _ in range(k):
+                    x = _apply_fn(fn, x)
+                return x
+            return mv
+
+        return self._like(self.nargin, self.nargout, power(self._mv),
+                          power(self._rmv), power(self._hmv),
+                          symmetric=self.symmetric,
+                          hermitian=self.hermitian)
+
+
+# ---------------------------------------------------------------------------
+# Simple concrete operators
+# ---------------------------------------------------------------------------
+
+
+class IdentityOperator(LinearOperator):
+    """I_n (``linop.py:455-470``)."""
+
+    def __init__(self, nargin, dtype=None, device=None, **kwargs):
+        super().__init__(nargin, nargin, matvec=lambda x: x,
+                         symmetric=True, hermitian=True, dtype=dtype,
+                         device=device, **kwargs)
+
+
+class DiagonalOperator(LinearOperator):
+    """diag(d) from a 1-D tensor or array (``linop.py:473-516``).
+
+    Complex diagonals are symmetric but not hermitian; the adjoint applies
+    the conjugate diagonal.
+    """
+
+    def __init__(self, diag, device=None, **kwargs):
+        diag = to_tensor(diag, device=device).ravel()
+        is_complex = diag.dtype.is_complex
+        conj = diag.conj().resolve_conj() if is_complex else None
+        super().__init__(diag.shape[0], diag.shape[0],
+                         matvec=lambda x: diag * x,
+                         matvec_adj=(lambda x: conj * x) if is_complex
+                         else None,
+                         symmetric=True, hermitian=not is_complex,
+                         dtype=diag.dtype, device=diag.device, **kwargs)
+        self.diag = diag
+
+
+class ZeroOperator(LinearOperator):
+    """0 of shape nargout x nargin (``linop.py:519-557``)."""
+
+    def __init__(self, nargin, nargout, dtype=None, device=None, **kwargs):
+        dtype = as_dtype(dtype) if dtype is not None \
+            else torch.get_default_dtype()
+
+        def zeros(n):
+            return lambda x: torch.zeros(
+                n, dtype=torch.promote_types(dtype, x.dtype),
+                device=x.device)
+
+        super().__init__(nargin, nargout, matvec=zeros(nargout),
+                         matvec_transp=zeros(nargin),
+                         symmetric=(nargin == nargout),
+                         hermitian=(nargin == nargout),
+                         dtype=dtype, device=device, **kwargs)
+
+
+def _dense_product(A, x):
+    ct = torch.promote_types(A.dtype, x.dtype)
+    return torch.mv(A.to(ct), x.to(ct))
+
+
+class MatrixOperator(LinearOperator):
+    """Dense-matrix operator (``linop_from_ndarray``,
+    ``linop.py:723-745``)."""
+
+    def __init__(self, A, symmetric=False, hermitian=False, device=None,
+                 **kwargs):
+        A = to_tensor(A, device=device)
+        if A.ndim != 2:
+            raise ShapeError("MatrixOperator expects a 2-D array")
+        m, n = A.shape
+        At = A.T
+        Ah = A.conj().T.resolve_conj() if A.dtype.is_complex else At
+        super().__init__(n, m, matvec=lambda x: _dense_product(A, x),
+                         matvec_transp=lambda x: _dense_product(At, x),
+                         matvec_adj=lambda x: _dense_product(Ah, x),
+                         symmetric=symmetric, hermitian=hermitian,
+                         dtype=A.dtype, device=A.device, **kwargs)
+        self.matrix = A
+
+    def to_array(self):
+        return self.matrix
+
+
+def aslinearoperator(A, symmetric=False, hermitian=False):
+    """Coerce A (operator / dense tensor or array) into a LinearOperator."""
+    if isinstance(A, BaseLinearOperator):
+        return A
+    if isinstance(A, (torch.Tensor, np.ndarray)):
+        return MatrixOperator(A, symmetric=symmetric, hermitian=hermitian)
+    if callable(A):
+        raise ValueError(
+            "cannot infer shape from a bare callable; construct "
+            "LinearOperator(nargin, nargout, matvec=...) explicitly")
+    raise TypeError("cannot convert %s to a LinearOperator" % type(A))

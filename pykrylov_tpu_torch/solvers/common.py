@@ -1,0 +1,105 @@
+"""Shared solver plumbing: operator coercion, thresholds, history buffers.
+
+Counterpart of ``pykrylov_tpu/solvers/common.py``.  Stopping-rule semantics
+follow the reference square-system solvers: ``threshold = max(abstol,
+reltol * residNorm0)`` (``cg/cg.py:102``) with a matvec cap defaulting to
+2n (``cg/cg.py:97``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.base import BaseLinearOperator, LinearOperator, MatrixOperator
+from ..utils.types import result_type, to_tensor
+
+__all__ = ["as_operator", "apply_op", "apply_op_T", "apply_op_H",
+           "promote_rhs", "threshold_of", "default_maxiter", "history_init",
+           "history_push", "require_square", "attach_true_residual"]
+
+
+def as_operator(A) -> LinearOperator:
+    """Coerce to a LinearOperator (tensors and arrays become
+    MatrixOperator)."""
+    if isinstance(A, BaseLinearOperator):
+        return A
+    if isinstance(A, (torch.Tensor, np.ndarray)):
+        return MatrixOperator(A)
+    raise TypeError("cannot interpret %r as a linear operator" % (type(A),))
+
+
+def apply_op(op, x):
+    """``op @ x`` without shape checks or counting (solver inner loops)."""
+    return op._mv(x)
+
+
+def apply_op_T(op, x):
+    return op._rmv(x)
+
+
+def apply_op_H(op, x):
+    return op._hmv(x)
+
+
+def promote_rhs(b, *ops):
+    """Promote b to the joint dtype of the rhs and all participating
+    operators, mirroring the reference's NumPy promotion
+    (``np.result_type(self.op.dtype, rhs.dtype)``).  A NumPy rhs goes to
+    the first operator's device; a tensor stays where it is."""
+    if not isinstance(b, torch.Tensor):
+        dev = next((o.device for o in ops if o is not None), None)
+        b = to_tensor(b, device=dev)
+    dt = result_type(b.dtype, *[o.dtype for o in ops if o is not None])
+    return b.to(dt)
+
+
+def threshold_of(resid0, rtol, atol):
+    """Reference stopping threshold max(abstol, reltol*resid0)."""
+    return torch.maximum(torch.full_like(resid0, atol), rtol * resid0)
+
+
+def default_maxiter(n, matvecs_per_iter=1, matvec_max=None):
+    """Iteration cap from the reference's matvec_max (default 2n)."""
+    if matvec_max is None:
+        matvec_max = 2 * n
+    return max(1, int(matvec_max) // int(matvecs_per_iter))
+
+
+def history_init(store: bool, maxiter: int, dtype, device, n=None):
+    """A NaN-filled (maxiter+1,) buffer, or (maxiter+1, n) when ``n`` is
+    given; None when not storing."""
+    if not store:
+        return None
+    shape = (maxiter + 1,) if n is None else (maxiter + 1, n)
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+def history_push(hist, k, value):
+    """Write row ``k`` on the device (no host synchronisation)."""
+    if hist is not None:
+        hist[k] = value
+    return hist
+
+
+def attach_true_residual(A, b, res, shift=0.0):
+    """Post-solve verification: the 2-norm of the true residual ``b - (A -
+    shift I) x`` as ``info["true_resid_norm"]``.  One diagnostic matvec,
+    not counted in ``n_matvec``."""
+    rt = b - apply_op(A, res.x)
+    if shift:
+        rt = rt + shift * res.x
+    res.info["true_resid_norm"] = torch.linalg.vector_norm(rt)
+    return res
+
+
+def require_square(A, b, solver_name):
+    """Shape guard for square-system solvers: A square, b length-matched."""
+    m, n = A.shape
+    if m != n:
+        raise ValueError(
+            "%s expects a square operator, got %dx%d (use lsqr/lsmr/craig "
+            "for rectangular systems)" % (solver_name, m, n))
+    if b.ndim != 1 or b.shape[0] != n:
+        raise ValueError("%s: rhs has shape %s, expected (%d,)"
+                         % (solver_name, (tuple(b.shape),), n))

@@ -1,0 +1,22 @@
+"""Sparse containers, the CUDA DIA SpMV kernel, and sparse-backed
+operators."""
+
+from .formats import (COO, CSR, ELL, DIA,
+                      coo_from_arrays, csr_from_coo, ell_from_coo,
+                      dia_from_coo, transpose_coo, bandwidth_profile,
+                      coo_matvec, csr_matvec, ell_matvec, dia_matvec,
+                      to_dense)
+from .kernels import cuda_dia_operator, dia_transpose
+from .linop import (SparseOperator, sparse_operator, operator_from_coo,
+                    jacobi_preconditioner, diag_of_coo,
+                    cuda_dia_sparse_operator)
+
+__all__ = [
+    "COO", "CSR", "ELL", "DIA",
+    "coo_from_arrays", "csr_from_coo", "ell_from_coo", "dia_from_coo",
+    "transpose_coo", "bandwidth_profile",
+    "coo_matvec", "csr_matvec", "ell_matvec", "dia_matvec", "to_dense",
+    "cuda_dia_operator", "dia_transpose",
+    "SparseOperator", "sparse_operator", "operator_from_coo",
+    "jacobi_preconditioner", "diag_of_coo", "cuda_dia_sparse_operator",
+]
