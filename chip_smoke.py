@@ -6,22 +6,42 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``pykrylov_tpu_torch/csrc``, holds
-it against its plain torch version, then drives the port's main path once:
-``solve(A, b)`` with CG on the 3-D Poisson matrix at n = 240 (13.8M rows,
-96.4M nonzeros), whose operator the automatic format policy puts on the
-CUDA DIA kernel.  Phases, in order:
+It builds the port's CUDA kernels from ``pykrylov_tpu_torch/csrc``, holds
+each against its plain torch version, then drives the port's two main
+paths once each, through ``operator_from_coo`` (automatic format) and
+``solve``:
+
+  * DIA: CG on the 3-D Poisson matrix at n = 240 (13.8M rows, 96.4M
+    nonzeros), which the policy puts on the CUDA DIA kernel;
+  * BELL: CG on 1138bus tiled 1024 times (1,165,312 rows, 4,151,296
+    nonzeros, general sparsity), which the policy puts on the CUDA BELL
+    kernel.
+
+Phases, in order:
 
   1. device: torch/CUDA versions, card name and power limit, TF32 off;
-  2. build: the kernel library from source, and the compiler's report;
-  3. kernel vs plain on the card, in f64, f32 and bf16 storage;
-  4. the slice: a short warm-up solve at full size, then the timed
-     ``solve(A, b)``, the kernel's launch count against the
-     matvec count, the true residual in f64, and the same solve through
-     the plain torch DIA operator;
-  5. timing: one matvec at n = 240, kernel and plain, f32 and bf16
-     storage;
-  6. a JSON line naming the kernels, then the result line
+  2. build: both kernel libraries from source at once, the compiler's
+     registers and spills per kernel, and the card's copy rate (a large
+     ``copy_``), which sets the bounds below;
+  3. kernels vs plain on the card: DIA in f64, f32 and bf16 storage; BELL
+     on the auto policy's packings of ``bench.py``'s three matrix classes
+     at 131,072 rows and on explicit containers (int8 indices, bf16
+     storage, f64, window 2, two levels, a COO remainder);
+  4. the DIA path: a warm-up solve, then the timed ``solve(A, b)`` with
+     the kernel's launches counted from 0, the true residual in f64, one
+     more solve under torch.profiler (device time by kernel, idle share),
+     and the same solve through the plain DIA operator;
+  5. the BELL path: the same on tiled 1138bus, launches = matvecs x
+     levels, the same solve through the plain BELL operator, and, in turns
+     with the kernel's, through ``fmt="ell"`` (the policy's CUDA choice
+     before the BELL kernel) and ``fmt="csr"``;
+  6. timing (CUDA events, best of 3 runs of chained matvecs): each kernel,
+     its plain version, the port's plain ELL operator (BELL matrices) and
+     torch's CSR matvec (cuSPARSE, timed as a yardstick only), against the
+     bound: the smaller of the matrix's
+     bytes as the kernel stores it and as CSR, plus x and y, at the
+     measured copy rate;
+  7. a JSON line naming the kernels, then the result line
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -38,12 +58,17 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-N = 240  # bench.py's headline 3-D Poisson grid
+N = 240             # bench.py's headline 3-D Poisson grid
+TILES = 1024        # 1138bus tiles of the BELL path (bench.py's 1M-row scale)
+CLASS_ROWS = 1 << 17  # rows of bench.py's matrix classes
+COPY_BYTES = 1 << 30  # bytes of the copy that measures the copy rate
 DEVICE = "cuda"
+F32_TFLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 
-# max|y_kernel - y_plain| / max|y_plain|: the kernel rounds each product
-# and sum as the plain version does, in the same order, so both should
-# agree to the last bit; the bounds leave room for rounding differences.
+# max|y_kernel - y_plain| / max|y_plain|.  The DIA kernel rounds each
+# product and sum as the plain version does, in the same order; the BELL
+# plain version sums a 4-row group in torch's order and adds group sums
+# with index_add_, whose order on the card is not fixed.
 REL_BOUND = {torch.float64: 1e-12, torch.float32: 1e-6,
              torch.bfloat16: 1e-6}
 
@@ -56,6 +81,23 @@ def relerr(y, ref):
     scale = ref.abs().max().item()
     return (y - ref).abs().max().item() / (scale if scale else 1.0)
 
+
+def events_ms(fn, iters):
+    """ms per call of ``fn`` over ``iters`` back-to-back calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------------------
+# 1-2. device, build, copy rate
+# --------------------------------------------------------------------------
 
 def phase_device():
     log("[1 device] torch %s, CUDA %s, %d device(s)"
@@ -75,18 +117,41 @@ def phase_device():
     return card
 
 
-def phase_build(pt):
+def phase_build():
     from pykrylov_tpu_torch import _build
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load()
-    log("[2 build] %s in %.3f s" % (os.path.basename(lib),
-                                    time.perf_counter() - t0))
-    with open(lib + ".log") as f:
-        for line in f.read().splitlines():
-            if line.strip():
-                log("[2 build] nvcc: " + line.strip())
+    libs = _build.build()   # one nvcc per source, all started together
+    for name in libs:
+        _build.load(name)
+    log("[2 build] %s in %.3f s" % (", ".join(
+        os.path.basename(p) for p in libs.values()),
+        time.perf_counter() - t0))
+    for name, lib in libs.items():
+        with open(lib + ".log") as f:
+            for line in f.read().splitlines():
+                if "entry function" in line:
+                    log("[2 build] %s: %s" % (name, line.split("'")[1]))
+                elif "spill" in line or "registers" in line:
+                    log("[2 build] %s:     %s" % (name, line.strip()))
 
+
+def phase_copy_rate():
+    """Device-memory rate of a large ``copy_`` (bytes read + written per
+    second), best of 5."""
+    src = torch.ones(COPY_BYTES // 4, device=DEVICE)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    ms = min(events_ms(lambda: dst.copy_(src), 10) for _ in range(5))
+    rate = 2 * COPY_BYTES / (ms * 1e-3)
+    log("[2 build] copy rate: %.1f GB/s (copy of %d bytes, %.4f ms)"
+        % (rate / 1e9, COPY_BYTES, ms))
+    del src, dst
+    return rate
+
+
+# --------------------------------------------------------------------------
+# 3. kernels vs plain
+# --------------------------------------------------------------------------
 
 def _dia_on_card(vals, rows, cols, shape):
     from pykrylov_tpu_torch.sparse import formats as F
@@ -94,13 +159,8 @@ def _dia_on_card(vals, rows, cols, shape):
     return F.dia_from_coo(coo, device=DEVICE)
 
 
-def _check(label, data, offsets, x, plain=None):
-    from pykrylov_tpu_torch.sparse import kernels as K
-    y = K.dia_matvec(data, offsets, x)
-    torch.cuda.synchronize()
-    ref = (K.dia_matvec_plain(data, offsets, x) if plain is None
-           else plain())
-    torch.cuda.synchronize()
+def _hold(label, y, ref, dtype):
+    """Hold a kernel's output against its plain version's."""
     if y.shape != ref.shape or y.dtype != ref.dtype:
         raise AssertionError("%s: kernel gave %s %s, plain %s %s"
                              % (label, tuple(y.shape), y.dtype,
@@ -108,8 +168,8 @@ def _check(label, data, offsets, x, plain=None):
     if not torch.isfinite(y).all():
         raise AssertionError("%s: non-finite kernel output" % label)
     err = relerr(y, ref)
-    bound = REL_BOUND[data.dtype]
-    log("[3 kernel] %-34s rel err %.3e (bound %.0e), max abs err %.3e"
+    bound = REL_BOUND[dtype]
+    log("[3 kernel] %-44s rel err %.3e (bound %.0e), max abs err %.3e"
         % (label, err, bound, (y - ref).abs().max().item()))
     if not err <= bound:
         raise AssertionError("%s: relative error %.3e > %.0e"
@@ -117,7 +177,17 @@ def _check(label, data, offsets, x, plain=None):
     return (y - ref).abs().max().item()
 
 
-def phase_kernel(pt):
+def _check_dia(label, data, offsets, x, plain=None):
+    from pykrylov_tpu_torch.sparse import kernels as K
+    y = K.dia_matvec(data, offsets, x)
+    torch.cuda.synchronize()
+    ref = (K.dia_matvec_plain(data, offsets, x) if plain is None
+           else plain())
+    torch.cuda.synchronize()
+    return _hold(label, y, ref, data.dtype)
+
+
+def phase_dia_kernel(pt):
     from pykrylov_tpu_torch.gallery import poisson3d_coo
     from pykrylov_tpu_torch.sparse import formats as F
     from pykrylov_tpu_torch.sparse import kernels as K
@@ -127,14 +197,14 @@ def phase_kernel(pt):
         nd = np.float64 if dtype == torch.float64 else np.float32
         dia = _dia_on_card(*poisson3d_coo(64, dtype=nd))
         x = torch.from_numpy(rng.standard_normal(dia.shape[1]).astype(nd))
-        _check("poisson3d(64) %s" % str(dtype)[6:], dia.data, dia.offsets,
-               x.to(DEVICE))
+        _check_dia("DIA poisson3d(64) %s" % str(dtype)[6:], dia.data,
+                   dia.offsets, x.to(DEVICE))
     dia = _dia_on_card(*poisson3d_coo(64, dtype=np.float32))
     d16 = dia.data.to(torch.bfloat16)
     x = torch.from_numpy(
         rng.standard_normal(dia.shape[1]).astype(np.float32)).to(DEVICE)
-    _check("poisson3d(64) bf16 storage", d16, dia.offsets, x,
-           plain=lambda: K.dia_matvec_plain(d16.float(), dia.offsets, x))
+    _check_dia("DIA poisson3d(64) bf16 storage", d16, dia.offsets, x,
+               plain=lambda: K.dia_matvec_plain(d16.float(), dia.offsets, x))
 
     # unsymmetric banded matrix with one far diagonal, and its transpose
     m = 100003
@@ -146,26 +216,235 @@ def phase_kernel(pt):
     dia = F.DIA(torch.from_numpy(data).to(DEVICE), offsets, (m, m))
     x = torch.from_numpy(
         rng.standard_normal(m).astype(np.float32)).to(DEVICE)
-    _check("banded m=100003 A x", dia.data, dia.offsets, x)
+    _check_dia("DIA banded m=100003 A x", dia.data, dia.offsets, x)
     diat = K.dia_transpose(dia)
-    _check("banded m=100003 A^T x", diat.data, diat.offsets, x,
-           plain=lambda: F.dia_rmatvec(dia, x))
+    _check_dia("DIA banded m=100003 A^T x", diat.data, diat.offsets, x,
+               plain=lambda: F.dia_rmatvec(dia, x))
 
     # CG through the kernel on a small system: checks the solver on the
-    # card and loads the library and torch kernels the slice's solve
+    # card and loads the library and torch kernels the DIA path's solve
     # uses, so that phase 4 times a warm solve
     A = K.cuda_dia_operator(_dia_on_card(*poisson3d_coo(64,
                                                          dtype=np.float32)),
                             symmetric=True)
     b = A * torch.ones(A.shape[0], device=DEVICE)
     res = pt.solve(A, b)
-    log("[3 kernel] solve at n=64: converged=%s n_iter=%d"
+    log("[3 kernel] DIA solve at n=64: converged=%s n_iter=%d"
         % (bool(res.converged), int(res.n_iter)))
     if not bool(res.converged):
         raise AssertionError("CG did not converge at n=64")
 
 
-def phase_slice(pt):
+# bench.py's matrix classes (bench.py:278-340; bench.py imports jax, so
+# they are copied here)
+def gen_power_law(n=CLASS_ROWS, seed=0):
+    """Heavy-tailed row degrees, banded locality + 5% uniform tail."""
+    rng = np.random.default_rng(seed)
+    deg = np.clip((rng.pareto(2.0, n) + 1).astype(int) * 3, 3, 400)
+    rws = np.repeat(np.arange(n), deg)
+    base = rws + rng.integers(-300, 301, rws.shape)
+    far = rng.random(rws.shape) < 0.05
+    cls = np.where(far, rng.integers(0, n, rws.shape), base) % n
+    vls = rng.standard_normal(rws.shape).astype(np.float32)
+    key = rws.astype(np.int64) * n + cls
+    _, first = np.unique(key, return_index=True)
+    return vls[first], rws[first], cls[first], (n, n)
+
+
+def gen_stencil_scatter(n=CLASS_ROWS, spr=0.25, seed=1):
+    """7-diagonal stencil + clustered long-range scatter into 64 hot
+    128-column blocks."""
+    rng = np.random.default_rng(seed)
+    offs = np.array([-1024, -32, -1, 0, 1, 32, 1024])
+    rws, cls, vls = [], [], []
+    for o in offs:
+        r = np.arange(max(0, -o), min(n, n - o))
+        rws.append(r)
+        cls.append(r + o)
+        vls.append(np.full(len(r), 6.0 if o == 0 else -1.0, np.float32))
+    ns = int(spr * n)
+    sr = rng.integers(0, n, ns)
+    blocks = rng.integers(0, n // 128, 64)
+    sc = blocks[rng.integers(0, 64, ns)] * 128 + rng.integers(0, 128, ns)
+    rws.append(sr)
+    cls.append(sc)
+    vls.append(0.1 * rng.standard_normal(ns).astype(np.float32))
+    rws, cls, vls = (np.concatenate(a) for a in (rws, cls, vls))
+    key = rws.astype(np.int64) * n + cls
+    _, first = np.unique(key, return_index=True)
+    return vls[first], rws[first], cls[first], (n, n)
+
+
+def gen_permuted_blockdiag(n=CLASS_ROWS, blk=192, seed=2):
+    """Dense-ish coupling blocks scattered by a random permutation: the
+    raw ordering exceeds the window budget, RCM rescues it."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    rws, cls, vls = [], [], []
+    for b0 in range(0, n, blk):
+        k = 6 * blk
+        rr = rng.integers(b0, min(b0 + blk, n), k)
+        cc = rng.integers(b0, min(b0 + blk, n), k)
+        rws.append(perm[rr])
+        cls.append(perm[cc])
+        vls.append(0.1 * rng.standard_normal(k).astype(np.float32))
+    rws, cls, vls = (np.concatenate(a) for a in (rws, cls, vls))
+    key = rws.astype(np.int64) * n + cls
+    _, first = np.unique(key, return_index=True)
+    return vls[first], rws[first], cls[first], (n, n)
+
+
+CLASSES = {"power_law": gen_power_law,
+           "stencil_scatter": gen_stencil_scatter,
+           "permuted_blockdiag": gen_permuted_blockdiag}
+
+
+def _banded(m, nnz_per_row, bw, seed, dtype):
+    """Random banded triples, deduplicated."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, m, size=nnz_per_row * m)
+    cols = np.clip(rows + rng.integers(-bw, bw + 1, size=len(rows)),
+                   0, m - 1)
+    key = rows.astype(np.int64) * m + cols
+    _, first = np.unique(key, return_index=True)
+    vals = rng.standard_normal(len(first)).astype(dtype)
+    return vals, rows[first], cols[first], (m, m)
+
+
+def _far_cluster(m, seed=51):
+    """A band of width 13 plus ten entries 40 bands away: in a 16-band
+    budget the far ones stay a COO remainder."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m), 4)
+    cols = np.clip(rows + rng.integers(-6, 7, size=len(rows)), 0, m - 1)
+    rows = np.r_[rows, np.arange(10)]
+    cols = np.r_[cols, 40 * 128 + np.arange(10)]
+    key = rows * m + cols
+    _, first = np.unique(key, return_index=True)
+    vals = rng.standard_normal(len(first)).astype(np.float32)
+    return vals, rows[first], cols[first], (m, m)
+
+
+def _check_levels(label, levels, rows_out, n_in, rng):
+    """The kernel's product over a packing's levels against the plain
+    version's, on one random x."""
+    from pykrylov_tpu_torch.sparse import bell as B
+    dtype = levels[0].data.dtype
+    xdt = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.from_numpy(rng.standard_normal(n_in)).to(DEVICE, xdt)
+    y = B.bell_levels_matvec(levels, x, rows_out)
+    torch.cuda.synchronize()
+    ref = B.bell_levels_matvec(levels, x, rows_out,
+                               product=B.bell_matvec_plain)
+    torch.cuda.synchronize()
+    return _hold(label, y, ref, dtype)
+
+
+def phase_bell_kernel(pt):
+    """The BELL kernel on every container variant the packer emits."""
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
+    rng = np.random.default_rng(2)
+    classes = {}
+    for name, gen in CLASSES.items():
+        t = gen()
+        t0 = time.perf_counter()
+        A = operator_from_coo(*t, device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if A.fmt != "bell":
+            raise AssertionError("%s: auto policy picked %r, not bell"
+                                 % (name, A.fmt))
+        b0 = A.levels[0]
+        log("[3 kernel] %s: %d rows, %d nnz, built in %.2f s: %d level(s), "
+            "window %d, nb %d, nblk %d, data %s, %s, split rows %d, "
+            "permuted %s, fill %.3f"
+            % (name, t[3][0], len(t[0]), secs, len(A.levels), b0.window,
+               b0.nb, b0.nblk, tuple(b0.data.shape),
+               "segmented (%d wide)" % b0.seg_mixed if b0.seg is not None
+               else "monolithic", A.split_rows,
+               A.solve_permutation is not None, A.fill))
+        _check_levels("BELL %s levels" % name, A.levels, A.level_rows,
+                      t[3][1], rng)
+        x = torch.from_numpy(rng.standard_normal(t[3][1])
+                             .astype(np.float32)).to(DEVICE)
+        _hold("BELL %s operator" % name, A * x, A.plain() * x,
+              torch.float32)
+        classes[name] = (A, t)
+
+    # explicit containers: index bytes, storage types, window 2, levels,
+    # a COO remainder
+    t = CLASSES["stencil_scatter"]()
+    for label, dtype, kw in (
+            ("int8 idx f32", np.float32, dict(window=1, idx_fmt="int8")),
+            ("bf16 storage", np.float32, dict(window=1, bf16=True)),
+            ("f64", np.float64, dict(window=1))):
+        kw = dict(kw)
+        bf16 = kw.pop("bf16", False)
+        coo = F.coo_from_arrays(t[0].astype(dtype), t[1], t[2], t[3],
+                                device=None)
+        b = B.bell_from_coo(coo, spill_cost=None, segment=True,
+                            device=DEVICE, **kw)
+        if bf16:
+            b = B.bell_with_values_dtype(b, torch.bfloat16)
+        _check_levels("BELL stencil_scatter %s" % label, (b,), t[3][0],
+                      t[3][1], rng)
+    m = 1 << 16
+    t = _banded(m, 8, 90, 1, np.float32)
+    b = B.bell_from_coo(F.coo_from_arrays(*t, device=None), window=2,
+                        spill_cost=None, device=DEVICE)
+    _check_levels("BELL banded window 2 f32", (b,), m, m, rng)
+    lv = B._pack_levels(F.coo_from_arrays(*t, device=None), B.NB_MAX,
+                        12.0, 2, device=DEVICE, window=2)
+    if len(lv) != 2:
+        raise AssertionError("expected a two-level packing, got %d"
+                             % len(lv))
+    _check_levels("BELL banded two levels", lv, m, m, rng)
+    t = _far_cluster(m)
+    lv = B._pack_levels(F.coo_from_arrays(*t, device=None), 16, 12.0, 2,
+                        device=DEVICE, window=1)
+    if not lv[-1].nnz_spill:
+        raise AssertionError("expected a COO remainder")
+    _check_levels("BELL banded + %d-entry remainder" % lv[-1].nnz_spill,
+                  lv, m, m, rng)
+    return classes
+
+
+# --------------------------------------------------------------------------
+# 4-5. the main paths
+# --------------------------------------------------------------------------
+
+def _profile_solve(pt, tag, A, b, secs):
+    """One more warm ``solve(A, b)`` under torch.profiler: device time by
+    kernel per CG iteration, and the device's idle share of ``secs``, the
+    unprofiled solve's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = pt.solve(A, b)
+        torch.cuda.synchronize()
+    n = max(int(res.n_iter), 1)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        raise AssertionError("%s: the profiler saw no device time" % tag)
+    busy = sum(r[0] for r in rows) * 1e-6
+    log("[%s] profile: device busy %.4f ms per iteration over %d "
+        "iterations; unprofiled wall %.4f ms per iteration, device idle "
+        "%.1f%% of it" % (tag, 1e3 * busy / n, n, 1e3 * secs / n,
+                          100 * max(0.0, 1 - busy / secs)))
+    for us, count, key in rows[:8]:
+        log("[%s] profile: %.4f ms per iteration, %.2f calls per "
+            "iteration: %s" % (tag, us * 1e-3 / n, count / n, key[:80]))
+
+
+def phase_dia_path(pt):
     from pykrylov_tpu_torch.gallery import poisson3d_coo
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import operator_from_coo
@@ -175,7 +454,7 @@ def phase_slice(pt):
     A = operator_from_coo(*coo, symmetric=True, device=DEVICE)
     torch.cuda.synchronize()
     m = A.shape[0]
-    log("[4 slice] A: %d rows, %d nonzeros, fmt=%s, built in %.1f s"
+    log("[4 DIA path] A: %d rows, %d nonzeros, fmt=%s, built in %.1f s"
         % (m, len(coo[0]), A.fmt, time.perf_counter() - t0))
     if A.fmt != "cuda-dia":
         raise AssertionError("auto policy picked %r, not cuda-dia" % A.fmt)
@@ -187,7 +466,7 @@ def phase_slice(pt):
     torch.cuda.synchronize()
     ref = K.dia_matvec_plain(data, offsets, x_true)
     err = (b - ref).abs().max().item()
-    log("[4 slice] b = A x_true: kernel vs plain rel err %.3e, "
+    log("[4 DIA path] b = A x_true: kernel vs plain rel err %.3e, "
         "max abs err %.3e" % (relerr(b, ref), err))
     if not relerr(b, ref) <= REL_BOUND[torch.float32]:
         raise AssertionError("kernel disagrees with plain at n=%d" % N)
@@ -198,7 +477,7 @@ def phase_slice(pt):
     t0 = time.perf_counter()
     warm = pt.solve(A, b, maxiter=20)
     torch.cuda.synchronize()
-    log("[4 slice] warm-up solve: %d iterations in %.3f s"
+    log("[4 DIA path] warm-up solve: %d iterations in %.3f s"
         % (int(warm.n_iter), time.perf_counter() - t0))
     del warm
 
@@ -210,10 +489,10 @@ def phase_slice(pt):
     secs = time.perf_counter() - t0
     launches = K.DIA_LAUNCHES
     n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
-    log("[4 slice] solve: converged=%s istop=%d n_iter=%d n_matvec=%d "
+    log("[4 DIA path] solve: converged=%s istop=%d n_iter=%d n_matvec=%d "
         "kernel launches=%d" % (bool(res.converged), int(res.istop),
                                 n_iter, n_matvec, launches))
-    log("[4 slice] solve: %.3f s, %.3f ms per iteration"
+    log("[4 DIA path] solve: %.3f s, %.3f ms per iteration"
         % (secs, 1e3 * secs / max(n_iter, 1)))
     if not (bool(res.converged) and int(res.istop) == 0):
         raise AssertionError("solve did not converge: %r" % (res,))
@@ -228,17 +507,17 @@ def phase_slice(pt):
                 / torch.linalg.vector_norm(b64)).item()
     x_err = (torch.linalg.vector_norm(res.x.double() - x_true.double())
              / torch.linalg.vector_norm(x_true.double())).item()
-    log("[4 slice] true relative residual (f64) %.3e, relative error in "
-        "x %.3e" % (true_rel, x_err))
+    log("[4 DIA path] true relative residual (f64) %.3e, relative error "
+        "in x %.3e" % (true_rel, x_err))
     if not true_rel <= 1e-4:
         raise AssertionError("true relative residual %.3e > 1e-4"
                              % true_rel)
     del r, b64
+    _profile_solve(pt, "4 DIA path", A, b, secs)
 
     t0 = time.perf_counter()
     A_plain = operator_from_coo(*coo, symmetric=True, fmt="dia",
                                 device=DEVICE)
-    del coo
     before = K.DIA_LAUNCHES
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -246,7 +525,7 @@ def phase_slice(pt):
     torch.cuda.synchronize()
     secs_plain = time.perf_counter() - t1
     n_plain = int(res_plain.n_iter)
-    log("[4 slice] plain fmt=dia (built in %.1f s): converged=%s "
+    log("[4 DIA path] plain fmt=dia (built in %.1f s): converged=%s "
         "n_iter=%d, %.3f s, %.3f ms per iteration"
         % (t1 - t0, bool(res_plain.converged), n_plain, secs_plain,
            1e3 * secs_plain / max(n_plain, 1)))
@@ -255,28 +534,187 @@ def phase_slice(pt):
     if abs(n_plain - n_iter) > 2:
         raise AssertionError("n_iter %d (kernel) vs %d (plain)"
                              % (n_iter, n_plain))
-    return A, {"launches": launches, "max_abs_err": err,
-               "n_iter": n_iter, "solve_s": secs}
+    return A, coo, {"launches": launches, "max_abs_err": err,
+                    "n_iter": n_iter, "solve_s": secs}
 
 
-def _time_chain(fn, data, offsets, m, rep, iters=100):
-    """ms per matvec over ``iters`` chained matvecs from a fresh input."""
-    g = torch.Generator(device=DEVICE).manual_seed(1000 + rep)
-    x = torch.randn(m, device=DEVICE, generator=g)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+def _timed_solve(pt, label, A, b):
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        x = fn(data, offsets, x)
-    end.record()
-    end.synchronize()
-    if not torch.isfinite(x).all():
-        raise AssertionError("timing chain went non-finite")
-    return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    res = pt.solve(A, b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_iter = int(res.n_iter)
+    log("[5 BELL path] %s: converged=%s istop=%d n_iter=%d n_matvec=%d, "
+        "%.3f s, %.4f ms per iteration"
+        % (label, bool(res.converged), int(res.istop), n_iter,
+           int(res.n_matvec), secs, 1e3 * secs / max(n_iter, 1)))
+    if not bool(res.converged):
+        raise AssertionError("%s did not converge: %r" % (label, res))
+    return res, secs
 
 
-def phase_timing(A):
+def phase_bell_path(pt):
+    from pykrylov_tpu_torch.gallery import tiled_general_coo
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
+    t0 = time.perf_counter()
+    coo = tiled_general_coo("1138bus", tiles=TILES, coupling=0)
+    A = operator_from_coo(*coo, symmetric=True, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = A.shape[0]
+    if A.fmt != "bell":
+        raise AssertionError("auto policy picked %r, not bell" % A.fmt)
+    levels = A.levels
+    b0 = levels[0]
+    log("[5 BELL path] A: %d rows, %d nonzeros, fmt=%s, built in %.2f s "
+        "(tiling + host packing + transfer): %d level(s), window %d, "
+        "nb %d, nblk %d, data %s, %s, fill %.4f, %.1f stream bytes per "
+        "nonzero" % (m, len(coo[0]), A.fmt, build_s, len(levels),
+                     b0.window, b0.nb, b0.nblk, tuple(b0.data.shape),
+                     "segmented" if b0.seg is not None else "monolithic",
+                     A.fill, A.bytes_per_nnz))
+
+    x_true = torch.from_numpy(np.random.default_rng(0).standard_normal(m)
+                              .astype(np.float32)).to(DEVICE)
+    b = A * x_true
+    torch.cuda.synchronize()
+    ref = A.plain() * x_true
+    err = (b - ref).abs().max().item()
+    log("[5 BELL path] b = A x_true: kernel vs plain rel err %.3e, "
+        "max abs err %.3e" % (relerr(b, ref), err))
+    if not relerr(b, ref) <= REL_BOUND[torch.float32]:
+        raise AssertionError("BELL kernel disagrees with plain")
+    del ref
+
+    t0 = time.perf_counter()
+    warm = pt.solve(A, b, maxiter=20)
+    torch.cuda.synchronize()
+    log("[5 BELL path] warm-up solve: %d iterations in %.3f s"
+        % (int(warm.n_iter), time.perf_counter() - t0))
+    del warm
+
+    B.BELL_LAUNCHES = 0
+    res, secs = _timed_solve(pt, "solve", A, b)
+    launches = B.BELL_LAUNCHES
+    n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
+    log("[5 BELL path] kernel launches=%d for %d matvecs x %d level(s)"
+        % (launches, n_matvec, len(levels)))
+    if launches != n_matvec * len(levels) or launches == 0:
+        raise AssertionError("%d kernel launches for %d matvecs x %d levels"
+                             % (launches, n_matvec, len(levels)))
+    if int(res.istop) != 0:
+        raise AssertionError("solve stopped with istop %d" % int(res.istop))
+    if res.x.shape != (m,) or not torch.isfinite(res.x).all():
+        raise AssertionError("bad solution: shape %s" % (tuple(res.x.shape),))
+    # the true residual in f64, through the COO triples (not BELL)
+    rows = torch.from_numpy(coo[1]).to(DEVICE)
+    cols = torch.from_numpy(coo[2]).to(DEVICE)
+    vals = torch.from_numpy(coo[0]).to(DEVICE, torch.float64)
+    x64 = res.x.double()
+    ax = torch.zeros(m, dtype=torch.float64, device=DEVICE)
+    ax.index_add_(0, rows, vals * x64[cols])
+    b64 = b.double()
+    true_rel = (torch.linalg.vector_norm(b64 - ax)
+                / torch.linalg.vector_norm(b64)).item()
+    x_err = (torch.linalg.vector_norm(x64 - x_true.double())
+             / torch.linalg.vector_norm(x_true.double())).item()
+    log("[5 BELL path] true relative residual (f64) %.3e, relative error "
+        "in x %.3e" % (true_rel, x_err))
+    if not true_rel <= 1e-4:
+        raise AssertionError("true relative residual %.3e > 1e-4"
+                             % true_rel)
+    del rows, cols, vals, x64, ax, b64
+    _profile_solve(pt, "5 BELL path", A, b, secs)
+
+    before = B.BELL_LAUNCHES
+    res_plain, secs_plain = _timed_solve(pt, "plain BELL", A.plain(), b)
+    if B.BELL_LAUNCHES != before:
+        raise AssertionError("the plain BELL operator launched the kernel")
+    n_plain = int(res_plain.n_iter)
+    if abs(n_plain - n_iter) > 0.1 * n_iter:
+        raise AssertionError("n_iter %d (kernel) vs %d (plain): more than "
+                             "10%% apart" % (n_iter, n_plain))
+
+    # the same solve through the formats a user could pick instead: ELL
+    # (plain torch, what the auto policy gave general matrices on CUDA
+    # before the BELL kernel) and CSR (plain torch); in turns with the
+    # kernel's, best of two each, since host-clock solve times drift
+    others = {}
+    for fmt in ("ell", "csr"):
+        t0 = time.perf_counter()
+        others[fmt] = operator_from_coo(*coo, symmetric=True, fmt=fmt,
+                                        device=DEVICE)
+        torch.cuda.synchronize()
+        log("[5 BELL path] fmt=%s built in %.2f s"
+            % (fmt, time.perf_counter() - t0))
+    order = [("bell (kernel)", A)] + [("plain fmt=%s" % f, op)
+                                      for f, op in others.items()]
+    per_iter = {}
+    for rep in range(2):
+        for label, op in (order if rep == 0 else order[::-1]):
+            res_k, secs_k = _timed_solve(pt, label, op, b)
+            per_iter[label] = min(per_iter.get(label, float("inf")),
+                                  1e3 * secs_k / max(int(res_k.n_iter), 1))
+    log("[5 BELL path] ms per iteration, best of 2: %s" % ", ".join(
+        "%s %.4f" % kv for kv in per_iter.items()))
+    del others
+    return A, coo, {"launches": launches, "max_abs_err": err,
+                    "n_iter": n_iter, "solve_s": secs, "build_s": build_s,
+                    "plain_n_iter": n_plain, "plain_solve_s": secs_plain,
+                    "ms_per_iter": per_iter}
+
+
+# --------------------------------------------------------------------------
+# 6. timing
+# --------------------------------------------------------------------------
+
+def _best_ms(variants, iters):
+    """Best of 3 runs of ``iters`` back-to-back calls for each variant,
+    the runs in turns (forward, backward, forward), after a warm-up."""
+    for _, fn in variants:
+        events_ms(fn, 3)
+    best = {}
+    for rep in range(3):
+        for label, fn in (variants if rep % 2 == 0 else variants[::-1]):
+            best[label] = min(best.get(label, float("inf")),
+                              events_ms(fn, iters))
+    return best
+
+
+def _torch_csr(coo, device):
+    """torch's CSR tensor of the triples (f32 values, int32 indices), built
+    on the card: its matvec is a cuSPARSE call, timed as a yardstick and
+    used nowhere in the port."""
+    vals, rows, cols, shape = coo
+    idx = torch.stack([torch.from_numpy(rows).to(device, torch.int64),
+                       torch.from_numpy(cols).to(device, torch.int64)])
+    a = torch.sparse_coo_tensor(
+        idx, torch.from_numpy(vals).to(device, torch.float32),
+        shape).coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(a.crow_indices().int(),
+                                   a.col_indices().int(), a.values(),
+                                   size=shape)
+
+
+def _csr_bytes(nnz, m, n):
+    """f32 values and int32 column indices, int32 row pointers, x read
+    once, y written once."""
+    return nnz * 8 + (m + 1) * 4 + n * 4 + m * 4
+
+
+def _bound(own_bytes, csr_bytes, nnz, rate):
+    """The least time for ``y = A x``: the matrix's bytes (the smaller of
+    its own storage and CSR) plus x and y at the copy rate, against its
+    2 nnz float32 operations at the card's peak; the larger of the two."""
+    t_bytes = min(own_bytes, csr_bytes) / rate * 1e3
+    t_ops = 2 * nnz / F32_TFLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_dia_timing(A, coo, rate):
     from pykrylov_tpu_torch.sparse import kernels as K
 
     offsets = A.container.offsets
@@ -286,25 +724,90 @@ def phase_timing(A):
     # chain of matvecs neither overflows nor underflows
     d32 = A.container.data / 12.0
     d16 = d32.to(torch.bfloat16)
-    variants = [("kernel f32", K.dia_matvec, d32),
-                ("plain f32", K.dia_matvec_plain, d32),
-                ("kernel bf16", K.dia_matvec, d16),
-                ("plain bf16", K.dia_matvec_plain, d16)]
-    for _, fn, data in variants:  # warm up
-        _time_chain(fn, data, offsets, m, 0, iters=5)
-    best = {}
-    for rep in range(3):
-        order = variants if rep % 2 == 0 else variants[::-1]
-        for label, fn, data in order:
-            ms = _time_chain(fn, data, offsets, m, rep + 1)
-            best[label] = min(best.get(label, float("inf")), ms)
+    csr = _torch_csr((coo[0] / 12.0,) + coo[1:], DEVICE)
+    state = {}
+
+    def chain(label, fn):
+        def step():
+            state[label] = fn(state[label])
+        return label, step
+
+    variants = [chain("kernel f32", lambda x: K.dia_matvec(d32, offsets, x)),
+                chain("plain f32",
+                      lambda x: K.dia_matvec_plain(d32, offsets, x)),
+                chain("kernel bf16", lambda x: K.dia_matvec(d16, offsets, x)),
+                chain("plain bf16",
+                      lambda x: K.dia_matvec_plain(d16, offsets, x)),
+                chain("torch CSR f32", lambda x: csr @ x)]
+    g = torch.Generator(device=DEVICE).manual_seed(1000)
+    x0 = torch.randn(m, device=DEVICE, generator=g)
+    for label, _ in variants:
+        state[label] = x0.clone()
+    best = _best_ms(variants, 100)
+    for label, x in state.items():
+        if not torch.isfinite(x).all():
+            raise AssertionError("%s: timing chain went non-finite" % label)
+    nnz = len(coo[0])
+    own = {"f32": (ndiag * 4 + 2 * 4) * m, "bf16": (ndiag * 2 + 2 * 4) * m}
+    csr_b = _csr_bytes(nnz, m, m)
+    for label, _ in variants:
+        nbytes = own["bf16" if "bf16" in label else "f32"] \
+            if "CSR" not in label else csr_b
+        log("[6 timing] DIA n=%d %-13s %.4f ms per matvec, %.1f GB/s of "
+            "its own %d bytes" % (N, label, best[label],
+                                  nbytes / (best[label] * 1e-3) / 1e9,
+                                  nbytes))
+    bound, by = _bound(own["f32"], csr_b, nnz, rate)
+    log("[6 timing] DIA n=%d bound %.4f ms (%s): %d own bytes, %d CSR "
+        "bytes; kernel at %.1f%% of it"
+        % (N, bound, by, own["f32"], csr_b,
+           100 * bound / best["kernel f32"]))
+    del csr, d32, d16, state
+    return best, bound, by
+
+
+def phase_bell_timing(A, coo, classes, rate):
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
     out = {}
-    for label, _, data in variants:
-        nbytes = (ndiag * data.element_size() + 2 * 4) * m
-        gbps = nbytes / (best[label] * 1e-3) / 1e9
-        log("[5 timing] %-12s %.4f ms per matvec, %.1f GB/s "
-            "(%d bytes per matvec)" % (label, best[label], gbps, nbytes))
-        out[label] = (best[label], gbps)
+    cases = [("tiled_1138bus", A, coo)] + [(n, a, t) for n, (a, t)
+                                           in classes.items()]
+    for name, op, t in cases:
+        m, n = t[3]
+        nnz = len(t[0])
+        levels, rows_out = op.levels, op.level_rows
+        csr = _torch_csr(t, DEVICE)
+        ell = operator_from_coo(*t, fmt="ell", device=DEVICE)
+        g = torch.Generator(device=DEVICE).manual_seed(2000)
+        x = torch.randn(n, device=DEVICE, generator=g)
+        # one matvec on the kernel's own levels (and COO remainders), the
+        # plain version's, and the operator's whole product, which adds
+        # the row split's fold or the permutation's gathers
+        variants = [
+            ("kernel", lambda: B.bell_levels_matvec(levels, x, rows_out)),
+            ("plain", lambda: B.bell_levels_matvec(
+                levels, x, rows_out, product=B.bell_matvec_plain)),
+            ("operator", lambda: op * x),
+            ("plain ELL", lambda: ell * x),
+            ("torch CSR", lambda: csr @ x)]
+        best = _best_ms(variants, 50)
+        own = sum(B.bell_stream_bytes(b) + B.bell_map_bytes(b)
+                  for b in levels) + 4 * (n + rows_out)
+        csr_b = _csr_bytes(nnz, m, n)
+        bound, by = _bound(own, csr_b, nnz, rate)
+        for label, _ in variants:
+            ms = best[label]
+            log("[6 timing] BELL %-18s %-9s %.4f ms per matvec: %.1f GB/s "
+                "of its own %d bytes, %.1f GB/s of %d CSR bytes"
+                % (name, label, ms, own / (ms * 1e-3) / 1e9, own,
+                   csr_b / (ms * 1e-3) / 1e9, csr_b))
+        log("[6 timing] BELL %-18s bound %.4f ms (%s); kernel at %.1f%% "
+            "of it, %.2fx torch CSR's time"
+            % (name, bound, by, 100 * bound / best["kernel"],
+               best["kernel"] / best["torch CSR"]))
+        out[name] = (best, bound, by)
+        del csr, ell
     return out
 
 
@@ -325,34 +828,59 @@ def main():
         print("chip_smoke: imported %s, not this checkout's package"
               % pt.__file__, file=sys.stderr)
         return 2
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
 
+    t_start = time.perf_counter()
     card = phase_device()
-    phase_build(pt)
-    phase_kernel(pt)
-    A, run = phase_slice(pt)
-    times = phase_timing(A)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    phase_build()
+    rate = phase_copy_rate()
+    phase_dia_kernel(pt)
+    classes = phase_bell_kernel(pt)
+    A_dia, coo_dia, dia = phase_dia_path(pt)
+    A_bell, coo_bell, bell = phase_bell_path(pt)
+    dia_best, dia_bound, dia_by = phase_dia_timing(A_dia, coo_dia, rate)
+    del A_dia, coo_dia
+    bell_times = phase_bell_timing(A_bell, coo_bell, classes, rate)
+    if any(m.split(".")[0] in ("jax", "jaxlib", "pykrylov_tpu")
+           for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
 
-    kernel = {
+    bt, b_bound, b_by = bell_times["tiled_1138bus"]
+    kernels = [{
         "name": "dia_spmv",
         "route": "cuda",
         "source": "pykrylov_tpu_torch/csrc/dia_spmv.cu",
         "replaces": "pykrylov_tpu/sparse/kernels.py:211",
-        "launches": run["launches"],
-        "max_abs_err": run["max_abs_err"],
-        "ms": times["kernel f32"][0],
-        "plain_ms": times["plain f32"][0],
-        "gbps": times["kernel f32"][1],
-        "plain_gbps": times["plain f32"][1],
-        "bf16_ms": times["kernel bf16"][0],
-        "bf16_plain_ms": times["plain bf16"][0],
-    }
-    log("[6 result] card: %s; solve n=%d: %d iterations in %.3f s"
-        % (card, N, run["n_iter"], run["solve_s"]))
-    log(json.dumps({"kernels": [kernel]}))
+        "launches": dia["launches"],
+        "max_abs_err": dia["max_abs_err"],
+        "ms": dia_best["kernel f32"],
+        "plain_ms": dia_best["plain f32"],
+        "bound_ms": dia_bound,
+        "bound_by": dia_by,
+        "library_ms": dia_best["torch CSR f32"],
+        "bf16_ms": dia_best["kernel bf16"],
+        "bf16_plain_ms": dia_best["plain bf16"],
+    }, {
+        "name": "bell_spmv",
+        "route": "cuda",
+        "source": "pykrylov_tpu_torch/csrc/bell_spmv.cu",
+        "replaces": "pykrylov_tpu/sparse/bell.py:1021",
+        "launches": bell["launches"],
+        "max_abs_err": bell["max_abs_err"],
+        "ms": bt["kernel"],
+        "plain_ms": bt["plain"],
+        "bound_ms": b_bound,
+        "bound_by": b_by,
+        "library_ms": bt["torch CSR"],
+        "classes_ms": {name: [t[0]["kernel"], t[0]["torch CSR"], t[1]]
+                       for name, t in bell_times.items()},
+        "plain_ell_ms": bt["plain ELL"],
+        "solve_ms_per_iter": bell["ms_per_iter"],
+    }]
+    log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s; BELL "
+        "tiled 1138bus: %d iterations in %.3f s; smoke took %.1f s"
+        % (card, N, dia["n_iter"], dia["solve_s"], bell["n_iter"],
+           bell["solve_s"], time.perf_counter() - t_start))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
-"""Build the package's CUDA kernels from its sources, on first use.
+"""Build the package's CUDA kernels from their sources, on first use.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``.  The library lands in ``_build/`` beside this file, named by a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is built once per checkout.  The compiler's report
-(``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
-beside it as ``<library>.log``.
+Each source under ``csrc/`` is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, loaded with
+``ctypes``.  The libraries land in ``_build/`` beside this file, each named
+by a hash of its source and the flags, so an edited source is rebuilt and
+an unchanged one is built once per checkout.  :func:`build` with no name
+starts every missing compile at once and waits for all of them.  The
+compiler's report (``-Xptxas -v``: registers, shared memory and spills
+per kernel) is kept beside each library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import subprocess
 __all__ = ["SOURCES", "BUILD_DIR", "find_nvcc", "build", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_HERE, "csrc", "dia_spmv.cu"),)
+SOURCES = {name: os.path.join(_HERE, "csrc", name + ".cu")
+           for name in ("dia_spmv", "bell_spmv")}
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,35 +43,51 @@ def find_nvcc():
     return nvcc
 
 
-def _digest():
+def _digest(name):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
+    with open(SOURCES[name], "rb") as f:
+        h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def build():
-    """Compile the sources unless this version is built; return the
-    library's path."""
-    lib = os.path.join(BUILD_DIR, "libpykrylov_cuda_%s.so" % _digest())
-    if os.path.exists(lib):
-        return lib
-    nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (lib, os.getpid())
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                          capture_output=True, text=True)
-    with open(lib + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed with exit code %d:\n%s"
-                           % (proc.returncode, proc.stdout + proc.stderr))
-    os.replace(tmp, lib)  # atomic: concurrent builders never see a partial
-    return lib
+def _library(name):
+    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, _digest(name)))
+
+
+def build(name=None):
+    """Compile the named source (every source when ``name`` is None)
+    unless this version is built.  Returns the library's path, or a dict
+    of name -> path."""
+    names = list(SOURCES) if name is None else [name]
+    libs = {n: _library(n) for n in names}
+    todo = [n for n in names if not os.path.exists(libs[n])]
+    if todo:
+        nvcc = find_nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for n in todo:  # all compiles run at once
+            tmp = "%s.%d.tmp" % (libs[n], os.getpid())
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[n]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            report = proc.communicate()[0]
+            with open(libs[n] + ".log", "w") as f:
+                f.write(report)
+            if proc.returncode != 0:
+                failed.append("%s: nvcc failed with exit code %d:\n%s"
+                              % (n, proc.returncode, report))
+            else:
+                # atomic: a concurrent build never sees a partial library
+                os.replace(tmp, libs[n])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return libs if name is None else libs[name]
 
 
 @functools.lru_cache(maxsize=None)
-def load():
-    """The built library, loaded once per process."""
-    return ctypes.CDLL(build())
+def load(name):
+    """The named kernel's library, loaded once per process."""
+    return ctypes.CDLL(build(name))

@@ -76,15 +76,15 @@ def _op(n, mv, dtype, device):
                           dtype=dtype, device=device)
 
 
-def poisson1d_operator(n, dtype=torch.float32, device="cpu"):
+def poisson1d_operator(n, dtype=torch.float32, device="cuda"):
     return _op(n, poisson1d_matvec, dtype, device)
 
 
-def poisson2d_operator(n, dtype=torch.float32, device="cpu"):
+def poisson2d_operator(n, dtype=torch.float32, device="cuda"):
     return _op(n * n, poisson2d_matvec, dtype, device)
 
 
-def poisson3d_operator(n, dtype=torch.float32, device="cpu"):
+def poisson3d_operator(n, dtype=torch.float32, device="cuda"):
     return _op(n * n * n, poisson3d_matvec, dtype, device)
 
 

@@ -71,14 +71,14 @@ class BaseLinearOperator:
     """
 
     def __init__(self, nargin, nargout, symmetric=False, hermitian=False,
-                 dtype=None, name=None, device=None):
+                 dtype=None, name=None, device="cuda"):
         self.__nargin = int(nargin)
         self.__nargout = int(nargout)
         self.__symmetric = bool(symmetric)
         self.__hermitian = bool(hermitian)
         self.__dtype = (as_dtype(dtype) if dtype is not None
                         else torch.get_default_dtype())
-        self.__device = torch.device(device if device is not None else "cpu")
+        self.__device = torch.device(device)
         self._nMatvec = 0
         self.name = name
 
@@ -161,7 +161,7 @@ class LinearOperator(BaseLinearOperator):
 
     def __init__(self, nargin, nargout, matvec, matvec_transp=None,
                  matvec_adj=None, symmetric=False, hermitian=False,
-                 dtype=None, name=None, device=None):
+                 dtype=None, name=None, device="cuda"):
         super().__init__(nargin, nargout, symmetric=symmetric,
                          hermitian=hermitian, dtype=dtype, name=name,
                          device=device)
@@ -421,7 +421,7 @@ class LinearOperator(BaseLinearOperator):
 class IdentityOperator(LinearOperator):
     """I_n (``linop.py:455-470``)."""
 
-    def __init__(self, nargin, dtype=None, device=None, **kwargs):
+    def __init__(self, nargin, dtype=None, device="cuda", **kwargs):
         super().__init__(nargin, nargin, matvec=lambda x: x,
                          symmetric=True, hermitian=True, dtype=dtype,
                          device=device, **kwargs)
@@ -434,7 +434,7 @@ class DiagonalOperator(LinearOperator):
     the conjugate diagonal.
     """
 
-    def __init__(self, diag, device=None, **kwargs):
+    def __init__(self, diag, device="cuda", **kwargs):
         diag = to_tensor(diag, device=device).ravel()
         is_complex = diag.dtype.is_complex
         conj = diag.conj().resolve_conj() if is_complex else None
@@ -450,7 +450,8 @@ class DiagonalOperator(LinearOperator):
 class ZeroOperator(LinearOperator):
     """0 of shape nargout x nargin (``linop.py:519-557``)."""
 
-    def __init__(self, nargin, nargout, dtype=None, device=None, **kwargs):
+    def __init__(self, nargin, nargout, dtype=None, device="cuda",
+                 **kwargs):
         dtype = as_dtype(dtype) if dtype is not None \
             else torch.get_default_dtype()
 
@@ -475,7 +476,7 @@ class MatrixOperator(LinearOperator):
     """Dense-matrix operator (``linop_from_ndarray``,
     ``linop.py:723-745``)."""
 
-    def __init__(self, A, symmetric=False, hermitian=False, device=None,
+    def __init__(self, A, symmetric=False, hermitian=False, device="cuda",
                  **kwargs):
         A = to_tensor(A, device=device)
         if A.ndim != 2:
@@ -495,10 +496,14 @@ class MatrixOperator(LinearOperator):
 
 
 def aslinearoperator(A, symmetric=False, hermitian=False):
-    """Coerce A (operator / dense tensor or array) into a LinearOperator."""
+    """Coerce A (operator / dense tensor or array) into a LinearOperator.
+    A tensor stays on its device; an array goes to the card."""
     if isinstance(A, BaseLinearOperator):
         return A
-    if isinstance(A, (torch.Tensor, np.ndarray)):
+    if isinstance(A, torch.Tensor):
+        return MatrixOperator(A, symmetric=symmetric, hermitian=hermitian,
+                              device=A.device)
+    if isinstance(A, np.ndarray):
         return MatrixOperator(A, symmetric=symmetric, hermitian=hermitian)
     if callable(A):
         raise ValueError(

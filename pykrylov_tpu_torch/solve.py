@@ -10,15 +10,24 @@ method follows the operator's shape and declared symmetry:
 Each branch whose solver is not ported yet raises ``NotImplementedError``
 naming its ROADMAP.md item, as do the CG→MINRES fallback on an indefinite
 operator, ``(n, K)`` right-hand-side blocks and ``verified=True``.
+
+An operator that carries ``solve_permutation`` (an RCM-reordered BELL
+operator, ``A = P^T A' P``) is solved in the permuted space: ``A' x' = P b``
+through its inner operator, with no gathers per product, and ``x`` is
+un-permuted once.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .ops.base import DiagonalOperator, LinearOperator
 from .solvers.cg import cg
-from .solvers.common import as_operator
+from .solvers.common import apply_op, as_operator
+from .utils.types import to_tensor
 
 __all__ = ["solve"]
 
@@ -36,11 +45,45 @@ def _not_ported(what, item):
                                "item %d" % (what, item))
 
 
+def _permute_precon(M, p, ip):
+    """A preconditioner in the permuted solve space, ``M' = P M P^T``: a
+    diagonal one permutes its diagonal; any other is wrapped with two
+    gathers per apply."""
+    M = as_operator(M)
+    if isinstance(M, DiagonalOperator):
+        return DiagonalOperator(M.diag[p], device=M.device)
+
+    def mv(v):
+        return apply_op(M, v[ip])[p]
+
+    return LinearOperator(M.shape[1], M.shape[0], matvec=mv,
+                          matvec_transp=mv if M.symmetric else None,
+                          symmetric=M.symmetric, hermitian=M.hermitian,
+                          dtype=M.dtype, device=M.device)
+
+
+def _solve_permuted(A, b, method, verified, opts):
+    p, ip, inner = A.solve_permutation
+    b = b if isinstance(b, torch.Tensor) else to_tensor(b, device=A.device)
+    popts = dict(opts)
+    if popts.get("x0") is not None:
+        x0 = popts["x0"]
+        x0 = x0 if isinstance(x0, torch.Tensor) else to_tensor(
+            x0, device=A.device)
+        popts["x0"] = x0[p]
+    if popts.get("M") is not None:
+        popts["M"] = _permute_precon(popts["M"], p, ip)
+    res = solve(inner, b[p], method=method, verified=verified, **popts)
+    return dataclasses.replace(res, x=res.x[ip])
+
+
 def solve(A, b, method=None, verified=False, **opts):
     """Solve ``A x = b`` for a 1-D ``b``; returns a
     :class:`~pykrylov_tpu_torch.solvers.SolveResult`.  ``opts`` pass
     through to the chosen solver; ``method="cg"`` picks CG explicitly."""
     A = as_operator(A)
+    if getattr(A, "solve_permutation", None) is not None:
+        return _solve_permuted(A, b, method, verified, opts)
     if (b.ndim if isinstance(b, torch.Tensor) else np.ndim(b)) == 2:
         raise _not_ported("solve() with an (n, K) block of right-hand "
                           "sides (the batched solver family)", 14)

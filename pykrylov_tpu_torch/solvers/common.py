@@ -21,10 +21,13 @@ __all__ = ["as_operator", "apply_op", "apply_op_T", "apply_op_H",
 
 def as_operator(A) -> LinearOperator:
     """Coerce to a LinearOperator (tensors and arrays become
-    MatrixOperator)."""
+    MatrixOperator: a tensor stays on its device, an array goes to the
+    card)."""
     if isinstance(A, BaseLinearOperator):
         return A
-    if isinstance(A, (torch.Tensor, np.ndarray)):
+    if isinstance(A, torch.Tensor):
+        return MatrixOperator(A, device=A.device)
+    if isinstance(A, np.ndarray):
         return MatrixOperator(A)
     raise TypeError("cannot interpret %r as a linear operator" % (type(A),))
 

@@ -86,7 +86,7 @@ def _index(a, device):
 
 
 def coo_from_arrays(vals, rows, cols, shape, dtype=None, sort=True,
-                    device="cpu") -> COO:
+                    device="cuda") -> COO:
     """Build a COO container from triples (host-side sort by row, then
     column)."""
     vals = _host(vals)
@@ -101,7 +101,7 @@ def coo_from_arrays(vals, rows, cols, shape, dtype=None, sort=True,
                _index(cols, device), (int(shape[0]), int(shape[1])))
 
 
-def csr_from_coo(coo: COO, assume_sorted=False, device="cpu") -> CSR:
+def csr_from_coo(coo: COO, assume_sorted=False, device="cuda") -> CSR:
     m, n = coo.shape
     rows, cols, data = _host(coo.row), _host(coo.col), _host(coo.data)
     if not assume_sorted:  # coo_from_arrays(sort=True) already row-sorted
@@ -114,7 +114,7 @@ def csr_from_coo(coo: COO, assume_sorted=False, device="cpu") -> CSR:
 
 
 def ell_from_coo(coo: COO, pad_to: int = 1, assume_sorted=False,
-                 device="cpu") -> ELL:
+                 device="cuda") -> ELL:
     """Build padded-row ELL.  ``pad_to`` rounds K up."""
     m, n = coo.shape
     rows, cols, data = _host(coo.row), _host(coo.col), _host(coo.data)
@@ -144,7 +144,7 @@ def _bincount_into(index, weights, size):
                        minlength=size)
 
 
-def dia_from_coo(coo: COO, max_diags: int = 4096, device="cpu") -> DIA:
+def dia_from_coo(coo: COO, max_diags: int = 4096, device="cuda") -> DIA:
     """Build diagonal storage; raises if the matrix has too many distinct
     diagonals to be a sensible DIA candidate.  Duplicate entries
     accumulate, as in the COO, ELL and dense forms."""

@@ -41,7 +41,7 @@ _ENTRY = {
 
 @functools.lru_cache(maxsize=None)
 def _entry(name):
-    fn = getattr(_build.load(), name)
+    fn = getattr(_build.load("dia_spmv"), name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_void_p]

@@ -8,9 +8,10 @@ Format policy (the JAX package's, with its thresholds, so both packages
 pick the same format): matrices whose nonzeros lie on at most 64 distinct
 diagonals with at least 0.25 fill use DIA, other sparsity ELL.  On a CUDA
 device, square DIA-eligible matrices of at least 65,536 rows get the CUDA
-DIA kernel (``fmt="cuda-dia"``), as the JAX package gives them the Pallas
-kernel on a TPU.  The BELL kernel for general sparsity is not ported yet,
-so general sparsity stays on ELL on every device.
+DIA kernel (``fmt="cuda-dia"``), and general matrices of at least 4,096
+rows the CUDA BELL kernel when their packing qualifies
+(:func:`_try_bell`), as the JAX package gives them its Pallas kernels on a
+TPU.  Entry points build on the card unless ``device`` names another.
 """
 
 from __future__ import annotations
@@ -21,16 +22,13 @@ import numpy as np
 import torch
 
 from ..ops.base import DiagonalOperator, LinearOperator
+from . import bell as B
 from . import formats as F
 from . import kernels as K
 
 __all__ = ["SparseOperator", "sparse_operator", "operator_from_coo",
            "jacobi_preconditioner", "diag_of_coo", "auto_format",
            "cuda_dia_sparse_operator"]
-
-_BELL_TODO = ("the BELL kernel and its packer are not ported yet: "
-              "ROADMAP.md queue 1 item 7 and queue 2 row 4")
-
 
 def _kernel_dia_matvec(a, x):
     return K.dia_matvec(a.data, a.offsets, x)
@@ -92,6 +90,15 @@ _BUILDERS = {
 DIA_MAX_DIAGS = K.MAX_DIAGS
 DIA_MIN_DENSITY = 0.25
 KERNEL_MIN_ROWS = 1 << 16
+BELL_MIN_ROWS = 1 << 12
+# _try_bell's acceptance rules (the JAX package's defaults): a storage
+# budget in the cost model's slot units with a staging width cap, or a
+# cost-based escape against the JAX package's measured ELL cost
+BELL_MAX_SLOTS_PER_NNZ = 8.0
+BELL_MAX_NB = 256
+BELL_MAX_PAD_BYTES = 1 << 30
+BELL_MIN_SPEEDUP_VS_ELL = 4.0
+ELL_NS_PER_NNZ = 24.0
 
 
 def auto_format(ndiag, density, shape, device_type):
@@ -105,23 +112,32 @@ def auto_format(ndiag, density, shape, device_type):
 
 
 def operator_from_coo(vals, rows, cols, shape, symmetric=False,
-                      fmt="auto", dtype=None, device="cpu"):
-    """Build a SparseOperator on ``device`` from COO triples, choosing a
+                      fmt="auto", dtype=None, device="cuda"):
+    """Build an operator on ``device`` from COO triples, choosing a
     compute format.
 
-    ``fmt`` is one of ``auto | dia | cuda-dia | ell | csr | coo``
-    (``bell``/``bell-rcm`` raise until the BELL kernel is ported).
-    ``auto`` picks by :func:`auto_format`.  The containers are built on
-    the host in NumPy and moved to ``device`` once.
+    ``fmt`` is one of ``auto | dia | cuda-dia | bell | bell-rcm | ell |
+    csr | coo``.  ``auto`` picks by :func:`auto_format`, then, for a
+    general matrix of at least ``BELL_MIN_ROWS`` rows on a CUDA device,
+    tries the BELL kernel (:func:`_try_bell`).  ``bell`` and ``bell-rcm``
+    (RCM-reordered first) give a :class:`~.bell.BellOperator` whatever
+    the packing.  The containers are built on the host in NumPy and moved
+    to ``device`` once.
     """
-    if fmt in ("bell", "bell-rcm"):
-        raise NotImplementedError("fmt=%r: %s" % (fmt, _BELL_TODO))
     coo = F.coo_from_arrays(vals, rows, cols, shape, dtype=dtype,
                             device=None)
     if fmt == "auto":
         ndiag, density = F.bandwidth_profile(coo)
-        fmt = auto_format(ndiag, density, coo.shape,
-                          torch.device(device).type)
+        device_type = torch.device(device).type
+        fmt = auto_format(ndiag, density, coo.shape, device_type)
+        if (fmt == "ell" and coo.shape[0] >= BELL_MIN_ROWS
+                and device_type == "cuda"):
+            op = _try_bell(coo, symmetric, device)
+            if op is not None:
+                return op
+    if fmt in ("bell", "bell-rcm"):
+        return B.bell_operator(coo, symmetric=symmetric,
+                               reorder=(fmt == "bell-rcm"), device=device)
     if fmt == "cuda-dia":
         return cuda_dia_sparse_operator(coo, symmetric=symmetric,
                                         device=device)
@@ -134,7 +150,7 @@ def operator_from_coo(vals, rows, cols, shape, symmetric=False,
 
 
 def sparse_operator(source, symmetric=False, fmt="auto", dtype=None,
-                    device="cpu"):
+                    device="cuda"):
     """Convenience front door: source may be COO triples tuple, a container,
     a dense array or tensor, or a bundled-matrix name (str)."""
     if isinstance(source, str):
@@ -171,7 +187,7 @@ def diag_of_coo(vals, rows, cols, n):
     return d
 
 
-def jacobi_preconditioner(source, floor=0.0, device="cpu"):
+def jacobi_preconditioner(source, floor=0.0, device="cuda"):
     """Diagonal (Jacobi) preconditioner M = diag(1/|d_i|) on ``device``.
 
     Mirrors the reference benchmark's ``DiagonalPrec`` (max(|diag|, 1),
@@ -210,3 +226,102 @@ def cuda_dia_sparse_operator(coo, symmetric=False, device="cuda"):
     unpadded container, so there is nothing to pad or trim."""
     return K.cuda_dia_operator(F.dia_from_coo(coo, device=device),
                                symmetric=symmetric)
+
+
+def _try_bell(coo, symmetric, device="cuda"):
+    """A BELL operator on ``device`` if the packing qualifies, else None.
+
+    The JAX package's acceptance rules, kept as they are so both packages
+    accept the same matrices with the same layout (their constants were
+    measured for the TPU kernel; re-tuning them for the H100 is ROADMAP
+    work): no COO remainder; a per-level feasibility cap on the step size
+    (GS); and either a storage budget of ``BELL_MAX_SLOTS_PER_NNZ`` (in
+    the cost model's units) with a staging width of at most
+    ``BELL_MAX_NB`` bands, or the cost-based escape (predicted kernel time
+    ``BELL_MIN_SPEEDUP_VS_ELL`` times below the ELL estimate, packed
+    storage under ``BELL_MAX_PAD_BYTES``).  Tries a heavy-row split first, then the raw
+    ordering, then RCM (square only).  Candidate packings are planned on
+    the host; only the accepted one goes to ``device``.
+    """
+    def _ok(lv):
+        if sum(b.nnz_spill for b in lv) != 0:
+            return False
+        for b in lv:
+            GS = int(b.data.shape[1])
+            ring = (b.nb * 128 * 4 + GS * 128 * b.data.dtype.itemsize
+                    + int(np.prod(b.lanes.shape[1:]))
+                    * b.lanes.dtype.itemsize)
+            if 10 * GS * 128 * 4 + 2 * ring > (15 << 20):
+                return False
+        nb = max((B.SEG_BANDS if b.seg is not None else b.nb) for b in lv)
+        nnz = max(1, sum(b.nnz for b in lv))
+        cost_ps = sum(int(np.prod(b.data.shape)) * B._SLOT_COST_PS[b.window]
+                      for b in lv)
+        if (nb <= BELL_MAX_NB
+                and cost_ps / (B._SLOT_COST_PS[2] * nnz)
+                <= BELL_MAX_SLOTS_PER_NNZ):
+            return True
+        cost_adj = sum(int(np.prod(b.data.shape)) * B._slot_cost_ps(b)
+                       for b in lv)
+        storage_bytes = sum(
+            b.data.size * b.data.dtype.itemsize
+            + b.lanes.size * b.lanes.dtype.itemsize for b in lv)
+        return (storage_bytes <= BELL_MAX_PAD_BYTES
+                and cost_adj * 1e-12 * BELL_MIN_SPEEDUP_VS_ELL
+                <= nnz * ELL_NS_PER_NNZ * 1e-9)
+
+    def _plan(c):
+        try:
+            return B._pack_levels(c, B.NB_MAX, B._SPILL_BYTES, 2,
+                                  device=None, window="auto")
+        except B.SpanError:
+            return None
+
+    split = B._row_split_plan(coo)
+    if split is not None:
+        coo_k, heavy, M0 = split
+        fwd = _plan(coo_k)
+        if fwd is not None and _ok(fwd):
+            bwd = None
+            if not symmetric:
+                try:
+                    bwd = B._split_transpose_levels(
+                        coo_k, M0, B.NB_MAX, B._SPILL_BYTES, 2, "auto",
+                        device=None)
+                except B.SpanError:
+                    bwd = None
+            if symmetric or (bwd is not None and _ok(bwd[0])
+                             and _ok(bwd[1])):
+                return B.bell_operator(coo, symmetric=symmetric,
+                                       device=device,
+                                       _prepacked=(fwd, bwd),
+                                       _split=(None, heavy, M0))
+
+    for reorder in (False, True):
+        c = coo
+        if reorder:
+            if coo.shape[0] != coo.shape[1]:
+                break
+            c, _ = B.reorder_rcm(coo)
+        fwd = _plan(c)
+        if fwd is None or not _ok(fwd):
+            continue
+        bwd = None if symmetric else _plan(F.transpose_coo(c))
+        if symmetric or (bwd is not None and _ok(bwd)):
+            return B.bell_operator(coo, symmetric=symmetric,
+                                   reorder=reorder, device=device,
+                                   _prepacked=None if reorder
+                                   else (fwd, bwd))
+        if not reorder:
+            # directions are judged independently: rows that pack well
+            # get the kernel forward, and A^T (which most solvers never
+            # apply) the ELL path
+            return _bell_fwd_ell_bwd(coo, fwd, symmetric, device)
+    return None
+
+
+def _bell_fwd_ell_bwd(coo, fwd_levels, symmetric, device):
+    ell_t = F.ell_from_coo(F.transpose_coo(coo), pad_to=4, device=device)
+    return B.BellOperator(coo.shape,
+                          B._levels_on(fwd_levels, device),
+                          symmetric=symmetric, bwd_ell=ell_t)

@@ -84,9 +84,10 @@ def result_type(*args) -> torch.dtype:
     return out
 
 
-def to_tensor(a, device=None, dtype=None) -> torch.Tensor:
+def to_tensor(a, device="cuda", dtype=None) -> torch.Tensor:
     """A tensor from a tensor, a NumPy array (including ml_dtypes'
-    bfloat16, carried bit for bit) or a sequence, on ``device``."""
+    bfloat16, carried bit for bit) or a sequence, on ``device``
+    (``None``: a tensor stays where it is, an array on the CPU)."""
     if isinstance(a, torch.Tensor):
         t = a
     else:

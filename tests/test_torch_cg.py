@@ -28,6 +28,8 @@ from pykrylov_tpu_torch.sparse import sparse_operator
 
 from pykrylov_tpu.solvers.cg import ISTOP_MSG as JAX_ISTOP_MSG
 
+DEV = "cpu"  # the port's entry points default to the card
+
 
 def rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
@@ -45,7 +47,7 @@ def poisson():
         jop = jax_operator_from_coo(v, rows, cols, shape, symmetric=True,
                                     fmt="pallas-dia")
         top = convert.operator_from_numpy(jop.container, symmetric=True,
-                                          fmt="cuda-dia")
+                                          fmt="cuda-dia", device=DEV)
         assert top.fmt == "cuda-dia"
         out[name] = (top, jop, (v, rows, cols, shape))
     return out
@@ -88,7 +90,7 @@ def test_cg_matches_jax(case, poisson):
     if case == "jacobi":
         d = np.zeros(shape[0])
         np.add.at(d, rows[rows == cols], vals[rows == cols])
-        opts["M"] = (DiagonalOperator(torch.from_numpy(1.0 / d)),
+        opts["M"] = (DiagonalOperator(torch.from_numpy(1.0 / d), device=DEV),
                      JDiagonal(jnp.asarray(1.0 / d)))
     elif case == "x0":
         x0 = rng.standard_normal(shape[0])
@@ -114,14 +116,16 @@ def test_cg_jacobi_needs_fewer_iterations(poisson):
     d = np.zeros(shape[0])
     np.add.at(d, rows[rows == cols], vals[rows == cols])
     plain = cg(top, b, rtol=1e-10)
-    pre = cg(top, b, rtol=1e-10, M=DiagonalOperator(torch.from_numpy(1 / d)))
+    pre = cg(top, b, rtol=1e-10,
+             M=DiagonalOperator(torch.from_numpy(1 / d), device=DEV))
     assert bool(pre.converged) and int(pre.n_iter) < int(plain.n_iter)
 
 
 def test_curvature_check_on_indefinite_operator():
     d = np.array([3.0, 1.0, -2.0, 4.0, 0.5, -1.0])
     b = np.ones(6)
-    t = cg(DiagonalOperator(torch.from_numpy(d)), torch.from_numpy(b),
+    t = cg(DiagonalOperator(torch.from_numpy(d), device=DEV),
+           torch.from_numpy(b),
            check_curvature=True, store_history=True)
     j = jax_cg(JDiagonal(jnp.asarray(d)), jnp.asarray(b),
                check_curvature=True, store_history=True)
@@ -152,7 +156,7 @@ def test_1138bus_matvec_count():
     # tests/test_golden.py).  Summation order alone moves the count by a
     # few iterations on this ill-conditioned matrix, hence ±10 against the
     # JAX package and the golden test's ±90 against the reference.
-    top = sparse_operator("1138bus", symmetric=True)
+    top = sparse_operator("1138bus", symmetric=True, device=DEV)
     jop = jax_sparse_operator("1138bus", symmetric=True)
     e = np.ones(1138)
     b = (top * torch.from_numpy(e)).numpy()

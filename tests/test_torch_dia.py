@@ -28,6 +28,8 @@ from pykrylov_tpu_torch import convert
 from pykrylov_tpu_torch.sparse import formats as F
 from pykrylov_tpu_torch.sparse import kernels as K
 
+DEV = "cpu"  # the port's entry points default to the card
+
 
 def rel(port, ref):
     ref = np.asarray(ref)
@@ -64,7 +66,7 @@ def banded(rng, m, offsets):
 ], ids=["p1d-1000", "p3d-9", "p3d-12"])
 def test_plain_and_operator_match_pallas_and_xla(coo_args, block, rng):
     jdia = jax_dia(coo_args)
-    dia = convert.from_numpy(jdia)
+    dia = convert.from_numpy(jdia, device=DEV)
     x = rng.standard_normal(dia.shape[1])
     xt = torch.from_numpy(x)
     y_pallas = pallas(jdia, x, block)
@@ -80,7 +82,7 @@ def test_plain_and_operator_match_pallas_and_xla(coo_args, block, rng):
 def test_unsymmetric_banded_and_transpose(rng):
     m, offsets = 300, (-3, 0, 2, 5)
     jdia = banded(rng, m, offsets)
-    dia = convert.from_numpy(jdia)
+    dia = convert.from_numpy(jdia, device=DEV)
     # the host transposes agree exactly
     jt, t = jax_dia_transpose(jdia), K.dia_transpose(dia)
     assert t.offsets == jt.offsets
@@ -104,7 +106,7 @@ def test_bf16_storage_f32_compute():
     v16 = np.asarray(vals, dtype=ml_dtypes.bfloat16)
     jdia = JF.dia_from_coo(JF.coo_from_arrays(v16, rows, cols, shape),
                            device=False)
-    dia = convert.from_numpy(jdia)
+    dia = convert.from_numpy(jdia, device=DEV)
     assert dia.data.dtype == torch.bfloat16
     x = rng.standard_normal(shape[0]).astype(np.float32)
     y = K.dia_matvec(dia.data, dia.offsets, torch.from_numpy(x))
@@ -113,7 +115,7 @@ def test_bf16_storage_f32_compute():
 
 
 def test_wrapper_checks_and_counts(rng):
-    dia = convert.from_numpy(jax_dia(poisson1d_coo(50)))
+    dia = convert.from_numpy(jax_dia(poisson1d_coo(50)), device=DEV)
     x = torch.from_numpy(rng.standard_normal(50))
     before = K.DIA_LAUNCHES
     K.dia_matvec(dia.data, dia.offsets, x)

@@ -27,6 +27,8 @@ from pykrylov_tpu_torch.sparse import formats as F
 from pykrylov_tpu_torch.sparse import (jacobi_preconditioner,
                                        operator_from_coo, sparse_operator)
 
+DEV = "cpu"  # the port's entry points default to the card
+
 
 def random_coo(rng, m, n, density=0.05):
     """Random triples, duplicates included."""
@@ -95,7 +97,7 @@ def test_container_products_match(fmt, rng):
     build = {"coo": lambda c: c, "csr": JF.csr_from_coo,
              "ell": JF.ell_from_coo, "dia": JF.dia_from_coo}[fmt]
     jc = build(jc)
-    tc = convert.from_numpy(jc)
+    tc = convert.from_numpy(jc, device=DEV)
     x = rng.standard_normal(shape[1])
     y = rng.standard_normal(shape[0])
     mv = {"coo": (F.coo_matvec, JF.coo_matvec, F.coo_rmatvec,
@@ -124,7 +126,7 @@ def test_operator_from_coo_matches(fmt, rng):
     rows = np.concatenate([i, i[:-2], i[5:]])
     cols = np.concatenate([i, i[:-2] + 2, i[5:] - 5])
     vals = rng.standard_normal(len(rows))
-    t = operator_from_coo(vals, rows, cols, (m, m), fmt=fmt)
+    t = operator_from_coo(vals, rows, cols, (m, m), fmt=fmt, device=DEV)
     j = jax_operator_from_coo(vals, rows, cols, (m, m),
                               fmt="dia" if fmt == "cuda-dia" else fmt)
     assert t.fmt == fmt and t.shape == j.shape and t.dtype == torch.float64
@@ -134,7 +136,7 @@ def test_operator_from_coo_matches(fmt, rng):
                                    np.asarray(jj * jnp.asarray(x)),
                                    rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="unknown format"):
-        operator_from_coo(vals, rows, cols, (m, m), fmt="dense")
+        operator_from_coo(vals, rows, cols, (m, m), fmt="dense", device=DEV)
 
 
 def test_sparse_operator_sources_and_jacobi(rng):
@@ -142,11 +144,12 @@ def test_sparse_operator_sources_and_jacobi(rng):
     A[np.abs(A) < 0.8] = 0.0
     x = torch.from_numpy(rng.standard_normal(12))
     for src in (A, torch.from_numpy(A)):
-        np.testing.assert_allclose((sparse_operator(src) * x).numpy(),
+        np.testing.assert_allclose((sparse_operator(src, device=DEV)
+                                    * x).numpy(),
                                    A @ x.numpy(), rtol=1e-12, atol=1e-12)
-    op = sparse_operator("1138bus", symmetric=True)
+    op = sparse_operator("1138bus", symmetric=True, device=DEV)
     assert op.shape == (1138, 1138) and op.fmt == "ell"
-    t = jacobi_preconditioner("1138bus")
+    t = jacobi_preconditioner("1138bus", device=DEV)
     j = jax_jacobi_preconditioner("1138bus")
     np.testing.assert_array_equal(t.diag.numpy(), np.asarray(j.diag))
 
@@ -173,7 +176,8 @@ def test_io_and_gallery_match(tmp_path):
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_matrix_free_poisson_matches(dim, rng):
     n = {1: 30, 2: 6, 3: 4}[dim]
-    t = getattr(tgal, "poisson%dd_operator" % dim)(n, dtype=torch.float64)
+    t = getattr(tgal, "poisson%dd_operator" % dim)(n, dtype=torch.float64,
+                                                   device=DEV)
     j = getattr(jgal, "poisson%dd_operator" % dim)(n, dtype=np.float64)
     x = rng.standard_normal(t.shape[0])
     np.testing.assert_allclose((t * torch.from_numpy(x)).numpy(),

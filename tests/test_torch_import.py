@@ -19,6 +19,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import pykrylov_tpu_torch, pykrylov_tpu_torch._build\n"
         "import pykrylov_tpu_torch.sparse.kernels\n"
+        "import pykrylov_tpu_torch.sparse.bell\n"
+        "import pykrylov_tpu_torch.gallery.general\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pykrylov_tpu'))\n"
         "assert not bad, bad\n")
@@ -30,6 +32,10 @@ def test_import_loads_no_jax():
 def test_source_does_not_import_jax(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|pykrylov_tpu)\b", text,
+                         re.MULTILINE)
+    # nor the JAX package's native planner, under any spelling
+    assert "pykrylov_tpu.native" not in text
+    assert not re.search(r"^\s*from\s+\.+\s+import\s+native\b", text,
                          re.MULTILINE)
 
 
@@ -49,7 +55,59 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     # an existing library for the current sources is reused, not rebuilt
     from pykrylov_tpu_torch import _build
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
-    lib = tmp_path / ("libpykrylov_cuda_%s.so" % _build._digest())
-    lib.write_bytes(b"")
+    libs = {}
+    for name in _build.SOURCES:
+        libs[name] = str(tmp_path / ("lib%s_%s.so"
+                                     % (name, _build._digest(name))))
+        open(libs[name], "wb").close()
     monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
-    assert _build.build() == str(lib)
+    assert _build.build() == libs
+    assert _build.build("bell_spmv") == libs["bell_spmv"]
+
+
+def _public_device_defaults():
+    """(qualified name, default of ``device``) for every public function
+    and class of the port that takes a ``device``."""
+    import importlib
+    import inspect
+    import pykrylov_tpu_torch
+    out = []
+    for path in SOURCES:
+        mod = importlib.import_module(path[:-3].replace("/", ".")
+                                      .replace(".__init__", ""))
+        for name in getattr(mod, "__all__", ()):
+            obj = getattr(mod, name)
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue  # re-exported: checked where it is defined
+            fn = obj.__init__ if inspect.isclass(obj) else obj
+            if not callable(fn):
+                continue
+            try:
+                params = inspect.signature(fn).parameters
+            except (TypeError, ValueError):
+                continue
+            # a required ``device`` has no default to check
+            if "device" in params and \
+                    params["device"].default is not inspect.Parameter.empty:
+                out.append(("%s.%s" % (mod.__name__, name),
+                            params["device"].default))
+    assert pykrylov_tpu_torch  # the package imported
+    return out
+
+
+def test_public_entry_points_default_to_the_card():
+    found = _public_device_defaults()
+    names = {n.rsplit(".", 1)[1] for n, _ in found}
+    # the entry points named in the port's docs are among those checked
+    assert {"operator_from_coo", "sparse_operator", "jacobi_preconditioner",
+            "LinearOperator", "poisson3d_operator", "coo_from_arrays",
+            "from_numpy", "bell_operator", "bell_from_coo"} <= names
+    bad = [(n, d) for n, d in found if d != "cuda"]
+    assert not bad, bad
+    # nothing falls back to the CPU: without a card the default raises
+    import torch
+    from pykrylov_tpu_torch.gallery import poisson1d_coo
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            operator_from_coo(*poisson1d_coo(8))

@@ -16,6 +16,7 @@ import pykrylov_tpu_torch.ops as tops
 from pykrylov_tpu_torch.utils.types import as_dtype
 
 RTOL = 1e-13
+DEV = "cpu"  # the port's entry points default to the card
 
 
 def same(port, ref):
@@ -31,7 +32,7 @@ def mats():
 
 
 def both(M, **kw):
-    return tops.MatrixOperator(torch.from_numpy(M), **kw), \
+    return tops.MatrixOperator(torch.from_numpy(M), device=DEV, **kw), \
         jops.MatrixOperator(jnp.asarray(M), **kw)
 
 
@@ -56,7 +57,7 @@ def test_closure_operator_infers_adjoint(rng):
     Mt = torch.from_numpy(M)
     t = tops.LinearOperator(3, 2, matvec=lambda x: Mt @ x,
                             matvec_transp=lambda x: Mt.T @ x,
-                            dtype=torch.complex128)
+                            dtype=torch.complex128, device=DEV)
     j = jops.LinearOperator(3, 2, matvec=lambda x: jnp.asarray(M) @ x,
                             matvec_transp=lambda x: jnp.asarray(M).T @ x,
                             dtype=np.complex128)
@@ -69,7 +70,7 @@ def test_real_H_is_T(mats):
     t, _ = both(mats[0])
     assert t.H is t.T
     s = tops.MatrixOperator(torch.eye(2, dtype=torch.float64),
-                            symmetric=True)
+                            symmetric=True, device=DEV)
     assert s.T is s
 
 
@@ -119,13 +120,13 @@ def test_to_array(mats, rng):
     ta, ja = both(mats[0])
     tb, jb = both(mats[1])
     d = rng.standard_normal(2)
-    td = tops.DiagonalOperator(torch.from_numpy(d))
+    td = tops.DiagonalOperator(torch.from_numpy(d), device=DEV)
     jd = jops.DiagonalOperator(jnp.asarray(d))
     same((td * ta * tb + 2 * td).to_array(),
          (jd * ja * jb + 2 * jd).to_array())
     M = mats[0]
     t = tops.LinearOperator(3, 2, matvec=lambda x: torch.from_numpy(M) @ x,
-                            dtype=torch.float64)
+                            dtype=torch.float64, device=DEV)
     same(t.to_array(), M)
 
 
@@ -133,11 +134,11 @@ def test_special_operators(rng):
     d = np.array([1.0, 4.0, 9.0])
     x = rng.standard_normal(3)
     pairs = [
-        (tops.DiagonalOperator(torch.from_numpy(d)),
+        (tops.DiagonalOperator(torch.from_numpy(d), device=DEV),
          jops.DiagonalOperator(jnp.asarray(d))),
-        (tops.IdentityOperator(3, dtype=torch.float64),
+        (tops.IdentityOperator(3, dtype=torch.float64, device=DEV),
          jops.IdentityOperator(3, dtype=np.float64)),
-        (tops.ZeroOperator(3, 3, dtype=torch.float64),
+        (tops.ZeroOperator(3, 3, dtype=torch.float64, device=DEV),
          jops.ZeroOperator(3, 3, dtype=np.float64)),
     ]
     for t, j in pairs:
@@ -145,7 +146,7 @@ def test_special_operators(rng):
         same(t.T * torch.from_numpy(x), j.T * jnp.asarray(x))
         assert (t.symmetric, t.hermitian) == (j.symmetric, j.hermitian)
     dc = np.array([1.0 + 1j, 2.0 - 1j])
-    t, j = tops.DiagonalOperator(torch.from_numpy(dc)), \
+    t, j = tops.DiagonalOperator(torch.from_numpy(dc), device=DEV), \
         jops.DiagonalOperator(jnp.asarray(dc))
     assert (t.symmetric, t.hermitian) == (j.symmetric, j.hermitian)
     xc = np.array([1.0, 1j])
@@ -176,7 +177,7 @@ def test_scalar_promotion(dt):
 
 def test_shape_errors(mats):
     ta, ja = both(mats[0])
-    for op, mod in ((ta, tops), (ja, jops)):
+    for op, mod, kw in ((ta, tops, {"device": DEV}), (ja, jops, {})):
         with pytest.raises(mod.ShapeError):
             op * np.ones(5)
         with pytest.raises(mod.ShapeError):
@@ -184,13 +185,13 @@ def test_shape_errors(mats):
         with pytest.raises(mod.ShapeError):
             op ** 2
         with pytest.raises(mod.ShapeError):
-            op + mod.MatrixOperator(np.ones((3, 2)))
+            op + mod.MatrixOperator(np.ones((3, 2)), **kw)
         with pytest.raises(ValueError):
             op + 3
         with pytest.raises(ZeroDivisionError):
             op / 0
         with pytest.raises(ValueError):
-            mod.MatrixOperator(np.ones((2, 2))) ** (-1)
+            mod.MatrixOperator(np.ones((2, 2)), **kw) ** (-1)
 
 
 def test_matvec_count_and_block_apply(mats, rng):
@@ -204,8 +205,9 @@ def test_matvec_count_and_block_apply(mats, rng):
 
 
 def test_aslinearoperator(mats):
-    t = tops.aslinearoperator(mats[0])
-    assert isinstance(t, tops.MatrixOperator)
+    # a tensor stays on its device
+    t = tops.aslinearoperator(torch.from_numpy(mats[0]))
+    assert isinstance(t, tops.MatrixOperator) and t.device.type == "cpu"
     assert tops.aslinearoperator(t) is t
     with pytest.raises(ValueError):
         tops.aslinearoperator(lambda x: x)

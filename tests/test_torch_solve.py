@@ -24,10 +24,13 @@ from pykrylov_tpu_torch.sparse import kernels as K
 from pykrylov_tpu_torch.sparse import operator_from_coo
 from pykrylov_tpu_torch.sparse.linop import auto_format
 
+DEV = "cpu"  # the port's entry points default to the card
+
 
 def test_slice_matches_jax():
     vals, rows, cols, shape = poisson3d_coo(16)
-    A = operator_from_coo(vals, rows, cols, shape, symmetric=True)
+    A = operator_from_coo(vals, rows, cols, shape, symmetric=True,
+                          device=DEV)
     jA = jax_operator_from_coo(vals, rows, cols, shape, symmetric=True)
     assert A.fmt == "dia"
     assert type(jA.container).__name__ == "DIA"
@@ -75,23 +78,25 @@ def test_no_unported_knobs():
     # options of the JAX package that the port does not implement are not
     # accepted silently
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
-                         symmetric=True)
+                         symmetric=True, device=DEV)
     with pytest.raises(TypeError, match="leg_rtol"):
         cg(spd, torch.ones(3, dtype=torch.float64), leg_rtol=1e-2)
     vals, rows, cols, shape = poisson3d_coo(4)
     with pytest.raises(TypeError, match="max_diags"):
-        operator_from_coo(vals, rows, cols, shape, max_diags=100)
+        operator_from_coo(vals, rows, cols, shape, max_diags=100,
+                          device=DEV)
 
 
 def test_auto_on_cpu_keeps_plain_dia_for_large_stencils():
     vals, rows, cols, shape = poisson3d_coo(41)  # 68,921 rows
-    A = operator_from_coo(vals, rows, cols, shape, symmetric=True)
+    A = operator_from_coo(vals, rows, cols, shape, symmetric=True,
+                          device=DEV)
     assert A.fmt == "dia" and A.device.type == "cpu"
 
 
 def _indefinite():
     return DiagonalOperator(torch.tensor([2.0, -1.0, 3.0],
-                                         dtype=torch.float64))
+                                         dtype=torch.float64), device=DEV)
 
 
 @pytest.mark.parametrize("case,item", [
@@ -102,16 +107,18 @@ def _indefinite():
 ])
 def test_not_ported_branches_name_their_roadmap_item(case, item):
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
-                         symmetric=True)
+                         symmetric=True, device=DEV)
     b = torch.ones(3, dtype=torch.float64)
     calls = {
         "block_rhs": lambda: pt.solve(spd, torch.ones(3, 2,
                                                       dtype=torch.float64)),
         "verified": lambda: pt.solve(spd, b, verified=True),
         "rectangular": lambda: pt.solve(
-            MatrixOperator(torch.ones(4, 3, dtype=torch.float64)), b),
+            MatrixOperator(torch.ones(4, 3, dtype=torch.float64),
+                           device=DEV), b),
         "unsymmetric": lambda: pt.solve(
-            MatrixOperator(torch.eye(3, dtype=torch.float64)), b),
+            MatrixOperator(torch.eye(3, dtype=torch.float64),
+                           device=DEV), b),
         "indefinite_fallback": lambda: pt.solve(_indefinite(), b),
         "replace_every": lambda: cg(spd, b, replace_every=50),
     }
@@ -123,12 +130,21 @@ def test_not_ported_branches_name_their_roadmap_item(case, item):
 
 @pytest.mark.parametrize("fmt", ["bell", "bell-rcm"])
 def test_bell_formats_raise(fmt):
+    # the BELL formats are ported: they build a BELL operator on request
+    # (and no longer raise) whatever the device, and its product is A x
     vals, rows, cols, shape = poisson3d_coo(4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        operator_from_coo(vals, rows, cols, shape, fmt=fmt)
+    A = operator_from_coo(vals, rows, cols, shape, fmt=fmt, device=DEV)
+    assert A.fmt == "bell"
+    assert (A.solve_permutation is not None) == (fmt == "bell-rcm")
+    x = np.random.default_rng(1).standard_normal(shape[1])
+    dense = np.zeros(shape)
+    np.add.at(dense, (rows, cols), vals)
+    np.testing.assert_allclose((A * torch.from_numpy(x)).numpy(), dense @ x,
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_unknown_method():
     with pytest.raises(ValueError, match="unknown method"):
-        pt.solve(MatrixOperator(torch.eye(2, dtype=torch.float64)),
+        pt.solve(MatrixOperator(torch.eye(2, dtype=torch.float64),
+                                device=DEV),
                  torch.ones(2, dtype=torch.float64), method="gmres")
