@@ -7,40 +7,55 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``pykrylov_tpu_torch/csrc``, holds
-each against its plain torch version, then drives the port's two main
-paths once each, through ``operator_from_coo`` (automatic format) and
-``solve``:
+each against its plain torch version, then drives the port's main paths,
+through ``operator_from_coo`` (automatic format) and ``solve``, each with
+one right-hand side and with a block of K = 8:
 
   * DIA: CG on the 3-D Poisson matrix at n = 240 (13.8M rows, 96.4M
-    nonzeros), which the policy puts on the CUDA DIA kernel;
+    nonzeros), which the policy puts on the CUDA DIA kernels;
   * BELL: CG on 1138bus tiled 1024 times (1,165,312 rows, 4,151,296
     nonzeros, general sparsity), which the policy puts on the CUDA BELL
-    kernel.
+    kernels.
 
 Phases, in order:
 
   1. device: torch/CUDA versions, card name and power limit, TF32 off;
-  2. build: both kernel libraries from source at once, the compiler's
+  2. build: the four kernel libraries from source at once, the compiler's
      registers and spills per kernel, and the card's copy rate (a large
      ``copy_``), which sets the bounds below;
-  3. kernels vs plain on the card: DIA in f64, f32 and bf16 storage; BELL
-     on the auto policy's packings of ``bench.py``'s three matrix classes
-     at 131,072 rows and on explicit containers (int8 indices, bf16
-     storage, f64, window 2, two levels, a COO remainder);
+  3. SpMV kernels vs plain on the card: DIA in f64, f32 and bf16 storage;
+     BELL on the auto policy's packings of ``bench.py``'s three matrix
+     classes at 131,072 rows and on explicit containers (int8 indices,
+     bf16 storage, f64, window 2, two levels, a COO remainder);
+  3b. SpMM kernels vs plain on the same matrices (DIA at K = 1, 3, 8, 64,
+     BELL at K = 3, 8, 64, and the row-split and RCM operators at K = 8),
+     and every column of every block product bit for bit against the SpMV
+     kernel on that column;
   4. the DIA path: a warm-up solve, then the timed ``solve(A, b)`` with
      the kernel's launches counted from 0, the true residual in f64, one
      more solve under torch.profiler (device time by kernel, idle share),
      and the same solve through the plain DIA operator;
+  4b. the DIA block path: ``solve(A, B)`` with B = A X_true, X_true (n, 8),
+     the SpMM launches counted from 0 (= block products), every column's
+     true residual in f64 and its iterations against a single solve of
+     that column, a profiled block solve, and the block solve through the
+     plain operator;
   5. the BELL path: the same on tiled 1138bus, launches = matvecs x
      levels, the same solve through the plain BELL operator, and, in turns
      with the kernel's, through ``fmt="ell"`` (the policy's CUDA choice
      before the BELL kernel) and ``fmt="csr"``;
-  6. timing (CUDA events, best of 3 runs of chained matvecs): each kernel,
-     its plain version, the port's plain ELL operator (BELL matrices) and
-     torch's CSR matvec (cuSPARSE, timed as a yardstick only), against the
-     bound: the smaller of the matrix's
-     bytes as the kernel stores it and as CSR, plus x and y, at the
-     measured copy rate;
+  5b. the BELL block path: as 4b on tiled 1138bus, launches = block
+     products x levels;
+  6. timing (CUDA events, best of 3 runs of back-to-back calls): each SpMV
+     kernel, its plain version, the port's plain ELL operator (BELL
+     matrices) and torch's CSR matvec (cuSPARSE, timed as a yardstick
+     only), against the bound: the smaller of the matrix's bytes as the
+     kernel stores it and as CSR, plus x and y, at the measured copy rate;
+  6b. the K-curve: each SpMM kernel at K = 8, 16, 32, 64 on both matrices,
+     per block and per column, against K times its SpMV kernel, its plain
+     version, its bound (the matrix once plus K columns of X and Y) and
+     ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
+     SpMM, timed as a yardstick only);
   7. a JSON line naming the kernels, then the result line
      ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +79,11 @@ CLASS_ROWS = 1 << 17  # rows of bench.py's matrix classes
 COPY_BYTES = 1 << 30  # bytes of the copy that measures the copy rate
 DEVICE = "cuda"
 F32_TFLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+KB = 8              # right-hand sides of the block paths (phases 4b, 5b)
+DIA_MM_K = (1, 3, 8, 64)   # block widths of the DIA SpMM checks (3b)
+BELL_MM_K = (3, 8, 64)     # block widths of the BELL SpMM checks (3b)
+CURVE_K = (8, 16, 32, 64)  # block widths of the K-curve (6b)
+ITER_RTOL = 0.1     # block vs single solve, iterations per column
 
 # max|y_kernel - y_plain| / max|y_plain|.  The DIA kernel rounds each
 # product and sum as the plain version does, in the same order; the BELL
@@ -159,7 +179,7 @@ def _dia_on_card(vals, rows, cols, shape):
     return F.dia_from_coo(coo, device=DEVICE)
 
 
-def _hold(label, y, ref, dtype):
+def _hold(label, y, ref, dtype, tag="3 kernel"):
     """Hold a kernel's output against its plain version's."""
     if y.shape != ref.shape or y.dtype != ref.dtype:
         raise AssertionError("%s: kernel gave %s %s, plain %s %s"
@@ -169,16 +189,19 @@ def _hold(label, y, ref, dtype):
         raise AssertionError("%s: non-finite kernel output" % label)
     err = relerr(y, ref)
     bound = REL_BOUND[dtype]
-    log("[3 kernel] %-44s rel err %.3e (bound %.0e), max abs err %.3e"
-        % (label, err, bound, (y - ref).abs().max().item()))
+    log("[%s] %-44s rel err %.3e (bound %.0e), max abs err %.3e"
+        % (tag, label, err, bound, (y - ref).abs().max().item()))
     if not err <= bound:
         raise AssertionError("%s: relative error %.3e > %.0e"
                              % (label, err, bound))
     return (y - ref).abs().max().item()
 
 
-def _check_dia(label, data, offsets, x, plain=None):
+def _check_dia(cases, label, data, offsets, x, plain=None):
+    """The DIA SpMV kernel against its plain version; the matrix joins
+    ``cases`` for the SpMM checks of phase 3b."""
     from pykrylov_tpu_torch.sparse import kernels as K
+    cases.append((label, data, offsets))
     y = K.dia_matvec(data, offsets, x)
     torch.cuda.synchronize()
     ref = (K.dia_matvec_plain(data, offsets, x) if plain is None
@@ -193,17 +216,18 @@ def phase_dia_kernel(pt):
     from pykrylov_tpu_torch.sparse import kernels as K
 
     rng = np.random.default_rng(1)
+    cases = []
     for dtype in (torch.float64, torch.float32):
         nd = np.float64 if dtype == torch.float64 else np.float32
         dia = _dia_on_card(*poisson3d_coo(64, dtype=nd))
         x = torch.from_numpy(rng.standard_normal(dia.shape[1]).astype(nd))
-        _check_dia("DIA poisson3d(64) %s" % str(dtype)[6:], dia.data,
+        _check_dia(cases, "DIA poisson3d(64) %s" % str(dtype)[6:], dia.data,
                    dia.offsets, x.to(DEVICE))
     dia = _dia_on_card(*poisson3d_coo(64, dtype=np.float32))
     d16 = dia.data.to(torch.bfloat16)
     x = torch.from_numpy(
         rng.standard_normal(dia.shape[1]).astype(np.float32)).to(DEVICE)
-    _check_dia("DIA poisson3d(64) bf16 storage", d16, dia.offsets, x,
+    _check_dia(cases, "DIA poisson3d(64) bf16 storage", d16, dia.offsets, x,
                plain=lambda: K.dia_matvec_plain(d16.float(), dia.offsets, x))
 
     # unsymmetric banded matrix with one far diagonal, and its transpose
@@ -216,9 +240,9 @@ def phase_dia_kernel(pt):
     dia = F.DIA(torch.from_numpy(data).to(DEVICE), offsets, (m, m))
     x = torch.from_numpy(
         rng.standard_normal(m).astype(np.float32)).to(DEVICE)
-    _check_dia("DIA banded m=100003 A x", dia.data, dia.offsets, x)
+    _check_dia(cases, "DIA banded m=100003 A x", dia.data, dia.offsets, x)
     diat = K.dia_transpose(dia)
-    _check_dia("DIA banded m=100003 A^T x", diat.data, diat.offsets, x,
+    _check_dia(cases, "DIA banded m=100003 A^T x", diat.data, diat.offsets, x,
                plain=lambda: F.dia_rmatvec(dia, x))
 
     # CG through the kernel on a small system: checks the solver on the
@@ -233,6 +257,7 @@ def phase_dia_kernel(pt):
         % (bool(res.converged), int(res.n_iter)))
     if not bool(res.converged):
         raise AssertionError("CG did not converge at n=64")
+    return cases
 
 
 # bench.py's matrix classes (bench.py:278-340; bench.py imports jax, so
@@ -325,10 +350,12 @@ def _far_cluster(m, seed=51):
     return vals, rows[first], cols[first], (m, m)
 
 
-def _check_levels(label, levels, rows_out, n_in, rng):
+def _check_levels(cases, label, levels, rows_out, n_in, rng):
     """The kernel's product over a packing's levels against the plain
-    version's, on one random x."""
+    version's, on one random x; the packing joins ``cases`` for the SpMM
+    checks of phase 3b."""
     from pykrylov_tpu_torch.sparse import bell as B
+    cases.append((label, levels, rows_out, n_in))
     dtype = levels[0].data.dtype
     xdt = torch.float64 if dtype == torch.float64 else torch.float32
     x = torch.from_numpy(rng.standard_normal(n_in)).to(DEVICE, xdt)
@@ -348,6 +375,7 @@ def phase_bell_kernel(pt):
 
     rng = np.random.default_rng(2)
     classes = {}
+    cases = []
     for name, gen in CLASSES.items():
         t = gen()
         t0 = time.perf_counter()
@@ -366,7 +394,7 @@ def phase_bell_kernel(pt):
                "segmented (%d wide)" % b0.seg_mixed if b0.seg is not None
                else "monolithic", A.split_rows,
                A.solve_permutation is not None, A.fill))
-        _check_levels("BELL %s levels" % name, A.levels, A.level_rows,
+        _check_levels(cases, "BELL %s levels" % name, A.levels, A.level_rows,
                       t[3][1], rng)
         x = torch.from_numpy(rng.standard_normal(t[3][1])
                              .astype(np.float32)).to(DEVICE)
@@ -389,27 +417,93 @@ def phase_bell_kernel(pt):
                             device=DEVICE, **kw)
         if bf16:
             b = B.bell_with_values_dtype(b, torch.bfloat16)
-        _check_levels("BELL stencil_scatter %s" % label, (b,), t[3][0],
+        _check_levels(cases, "BELL stencil_scatter %s" % label, (b,), t[3][0],
                       t[3][1], rng)
     m = 1 << 16
     t = _banded(m, 8, 90, 1, np.float32)
     b = B.bell_from_coo(F.coo_from_arrays(*t, device=None), window=2,
                         spill_cost=None, device=DEVICE)
-    _check_levels("BELL banded window 2 f32", (b,), m, m, rng)
+    _check_levels(cases, "BELL banded window 2 f32", (b,), m, m, rng)
     lv = B._pack_levels(F.coo_from_arrays(*t, device=None), B.NB_MAX,
                         12.0, 2, device=DEVICE, window=2)
     if len(lv) != 2:
         raise AssertionError("expected a two-level packing, got %d"
                              % len(lv))
-    _check_levels("BELL banded two levels", lv, m, m, rng)
+    _check_levels(cases, "BELL banded two levels", lv, m, m, rng)
     t = _far_cluster(m)
     lv = B._pack_levels(F.coo_from_arrays(*t, device=None), 16, 12.0, 2,
                         device=DEVICE, window=1)
     if not lv[-1].nnz_spill:
         raise AssertionError("expected a COO remainder")
-    _check_levels("BELL banded + %d-entry remainder" % lv[-1].nnz_spill,
-                  lv, m, m, rng)
-    return classes
+    _check_levels(cases, "BELL banded + %d-entry remainder"
+                  % lv[-1].nnz_spill, lv, m, m, rng)
+    return classes, cases
+
+
+def _same_columns(label, Y, spmv, X):
+    """Every column of a block product equals the SpMV kernel on that
+    column, bit for bit."""
+    for k in range(X.shape[1]):
+        y = spmv(X[:, k].contiguous())
+        if not torch.equal(Y[:, k], y):
+            raise AssertionError(
+                "%s: column %d differs from the SpMV kernel (max abs %.3e)"
+                % (label, k, (Y[:, k] - y).abs().max().item()))
+
+
+def phase_spmm_kernels(dia_cases, bell_cases, classes):
+    """3b: the SpMM kernels against their plain versions, and column by
+    column against the SpMV kernels, on phase 3's matrices."""
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    checks = 0
+    for label, data, offsets in dia_cases:
+        xdt = torch.float64 if data.dtype == torch.float64 \
+            else torch.float32
+        n = data.shape[1]
+        for kb in DIA_MM_K:
+            X = torch.from_numpy(rng.standard_normal((n, kb))).to(DEVICE, xdt)
+            Y = K.dia_matmat(data, offsets, X)
+            torch.cuda.synchronize()
+            ref = K.dia_matmat_plain(data, offsets, X)
+            _hold("%s K=%d" % (label, kb), Y, ref, data.dtype, tag="3b spmm")
+            _same_columns(label, Y, lambda x: K.dia_matvec(data, offsets, x),
+                          X)
+            checks += 1
+    for label, levels, rows_out, n_in in bell_cases:
+        dtype = levels[0].data.dtype
+        xdt = torch.float64 if dtype == torch.float64 else torch.float32
+        for kb in BELL_MM_K:
+            X = torch.from_numpy(rng.standard_normal((n_in, kb))).to(DEVICE,
+                                                                     xdt)
+            Y = B.bell_levels_matmat(levels, X, rows_out)
+            torch.cuda.synchronize()
+            ref = B.bell_levels_matmat(levels, X, rows_out,
+                                       product=B.bell_matmat_plain)
+            _hold("%s K=%d" % (label, kb), Y, ref, dtype, tag="3b spmm")
+            del ref
+            # each level's slot product, column by column (the remainder's
+            # index_add_ sums in an unfixed order on the card)
+            for c in levels:
+                _same_columns(label, B.bell_matmat(c, X, rows_out),
+                              lambda x: B.bell_matvec(c, x, rows_out), X)
+            checks += 1
+    # the operators' block rules: the row split's fold and two-piece
+    # transpose, the RCM operator's gathers
+    for name in ("power_law", "permuted_blockdiag"):
+        A, t = classes[name]
+        X = torch.from_numpy(rng.standard_normal((t[3][1], KB)).astype(
+            np.float32)).to(DEVICE)
+        plain = A.plain()
+        _hold("BELL %s operator A X" % name, A @ X, plain @ X,
+              torch.float32, tag="3b spmm")
+        _hold("BELL %s operator A^T X" % name, A.T @ X, plain.T @ X,
+              torch.float32, tag="3b spmm")
+    log("[3b spmm] %d block products held against plain and SpMV, every "
+        "column bit for bit, in %.1f s" % (checks, time.perf_counter() - t0))
 
 
 # --------------------------------------------------------------------------
@@ -535,7 +629,7 @@ def phase_dia_path(pt):
         raise AssertionError("n_iter %d (kernel) vs %d (plain)"
                              % (n_iter, n_plain))
     return A, coo, {"launches": launches, "max_abs_err": err,
-                    "n_iter": n_iter, "solve_s": secs}
+                    "n_iter": n_iter, "solve_s": secs, "plain_op": A_plain}
 
 
 def _timed_solve(pt, label, A, b):
@@ -665,6 +759,190 @@ def phase_bell_path(pt):
                     "n_iter": n_iter, "solve_s": secs, "build_s": build_s,
                     "plain_n_iter": n_plain, "plain_solve_s": secs_plain,
                     "ms_per_iter": per_iter}
+
+
+def _block_checks(pt, tag, A, Bm, res, ax64):
+    """What phases 4b and 5b check of a block solve: convergence, a finite
+    (n, K) solution, every column's true relative residual in f64 (``ax64``
+    gives A X in f64), and every column's iterations within ITER_RTOL of a
+    single solve of that column."""
+    m, kb = Bm.shape
+    if not (bool(res.converged.all()) and int(res.istop.max()) == 0):
+        raise AssertionError("%s: block solve did not converge: istop %s"
+                             % (tag, res.istop.tolist()))
+    if res.x.shape != (m, kb) or not torch.isfinite(res.x).all():
+        raise AssertionError("%s: bad solution: shape %s"
+                             % (tag, tuple(res.x.shape)))
+    b64 = Bm.double()
+    r = b64 - ax64(res.x.double())
+    true_rel = (torch.linalg.vector_norm(r, dim=0)
+                / torch.linalg.vector_norm(b64, dim=0)).tolist()
+    del r, b64
+    log("[%s] true relative residual per column (f64): %s"
+        % (tag, " ".join("%.3e" % v for v in true_rel)))
+    if not max(true_rel) <= 1e-4:
+        raise AssertionError("%s: true relative residual %.3e > 1e-4"
+                             % (tag, max(true_rel)))
+    cols = res.info["n_iter_columns"].tolist()
+    singles = []
+    for j in range(kb):
+        one = pt.solve(A, Bm[:, j].contiguous())
+        singles.append(int(one.n_iter))
+        if not bool(one.converged):
+            raise AssertionError("%s: single solve of column %d did not "
+                                 "converge" % (tag, j))
+    log("[%s] iterations per column, block / single: %s"
+        % (tag, " ".join("%d/%d" % p for p in zip(cols, singles))))
+    for j, (c, s1) in enumerate(zip(cols, singles)):
+        if abs(c - s1) > ITER_RTOL * s1:
+            raise AssertionError("%s: column %d took %d iterations in the "
+                                 "block, %d alone" % (tag, j, c, s1))
+    n_iter = int(res.n_iter)
+    return {"n_iter": n_iter, "columns": cols, "singles": singles,
+            "true_rel": max(true_rel)}
+
+
+def _timed_block_solve(pt, A, Bm):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pt.solve(A, Bm)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_dia_block(pt, A, dia):
+    """4b: ``solve(A, B)`` for KB right-hand sides through the DIA SpMM
+    kernel."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    tag = "4b DIA block"
+    data, offsets = A.container.data, A.container.offsets
+    m = A.shape[0]
+    X_true = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (m, KB)).astype(np.float32)).to(DEVICE)
+    Bm = A @ X_true
+    torch.cuda.synchronize()
+    ref = K.dia_matmat_plain(data, offsets, X_true)
+    err = (Bm - ref).abs().max().item()
+    log("[%s] B = A X_true (%d x %d): kernel vs plain rel err %.3e, max "
+        "abs err %.3e" % (tag, m, KB, relerr(Bm, ref), err))
+    if not relerr(Bm, ref) <= REL_BOUND[torch.float32]:
+        raise AssertionError("%s: kernel disagrees with plain" % tag)
+    del ref
+    warm = pt.solve(A, Bm, maxiter=20)
+    torch.cuda.synchronize()
+    del warm
+
+    K.DIA_MM_LAUNCHES = 0
+    K.DIA_LAUNCHES = 0
+    res, secs = _timed_block_solve(pt, A, Bm)
+    launches, spmv = K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES
+    n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
+    log("[%s] solve: converged=%s n_iter=%d n_matvec=%d SpMM launches=%d "
+        "SpMV launches=%d" % (tag, res.converged.tolist(), n_iter, n_matvec,
+                              launches, spmv))
+    if launches != n_matvec or launches == 0 or spmv != 0:
+        raise AssertionError("%s: %d SpMM and %d SpMV launches for %d block "
+                             "products" % (tag, launches, spmv, n_matvec))
+    single_ms = 1e3 * dia["solve_s"] / max(dia["n_iter"], 1)
+    out = _block_checks(
+        pt, tag, A, Bm, res,
+        lambda X: K.dia_matmat_plain(data.double(), offsets, X))
+    per_iter = 1e3 * secs / max(n_iter, 1)
+    log("[%s] solve: %.3f s, %.4f ms per block iteration, %.4f ms per "
+        "column-iteration; single solve (phase 4) %.4f ms per iteration"
+        % (tag, secs, per_iter, per_iter / KB, single_ms))
+    _profile_solve(pt, tag, A, Bm, secs)
+
+    A_plain = dia.pop("plain_op")
+    before = (K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES)
+    res_p, secs_p = _timed_block_solve(pt, A_plain, Bm)
+    n_p = int(res_p.n_iter)
+    log("[%s] plain fmt=dia, column by column: converged=%s n_iter=%d, "
+        "%.3f s, %.4f ms per block iteration"
+        % (tag, res_p.converged.tolist(), n_p, secs_p,
+           1e3 * secs_p / max(n_p, 1)))
+    if (K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES) != before:
+        raise AssertionError("%s: the plain operator launched a kernel" % tag)
+    cols_p = res_p.info["n_iter_columns"].tolist()
+    if any(abs(a - b) > ITER_RTOL * b for a, b in zip(out["columns"],
+                                                        cols_p)):
+        raise AssertionError("%s: iterations %s (kernel) vs %s (plain)"
+                             % (tag, out["columns"], cols_p))
+    out.update(launches=launches, max_abs_err=err, solve_s=secs,
+               ms_per_iter=per_iter, plain_solve_s=secs_p)
+    return out
+
+
+def phase_bell_block(pt, A, coo, bell):
+    """5b: ``solve(A, B)`` for KB right-hand sides through the BELL SpMM
+    kernel."""
+    from pykrylov_tpu_torch.sparse import bell as B
+
+    tag = "5b BELL block"
+    m = A.shape[0]
+    levels = A.levels
+    X_true = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (m, KB)).astype(np.float32)).to(DEVICE)
+    Bm = A @ X_true
+    torch.cuda.synchronize()
+    ref = A.plain() @ X_true
+    err = (Bm - ref).abs().max().item()
+    log("[%s] B = A X_true (%d x %d): kernel vs plain rel err %.3e, max "
+        "abs err %.3e" % (tag, m, KB, relerr(Bm, ref), err))
+    if not relerr(Bm, ref) <= REL_BOUND[torch.float32]:
+        raise AssertionError("%s: kernel disagrees with plain" % tag)
+    del ref
+    warm = pt.solve(A, Bm, maxiter=20)
+    torch.cuda.synchronize()
+    del warm
+
+    B.BELL_MM_LAUNCHES = 0
+    B.BELL_LAUNCHES = 0
+    res, secs = _timed_block_solve(pt, A, Bm)
+    launches, spmv = B.BELL_MM_LAUNCHES, B.BELL_LAUNCHES
+    n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
+    log("[%s] solve: converged=%s n_iter=%d n_matvec=%d SpMM launches=%d "
+        "for %d level(s), SpMV launches=%d"
+        % (tag, res.converged.tolist(), n_iter, n_matvec, launches,
+           len(levels), spmv))
+    if launches != n_matvec * len(levels) or launches == 0 or spmv != 0:
+        raise AssertionError("%s: %d SpMM and %d SpMV launches for %d block "
+                             "products x %d levels"
+                             % (tag, launches, spmv, n_matvec, len(levels)))
+    rows = torch.from_numpy(coo[1]).to(DEVICE)
+    cols = torch.from_numpy(coo[2]).to(DEVICE)
+    vals = torch.from_numpy(coo[0]).to(DEVICE, torch.float64)
+
+    def ax64(X):
+        out = torch.zeros((m, X.shape[1]), dtype=torch.float64, device=DEVICE)
+        return out.index_add_(0, rows, vals[:, None] * X[cols])
+
+    single_ms = 1e3 * bell["solve_s"] / max(bell["n_iter"], 1)
+    out = _block_checks(pt, tag, A, Bm, res, ax64)
+    del rows, cols, vals
+    per_iter = 1e3 * secs / max(n_iter, 1)
+    log("[%s] solve: %.3f s, %.4f ms per block iteration, %.4f ms per "
+        "column-iteration; single solve (phase 5) %.4f ms per iteration"
+        % (tag, secs, per_iter, per_iter / KB, single_ms))
+    _profile_solve(pt, tag, A, Bm, secs)
+
+    before = (B.BELL_MM_LAUNCHES, B.BELL_LAUNCHES)
+    res_p, secs_p = _timed_block_solve(pt, A.plain(), Bm)
+    n_p = int(res_p.n_iter)
+    log("[%s] plain BELL: converged=%s n_iter=%d, %.3f s, %.4f ms per "
+        "block iteration" % (tag, res_p.converged.tolist(), n_p, secs_p,
+                             1e3 * secs_p / max(n_p, 1)))
+    if (B.BELL_MM_LAUNCHES, B.BELL_LAUNCHES) != before:
+        raise AssertionError("%s: the plain operator launched a kernel" % tag)
+    cols_p = res_p.info["n_iter_columns"].tolist()
+    if any(abs(a - b) > ITER_RTOL * b for a, b in zip(out["columns"],
+                                                        cols_p)):
+        raise AssertionError("%s: iterations %s (kernel) vs %s (plain)"
+                             % (tag, out["columns"], cols_p))
+    out.update(launches=launches, max_abs_err=err, solve_s=secs,
+               ms_per_iter=per_iter, plain_solve_s=secs_p)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -811,6 +1089,46 @@ def phase_bell_timing(A, coo, classes, rate):
     return out
 
 
+def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rate,
+                      iters):
+    """6b: the K-curve of one SpMM kernel: per block and per column at each
+    K of CURVE_K, beside K times its SpMV kernel's time, its plain version,
+    the bound and torch's CSR SpMM (cuSPARSE, a yardstick only)."""
+    vals, _, _, (m, n) = coo
+    nnz = len(vals)
+    csr = _torch_csr(coo, DEVICE)
+    csr_matrix = nnz * 8 + (m + 1) * 4
+    g = torch.Generator(device=DEVICE).manual_seed(3000)
+    curve = {}
+    for kb in CURVE_K:
+        X = torch.randn((n, kb), device=DEVICE, generator=g)
+        variants = [("kernel", lambda: mm(X)),
+                    ("plain", lambda: plain_mm(X)),
+                    ("torch CSR SpMM", lambda: torch.sparse.mm(csr, X))]
+        best = _best_ms(variants, iters)
+        # the matrix once (the smaller of its own and its CSR bytes) plus
+        # K columns of X read and of Y written, f32
+        t_bytes = (min(own_matrix, csr_matrix) + kb * (n + m) * 4) \
+            / rate * 1e3
+        t_ops = 2 * nnz * kb / F32_TFLOPS * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        point = {"ms": best["kernel"], "ms_per_column": best["kernel"] / kb,
+                 "spmv_x_k_ms": spmv_ms * kb, "plain_ms": best["plain"],
+                 "bound_ms": bound, "bound_by": by,
+                 "library_ms": best["torch CSR SpMM"]}
+        curve[kb] = point
+        log("[6b K-curve] %s K=%2d: kernel %.4f ms per block, %.5f per "
+            "column; K x SpMV %.4f; plain %.4f; torch CSR SpMM %.4f; bound "
+            "%.4f ms (%s), kernel at %.1f%% of it"
+            % (name, kb, point["ms"], point["ms_per_column"],
+               point["spmv_x_k_ms"], point["plain_ms"], point["library_ms"],
+               bound, by, 100 * bound / point["ms"]))
+        del X, variants
+    del csr
+    return curve
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -833,18 +1151,38 @@ def main():
     card = phase_device()
     phase_build()
     rate = phase_copy_rate()
-    phase_dia_kernel(pt)
-    classes = phase_bell_kernel(pt)
+    dia_cases = phase_dia_kernel(pt)
+    classes, bell_cases = phase_bell_kernel(pt)
+    phase_spmm_kernels(dia_cases, bell_cases, classes)
+    del dia_cases, bell_cases
     A_dia, coo_dia, dia = phase_dia_path(pt)
+    dia_mm = phase_dia_block(pt, A_dia, dia)
     A_bell, coo_bell, bell = phase_bell_path(pt)
+    bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
     dia_best, dia_bound, dia_by = phase_dia_timing(A_dia, coo_dia, rate)
-    del A_dia, coo_dia
+
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import kernels as K
+    data, offsets = A_dia.container.data, A_dia.container.offsets
+    dia_curve = phase_spmm_timing(
+        "DIA n=%d" % N, lambda X: K.dia_matmat(data, offsets, X),
+        lambda X: K.dia_matmat_plain(data, offsets, X), coo_dia,
+        data.shape[0] * data.shape[1] * 4, dia_best["kernel f32"], rate, 10)
+    del A_dia, coo_dia, data
     bell_times = phase_bell_timing(A_bell, coo_bell, classes, rate)
+    bt, b_bound, b_by = bell_times["tiled_1138bus"]
+    levels, rows_out = A_bell.levels, A_bell.level_rows
+    bell_curve = phase_spmm_timing(
+        "BELL tiled_1138bus",
+        lambda X: B.bell_levels_matmat(levels, X, rows_out),
+        lambda X: B.bell_levels_matmat(levels, X, rows_out,
+                                       product=B.bell_matmat_plain),
+        coo_bell, sum(B.bell_stream_bytes(b) + B.bell_map_bytes(b)
+                      for b in levels), bt["kernel"], rate, 20)
     if any(m.split(".")[0] in ("jax", "jaxlib", "pykrylov_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
-    bt, b_bound, b_by = bell_times["tiled_1138bus"]
     kernels = [{
         "name": "dia_spmv",
         "route": "cuda",
@@ -876,10 +1214,35 @@ def main():
         "plain_ell_ms": bt["plain ELL"],
         "solve_ms_per_iter": bell["ms_per_iter"],
     }]
-    log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s; BELL "
-        "tiled 1138bus: %d iterations in %.3f s; smoke took %.1f s"
-        % (card, N, dia["n_iter"], dia["solve_s"], bell["n_iter"],
-           bell["solve_s"], time.perf_counter() - t_start))
+    for name, src, replaces, path, curve in (
+            ("dia_spmm", "dia_spmm.cu", "pykrylov_tpu/sparse/kernels.py:355",
+             dia_mm, dia_curve),
+            ("bell_spmm", "bell_spmm.cu", "pykrylov_tpu/sparse/bell.py:1405",
+             bell_mm, bell_curve)):
+        at = curve[KB]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pykrylov_tpu_torch/csrc/" + src,
+            "replaces": replaces,
+            "launches": path["launches"],
+            "max_abs_err": path["max_abs_err"],
+            "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"],
+            "k": KB,
+            "k_curve": {str(k): v for k, v in curve.items()},
+            "solve_ms_per_block_iter": path["ms_per_iter"],
+        })
+    log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s, K=%d "
+        "block %d in %.3f s; BELL tiled 1138bus: %d iterations in %.3f s, "
+        "K=%d block %d in %.3f s; smoke took %.1f s"
+        % (card, N, dia["n_iter"], dia["solve_s"], KB, dia_mm["n_iter"],
+           dia_mm["solve_s"], bell["n_iter"], bell["solve_s"], KB,
+           bell_mm["n_iter"], bell_mm["solve_s"],
+           time.perf_counter() - t_start))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@ tensor code is PyTorch; each Pallas kernel becomes a CUDA kernel written
 for Hopper, compiled from ``csrc/`` at first use.  This package imports
 torch and NumPy, never JAX.
 
-Ported so far: the operator layer, CG, the sparse containers with their
-plain products, the CUDA DIA SpMV kernel, automatic format choice,
-MatrixMarket reading, the bundled matrices, the Poisson gallery and
-``solve(A, b)`` for symmetric positive definite systems.
+Ported so far: the operator layer with native block products, CG and
+block-batched CG, the sparse containers with their plain products, the
+CUDA DIA and BELL SpMV and SpMM kernels, automatic format choice,
+MatrixMarket reading, the bundled matrices, the Poisson and tiled
+galleries, and ``solve(A, b)`` for symmetric positive definite systems
+with one right-hand side or an (n, K) block of them.
 """
 
 from .version import __version__

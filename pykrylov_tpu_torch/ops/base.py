@@ -18,8 +18,11 @@ held on an explicit ``device``.  The semantics are the reference's
   * shape-checked application raising ``ShapeError`` (``linop.py:271-298``);
   * a host-side application counter ``nMatvec``.
 
-A 2-D right-hand side is applied column by column through the matvec; the
-block-product kernels arrive with the batched solver family.
+A 2-D operand ``(n, K)`` goes through the operator's native block product
+(``matmat=``) when it has one, so a sparse kernel streams A once for all K
+columns (``ops/base.py:183-221,267-296,347-374`` of the JAX package); the
+rule propagates through ``.T``/``.H``, scaling, products, sums and powers,
+and an operator without one is applied column by column.
 """
 
 from __future__ import annotations
@@ -150,21 +153,59 @@ def _scaled(alpha, rdt, y):
     return y.to(torch.promote_types(y.dtype, rdt)) * alpha
 
 
+def _block_apply(op, fn, X):
+    """Apply one of ``op``'s 1-D rules to an (n, K) block: its native
+    block rule when it has one, else column by column."""
+    mm = op._mm_for(fn)
+    if mm is not None:
+        return mm(X)
+    return torch.stack([_apply_fn(fn, X[:, j]) for j in range(X.shape[1])],
+                       dim=1)
+
+
+def _scale_mm(op, fn, value, rdt):
+    return lambda X: _scaled(value, rdt, _block_apply(op, fn, X))
+
+
+def _compose_mm(left, left_fn, right, right_fn):
+    return lambda X: _block_apply(left, left_fn,
+                                  _block_apply(right, right_fn, X))
+
+
+def _add_mm(a, fa, b, fb):
+    return lambda X: _block_apply(a, fa, X) + _block_apply(b, fb, X)
+
+
+def _pow_mm(op, fn, k):
+    def mm(X):
+        for _ in range(k):
+            X = _block_apply(op, fn, X)
+        return X
+    return mm
+
+
 class LinearOperator(BaseLinearOperator):
     """A linear operator ``y = A @ x`` given by its product closures.
 
     Constructor mirrors the reference signature (``linop/linop.py:114``):
     ``LinearOperator(nargin, nargout, matvec, matvec_transp=None,
     matvec_adj=None, symmetric=..., hermitian=...)`` with each product a
-    function of the vector alone.
+    function of the vector alone.  ``matmat``/``matmat_transp`` are the
+    optional native block products ``A @ X`` and ``A.T @ X`` on (n, K)
+    blocks; a symmetric operator's transpose rule defaults to ``matmat``.
     """
 
     def __init__(self, nargin, nargout, matvec, matvec_transp=None,
                  matvec_adj=None, symmetric=False, hermitian=False,
-                 dtype=None, name=None, device="cuda"):
+                 dtype=None, name=None, device="cuda", matmat=None,
+                 matmat_transp=None):
         super().__init__(nargin, nargout, symmetric=symmetric,
                          hermitian=hermitian, dtype=dtype, name=name,
                          device=device)
+        if self.symmetric and matmat_transp is None:
+            matmat_transp = matmat
+        self._mm = matmat
+        self._rmm = matmat_transp
         mv, rmv, hmv = matvec, matvec_transp, matvec_adj
         # Fill in transpose/adjoint rules from symmetry and conjugation,
         # mirroring linop/linop.py:148-254.
@@ -193,7 +234,7 @@ class LinearOperator(BaseLinearOperator):
 
     def _like(self, nargin, nargout, matvec, matvec_transp=None,
               matvec_adj=None, symmetric=False, hermitian=False, dtype=None,
-              suffix=None):
+              suffix=None, matmat=None, matmat_transp=None):
         """A derived operator on this operator's device."""
         return LinearOperator(
             nargin, nargout, matvec, matvec_transp, matvec_adj,
@@ -201,13 +242,23 @@ class LinearOperator(BaseLinearOperator):
             dtype=self.dtype if dtype is None else dtype,
             name=None if (self.name is None or suffix is None)
             else self.name + suffix,
-            device=self.device)
+            device=self.device, matmat=matmat, matmat_transp=matmat_transp)
 
     # -- core application --------------------------------------------------
     def _as_tensor(self, x):
         if isinstance(x, torch.Tensor):
             return x
         return to_tensor(x, device=self.device)
+
+    def _mm_for(self, fn):
+        """The native block rule matching the 1-D rule ``fn``, or None.
+        The adjoint reuses the transpose's block rule where the two 1-D
+        rules are one (real dtypes)."""
+        if fn is self._mv:
+            return self._mm
+        if fn is self._rmv or (fn is self._hmv and self._hmv is self._rmv):
+            return self._rmm
+        return None
 
     def _apply(self, fn, x, in_dim, out_dim):
         x = self._as_tensor(x)
@@ -216,11 +267,7 @@ class LinearOperator(BaseLinearOperator):
                 "operator %s cannot be applied to array of shape %s"
                 % (repr(self), (tuple(x.shape),)))
         self._nMatvec += 1
-        if x.ndim == 1:
-            y = _apply_fn(fn, x)
-        else:  # one column at a time through the 1-D product
-            y = torch.stack([_apply_fn(fn, x[:, j])
-                             for j in range(x.shape[1])], dim=1)
+        y = _apply_fn(fn, x) if x.ndim == 1 else _block_apply(self, fn, x)
         if y.shape[0] != out_dim:
             raise ShapeError(
                 "operator %s produced array of leading dim %d, expected %d"
@@ -255,7 +302,8 @@ class LinearOperator(BaseLinearOperator):
         t = self._like(
             self.nargout, self.nargin, self._rmv, self._mv,
             _conj_mv(self._mv) if self._rmv is not None else None,
-            symmetric=self.symmetric, hermitian=self.hermitian, suffix=".T")
+            symmetric=self.symmetric, hermitian=self.hermitian, suffix=".T",
+            matmat=self._rmm, matmat_transp=self._mm)
         t._transpose_of = self
         self._transpose_of = t
         return t
@@ -315,7 +363,10 @@ class LinearOperator(BaseLinearOperator):
             (lambda x: _scaled(conj_value, rdt, _apply_fn(hmv, x)))
             if hmv is not None else None,
             symmetric=self.symmetric,
-            hermitian=self.hermitian and not rdt.is_complex, dtype=rdt)
+            hermitian=self.hermitian and not rdt.is_complex, dtype=rdt,
+            matmat=_scale_mm(self, mv, value, rdt),
+            matmat_transp=_scale_mm(self, rmv, value, rdt)
+            if rmv is not None else None)
 
     def _mul_linop(self, other):
         if self.nargin != other.nargout:
@@ -330,7 +381,10 @@ class LinearOperator(BaseLinearOperator):
             if (a._rmv is not None and b._rmv is not None) else None,
             (lambda x: _apply_fn(b._hmv, _apply_fn(a._hmv, x)))
             if (a._hmv is not None and b._hmv is not None) else None,
-            dtype=result_type(self.dtype, other.dtype))
+            dtype=result_type(self.dtype, other.dtype),
+            matmat=_compose_mm(a, a._mv, b, b._mv),
+            matmat_transp=_compose_mm(b, b._rmv, a, a._rmv)
+            if (a._rmv is not None and b._rmv is not None) else None)
 
     def __mul__(self, x):
         if isinstance(x, BaseLinearOperator):
@@ -367,7 +421,10 @@ class LinearOperator(BaseLinearOperator):
             both(a._rmv, b._rmv), both(a._hmv, b._hmv),
             symmetric=a.symmetric and b.symmetric,
             hermitian=a.hermitian and b.hermitian,
-            dtype=result_type(a.dtype, b.dtype))
+            dtype=result_type(a.dtype, b.dtype),
+            matmat=_add_mm(a, a._mv, b, b._mv),
+            matmat_transp=_add_mm(a, a._rmv, b, b._rmv)
+            if (a._rmv is not None and b._rmv is not None) else None)
 
     def __neg__(self):
         return self._mul_scalar(-1)
@@ -410,7 +467,10 @@ class LinearOperator(BaseLinearOperator):
         return self._like(self.nargin, self.nargout, power(self._mv),
                           power(self._rmv), power(self._hmv),
                           symmetric=self.symmetric,
-                          hermitian=self.hermitian)
+                          hermitian=self.hermitian,
+                          matmat=_pow_mm(self, self._mv, k),
+                          matmat_transp=_pow_mm(self, self._rmv, k)
+                          if self._rmv is not None else None)
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +503,8 @@ class DiagonalOperator(LinearOperator):
                          matvec_adj=(lambda x: conj * x) if is_complex
                          else None,
                          symmetric=True, hermitian=not is_complex,
-                         dtype=diag.dtype, device=diag.device, **kwargs)
+                         dtype=diag.dtype, device=diag.device,
+                         matmat=lambda X: diag[:, None] * X, **kwargs)
         self.diag = diag
 
 
@@ -472,9 +533,14 @@ def _dense_product(A, x):
     return torch.mv(A.to(ct), x.to(ct))
 
 
+def _dense_block(A, X):
+    ct = torch.promote_types(A.dtype, X.dtype)
+    return torch.matmul(A.to(ct), X.to(ct))
+
+
 class MatrixOperator(LinearOperator):
     """Dense-matrix operator (``linop_from_ndarray``,
-    ``linop.py:723-745``)."""
+    ``linop.py:723-745``); its block product is one dense matmul."""
 
     def __init__(self, A, symmetric=False, hermitian=False, device="cuda",
                  **kwargs):
@@ -488,7 +554,10 @@ class MatrixOperator(LinearOperator):
                          matvec_transp=lambda x: _dense_product(At, x),
                          matvec_adj=lambda x: _dense_product(Ah, x),
                          symmetric=symmetric, hermitian=hermitian,
-                         dtype=A.dtype, device=A.device, **kwargs)
+                         dtype=A.dtype, device=A.device,
+                         matmat=lambda X: _dense_block(A, X),
+                         matmat_transp=lambda X: _dense_block(At, X),
+                         **kwargs)
         self.matrix = A
 
     def to_array(self):

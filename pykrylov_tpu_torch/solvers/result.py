@@ -19,6 +19,9 @@ __all__ = ["SolveResult"]
 class SolveResult:
     """Result of a Krylov solve.
 
+    Fields that are scalars for one right-hand side are (K,) tensors, one
+    entry per column, for a block solve (``cg_batched``).
+
     Attributes
     ----------
     x : solution estimate (the reference's ``bestSolution``).
@@ -54,6 +57,12 @@ class SolveResult:
         return self.resid_history[: int(self.n_iter) + 1].tolist()
 
     def __repr__(self):
+        if self.converged.ndim:     # a block solve: one entry per column
+            return ("SolveResult(converged=%s, istop=%s, n_iter=%d, "
+                    "n_matvec=%d, resid=[%s])") % (
+                self.converged.tolist(), self.istop.tolist(),
+                int(self.n_iter), int(self.n_matvec),
+                ", ".join("%.3e" % r for r in self.resid_norm.tolist()))
         return ("SolveResult(converged=%s, istop=%d, n_iter=%d, "
                 "n_matvec=%d, resid=%.3e)") % (
             bool(self.converged), int(self.istop), int(self.n_iter),

@@ -26,13 +26,16 @@ Layout, as the JAX package defines it:
     remainder (``sp_row/sp_col/sp_val``), added outside the kernel.
 
 The product runs through ``csrc/bell_spmv.cu`` (:func:`bell_matvec`; it
-replaces the TPU kernel ``_bell_kernel``), one thread per output row.  For
-that kernel the packer adds one thing the JAX container does not have: a
-CSR map from each (step, block) pair to its 4-row groups in ascending
-position (``grp_ptr``, ``grp_idx``).  The TPU kernel's one-hot staging
-modes (``stage=``, ``passes=``) and its call-time VMEM guard have no
-counterpart.  A 2-D operand is applied column by column: the SpMM kernel
-is still to be ported.
+replaces the TPU kernel ``_bell_kernel``), one thread per output row, and
+an (n, K) block through ``csrc/bell_spmm.cu`` (:func:`bell_matmat`; it
+replaces ``_bell_mm_kernel``), which reads the slot stream once for a
+tile of up to 32 columns.  For these kernels the packer adds one thing
+the JAX container does not have: a CSR map from each (step, block) pair
+to its 4-row groups in ascending position (``grp_ptr``, ``grp_idx``).
+The TPU kernels' one-hot staging modes (``stage=``, ``passes=``), their
+call-time VMEM guard, the band-major layout of X (``_to_band_major``) and
+the K chunking of wide blocks (``_mm_kmax``, ``lax.map``) have no
+counterpart.
 
 The planners run in NumPy; ``device=None`` keeps a container's arrays in
 NumPy, any other device gives tensors there.
@@ -56,8 +59,9 @@ __all__ = ["BELL", "SpanError", "BELL_LAUNCHES", "BellOperator",
            "bell_from_coo", "bell_to_device", "bell_fill",
            "bell_stream_bytes", "bell_map_bytes", "bell_with_values_dtype",
            "bell_with_idx_fmt", "bell_to_dense", "bell_matvec",
-           "bell_matvec_plain", "bell_levels_matvec", "bell_operator",
-           "reorder_rcm", "LANES"]
+           "bell_matvec_plain", "bell_levels_matvec", "BELL_MM_LAUNCHES",
+           "bell_matmat", "bell_matmat_plain", "bell_levels_matmat",
+           "bell_operator", "reorder_rcm", "LANES"]
 
 LANES = 128     # matrix rows per block (lane dimension)
 NB_MAX = 1024   # window budget in 128-column bands
@@ -65,9 +69,11 @@ GS_TARGET = 1024  # sublane rows per grid step the packer aims for
 SEG_ROWS = 256   # sublane rows per staging segment (segmented mode)
 SEG_BANDS = 256  # x bands staged per segment (segmented mode)
 
-# Launches of the BELL kernel in this process; the wrapper adds one per
-# launch and nothing else touches it except a caller resetting it.
+# Launches of the BELL SpMV and SpMM kernels in this process; each wrapper
+# adds one per launch and nothing else touches them except a caller
+# resetting them.
 BELL_LAUNCHES = 0
+BELL_MM_LAUNCHES = 0
 
 
 class SpanError(ValueError):
@@ -951,30 +957,39 @@ _ENTRY = {
     (torch.bfloat16, torch.float32): "bell_spmv_bf16",
     (torch.float64, torch.float64): "bell_spmv_f64",
 }
+_MM_ENTRY = {key: name.replace("spmv", "spmm")
+             for key, name in _ENTRY.items()}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name):
-    fn = getattr(_build.load("bell_spmv"), name)
+    source = name[:9]                  # "bell_spmv" or "bell_spmm"
+    fn = getattr(_build.load(source), name)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # the SpMM entry takes the block's column count before `accumulate`
+    kcols = [i32] if source == "bell_spmm" else []
     fn.argtypes = [p, p, i32, p, i64, p, p, i32, p, p, p, i64, p, i64,
-                   i32, i32, i32, i32, p]
+                   i32, i32, i32] + kcols + [i32, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check_mv(b, x, rows_out, out):
-    if len(b.data.shape) != 3 or x.ndim != 1:
+    """Shape checks of a product over one container; ``x`` is (n,) or, for
+    the block product, (n, K).  Returns the number of output rows."""
+    block = x.ndim == 2
+    if len(b.data.shape) != 3 or x.ndim not in (1, 2):
         raise ValueError("bell_matvec expects data (nsteps, GS, 128) and "
-                         "x (n,), got %s and %s"
+                         "x (n,) or (n, K), got %s and %s"
                          % (tuple(b.data.shape), tuple(x.shape)))
     rows = b.padded_shape[0] if rows_out is None else int(rows_out)
     if not 0 < rows <= b.padded_shape[0]:
         raise ValueError("rows_out %d outside (0, %d]"
                          % (rows, b.padded_shape[0]))
-    if out is not None and tuple(out.shape) != (rows,):
-        raise ValueError("out has shape %s, expected (%d,)"
-                         % (tuple(out.shape), rows))
+    want = (rows, x.shape[1]) if block else (rows,)
+    if out is not None and tuple(out.shape) != want:
+        raise ValueError("out has shape %s, expected %s"
+                         % (tuple(out.shape), want))
     return rows
 
 
@@ -988,14 +1003,14 @@ def _natural_blocks(blocks):
     return nat
 
 
-def bell_matvec_plain(b: BELL, x, rows_out=None, out=None):
-    """Plain torch version of the kernel: gather, product, fold each 4-row
-    group, ``index_add_`` the group sums into ``nsteps*(nblk+1)`` block
-    rows, drop the dummy row.  The COO remainder is not included (see
-    :func:`bell_levels_matvec`).  Returns the first ``rows_out`` rows, or
-    adds them into ``out`` and returns it."""
+def _plain_product(b: BELL, x, rows_out, out):
+    """The plain product over one container for x of shape (n,) or (n,
+    K): gather, product, fold each 4-row group, ``index_add_`` the group
+    sums into ``nsteps*(nblk+1)`` block rows, drop the dummy row; a block
+    carries its K columns as a trailing axis."""
     rows = _check_mv(b, x, rows_out, out)
     nsteps, GS, L = b.data.shape
+    tail = tuple(x.shape[1:])            # () or (K,)
     ct = torch.promote_types(b.data.dtype, x.dtype)
     x = x.to(ct)
     dev = b.data.device
@@ -1010,43 +1025,95 @@ def bell_matvec_plain(b: BELL, x, rows_out=None, out=None):
         base = base + torch.where(s >= 0, s, torch.zeros_like(s))
     col = ((b.band_lo.long()[:, None] + base) * LANES)[:, :, None] + idx
     inside = (col >= 0) & (col < x.shape[0])
+    inside = inside.reshape(inside.shape + (1,) * len(tail))
     xv = torch.where(inside, x[col.clamp(0, max(x.shape[0] - 1, 0))],
                      torch.zeros((), dtype=ct, device=dev))
-    gsum = (b.data.to(ct) * xv).reshape(nsteps, GS // 4, 4, L).sum(dim=2)
+    vals = b.data.to(ct).reshape(b.data.shape + (1,) * len(tail))
+    gsum = (vals * xv).reshape((nsteps, GS // 4, 4, L) + tail).sum(dim=2)
     target = (torch.arange(nsteps, device=dev)[:, None] * (b.nblk + 1)
               + _natural_blocks(b.blocks).long())
-    ys = torch.zeros(nsteps * (b.nblk + 1), L, dtype=ct, device=dev)
-    ys.index_add_(0, target.reshape(-1), gsum.reshape(-1, L))
-    y = ys.reshape(nsteps, b.nblk + 1, L)[:, :b.nblk].reshape(-1)[:rows]
+    ys = torch.zeros((nsteps * (b.nblk + 1), L) + tail, dtype=ct,
+                     device=dev)
+    ys.index_add_(0, target.reshape(-1), gsum.reshape((-1, L) + tail))
+    y = ys.reshape((nsteps, b.nblk + 1, L) + tail)[:, :b.nblk].reshape(
+        (-1,) + tail)[:rows]
     return y if out is None else out.add_(y)
+
+
+def bell_matvec_plain(b: BELL, x, rows_out=None, out=None):
+    """Plain torch version of the SpMV kernel: gather, product, fold each
+    4-row group, ``index_add_`` the group sums into ``nsteps*(nblk+1)``
+    block rows, drop the dummy row.  The COO remainder is not included
+    (see :func:`bell_levels_matvec`).  Returns the first ``rows_out``
+    rows, or adds them into ``out`` and returns it."""
+    if x.ndim != 1:
+        raise ValueError("bell_matvec_plain expects x (n,), got %s"
+                         % (tuple(x.shape),))
+    return _plain_product(b, x, rows_out, out)
+
+
+def bell_matmat_plain(b: BELL, X, rows_out=None, out=None):
+    """Plain torch version of the SpMM kernel: :func:`bell_matvec_plain`'s
+    gather and ``index_add_`` on a trailing axis of K columns.  Returns
+    the first ``rows_out`` rows of ``A_slots X`` (rows_out, K), or adds
+    them into ``out`` and returns it."""
+    if X.ndim != 2:
+        raise ValueError("bell_matmat_plain expects X (n, K), got %s"
+                         % (tuple(X.shape),))
+    return _plain_product(b, X, rows_out, out)
 
 
 def bell_matvec(b: BELL, x, rows_out=None, out=None):
     """One level's slot product ``y = A_slots x`` (first ``rows_out``
     rows; added into ``out`` when given): the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors; anything else raises."""
+    if x.ndim != 1:
+        raise ValueError("bell_matvec expects x (n,), got %s"
+                         % (tuple(x.shape),))
+    return _product(b, x, rows_out, out, bell_matvec_plain)
+
+
+def bell_matmat(b: BELL, X, rows_out=None, out=None):
+    """One level's slot block product ``Y = A_slots X`` for an (n, K)
+    block (first ``rows_out`` rows; added into ``out`` when given),
+    streaming the slots once for up to 32 columns: the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors; anything else
+    raises."""
+    if X.ndim != 2:
+        raise ValueError("bell_matmat expects X (n, K), got %s"
+                         % (tuple(X.shape),))
+    return _product(b, X, rows_out, out, bell_matmat_plain)
+
+
+def _product(b, x, rows_out, out, plain):
     _check_mv(b, x, rows_out, out)
     if b.data.device.type == "cpu" and x.device.type == "cpu":
-        return bell_matvec_plain(b, x, rows_out, out)
+        return plain(b, x, rows_out, out)
     if b.data.device.type != "cuda" or x.device != b.data.device:
-        raise ValueError("bell_matvec: data on %s and x on %s; the kernel "
+        raise ValueError("bell_mat%s: data on %s and x on %s; the kernel "
                          "takes both on one CUDA device"
-                         % (b.data.device, x.device))
+                         % ("vec" if x.ndim == 1 else "mat", b.data.device,
+                            x.device))
     return _launch(b, x, rows_out, out)
 
 
 def _launch(b, x, rows_out, out):
-    global BELL_LAUNCHES
+    """Launch the SpMV kernel for a 1-D x, the SpMM kernel for an (n, K)
+    block."""
+    global BELL_LAUNCHES, BELL_MM_LAUNCHES
+    block = x.ndim == 2
     ct = torch.promote_types(b.data.dtype, x.dtype)
-    name = _ENTRY.get((b.data.dtype, ct))
+    name = (_MM_ENTRY if block else _ENTRY).get((b.data.dtype, ct))
     if name is None:
-        raise TypeError("the BELL kernel takes f32, bf16 or f64 values with "
+        raise TypeError("the BELL kernels take f32, bf16 or f64 values with "
                         "an f32 or f64 product, not %s values with %s x"
                         % (b.data.dtype, x.dtype))
     if b.grp_ptr is None:
         raise ValueError("the BELL kernel needs the container's group map "
                          "(bell_from_coo and convert.from_numpy build it)")
     x = x.to(ct)
+    if block:
+        x = x.contiguous()              # the SpMM kernel reads X row-major
     arrays = [b.data, b.lanes, b.bands, b.band_lo, b.grp_ptr, b.grp_idx, x]
     if b.seg is not None:
         arrays.append(b.seg)
@@ -1054,16 +1121,20 @@ def _launch(b, x, rows_out, out):
         raise ValueError("the BELL kernel needs contiguous arrays on one "
                          "device")
     rows = b.padded_shape[0] if rows_out is None else int(rows_out)
+    shape = (rows,) + tuple(x.shape[1:])
     if out is None:
-        y = torch.empty(rows, dtype=ct, device=x.device)
+        y = torch.empty(shape, dtype=ct, device=x.device)
     elif out.dtype != ct or out.device != x.device or \
             not out.is_contiguous():
         raise ValueError("out must be a contiguous %s tensor on %s"
                          % (ct, x.device))
     else:
         y = out
+    if block and x.shape[1] == 0:
+        return y
     nsteps, GS, _ = b.data.shape
     fn = _entry(name)
+    kcols = (int(x.shape[1]),) if block else ()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(b.data.data_ptr(), b.lanes.data_ptr(),
@@ -1074,26 +1145,41 @@ def _launch(b, x, rows_out, out):
                  0 if b.seg is None else int(b.seg.shape[1]),
                  b.grp_ptr.data_ptr(), b.grp_idx.data_ptr(),
                  x.data_ptr(), x.shape[0], y.data_ptr(), rows,
-                 nsteps, GS, b.nblk, int(out is not None), stream)
+                 nsteps, GS, b.nblk, *kcols, int(out is not None), stream)
     if err != 0:
-        raise RuntimeError("BELL kernel launch failed with CUDA error %d"
-                           % err)
-    BELL_LAUNCHES += 1
+        raise RuntimeError("BELL %s kernel launch failed with CUDA error %d"
+                           % ("SpMM" if block else "SpMV", err))
+    if block:
+        BELL_MM_LAUNCHES += 1
+    else:
+        BELL_LAUNCHES += 1
     return y
 
 
 def bell_levels_matvec(levels, x, rows_out, product=bell_matvec):
     """``A x`` over a packing's levels: each level's slot product (the
     second and later ones added into the first's ``y``) and its COO
-    remainder, in the promoted dtype of the values and x."""
+    remainder, in the promoted dtype of the values and x.  An (n, K) block
+    goes through :func:`bell_levels_matmat`'s arithmetic when ``product``
+    is a block product."""
     ct = torch.promote_types(levels[0].data.dtype, x.dtype)
     x = x.to(ct)
+    tail = (1,) * (x.ndim - 1)
     y = None
     for c in levels:
         y = product(c, x, rows_out, out=y)
         if c.nnz_spill:
-            y.index_add_(0, c.sp_row, c.sp_val.to(ct) * x[c.sp_col])
+            y.index_add_(0, c.sp_row, c.sp_val.to(ct).reshape((-1,) + tail)
+                         * x[c.sp_col])
     return y
+
+
+def bell_levels_matmat(levels, X, rows_out, product=bell_matmat):
+    """``A X`` for an (n, K) block over a packing's levels: each level's
+    slot block product (later ones added into the first's ``Y``) and its
+    COO remainder, added for every column with one ``index_add_`` on
+    (rows, K)."""
+    return bell_levels_matvec(levels, X, rows_out, product)
 
 
 # ---------------------------------------------------------------------------
@@ -1314,9 +1400,10 @@ def _split_transpose_levels(coo_k, M0, nb_max, sc, levels, window,
 
 class BellOperator(LinearOperator):
     """LinearOperator whose products run over BELL levels
-    (:func:`bell_levels_matvec`): the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors, or the plain version everywhere with
-    ``plain=True`` (see :meth:`plain`).
+    (:func:`bell_levels_matvec`, and :func:`bell_levels_matmat` on (n, K)
+    blocks): the CUDA kernels on CUDA tensors, the plain versions on CPU
+    tensors, or the plain versions everywhere with ``plain=True`` (see
+    :meth:`plain`).
 
     ``fwd``/``bwd`` are the levels of A and A^T (``bwd`` None: symmetric,
     or no transpose).  ``split=(heavy, M0)``: a row-split packing, whose
@@ -1325,7 +1412,10 @@ class BellOperator(LinearOperator):
     operator applies ``A = P^T A' P`` by two gathers per product;
     ``solve_permutation = (p, ip, inner)`` lets ``solve()`` work in the
     permuted space instead.  ``bwd_ell``: an ELL container of A^T for
-    the transpose product.
+    the transpose product, which applies a block column by column.
+    Every other product has its block twin, as the JAX package's
+    ``_bell_mm_factory``, ``_bell_mm_perm_factory`` and the split rules
+    ``_bell_split_mm_factory``/``_bell_split_rmm_factory`` give it.
     """
 
     fmt = "bell"
@@ -1336,56 +1426,66 @@ class BellOperator(LinearOperator):
                           symmetric=symmetric, perm=perm, split=split,
                           bwd_ell=bwd_ell)
         m, n = shape
-        product = bell_matvec_plain if plain else bell_matvec
+        vec = bell_matvec_plain if plain else bell_matvec
+        mat = bell_matmat_plain if plain else bell_matmat
 
-        def levels_mv(lv, rows_out):
-            return lambda x: bell_levels_matvec(lv, x, rows_out, product)
+        def levels_rules(lv, rows_out):
+            """(1-D rule, block rule) over the levels ``lv``."""
+            return (lambda x: bell_levels_matvec(lv, x, rows_out, vec),
+                    lambda X: bell_levels_matmat(lv, X, rows_out, mat))
 
-        rmv = None
+        bwd_rules = None
         H = 0
         if split is not None:
             heavy, M0 = split
             H = int(heavy.shape[0])
-            inner = levels_mv(fwd, M0 + H * LANES)
 
-            def mv(x):
-                y = inner(x)
-                hv = y[M0:].reshape(H, LANES).sum(dim=1)
-                return y[:m].index_add_(0, heavy, hv)
+            def fold(inner):
+                # each heavy row's 128 virtual lanes sum back into its row
+                def rule(x):
+                    y = inner(x)
+                    hv = y[M0:].reshape((H, LANES) + tuple(y.shape[1:]))
+                    return y[:m].index_add_(0, heavy, hv.sum(dim=1))
+                return rule
 
+            def spread(inner_l, inner_a):
+                # A^T x = L^T x + Av^T (x[heavy] over its block's lanes)
+                return lambda x: inner_l(x) + inner_a(
+                    x[heavy].repeat_interleave(LANES, dim=0))
+
+            fwd_rules = tuple(fold(r) for r in
+                              levels_rules(fwd, M0 + H * LANES))
             if bwd is not None:
-                inner_l, inner_a = levels_mv(bwd[0], n), levels_mv(bwd[1], n)
-
-                def rmv(x):
-                    return inner_l(x) + inner_a(
-                        x[heavy].repeat_interleave(LANES))
+                bwd_rules = tuple(spread(rl, ra) for rl, ra in zip(
+                    levels_rules(bwd[0], n), levels_rules(bwd[1], n)))
         else:
-            mv = levels_mv(fwd, m)
+            fwd_rules = levels_rules(fwd, m)
             if bwd is not None:
-                rmv = levels_mv(bwd, n)
+                bwd_rules = levels_rules(bwd, n)
         if bwd_ell is not None:
-            def rmv(x):
-                return F.ell_matvec(bwd_ell, x)
+            bwd_rules = (lambda x: F.ell_matvec(bwd_ell, x), None)
         self.solve_permutation = None
         if perm is not None:
             p, ip = perm
             self.solve_permutation = (p, ip, BellOperator(
                 shape, fwd, bwd, symmetric, plain=plain))
-            mv_in, rmv_in = mv, rmv
 
-            def mv(x):
-                return mv_in(x[p])[ip]
+            def permuted(inner):
+                return None if inner is None else (lambda x: inner(x[p])[ip])
 
-            if rmv_in is not None:
-                def rmv(x):
-                    return rmv_in(x[p])[ip]
+            fwd_rules = tuple(map(permuted, fwd_rules))
+            if bwd_rules is not None:
+                bwd_rules = tuple(map(permuted, bwd_rules))
         if symmetric:
-            rmv = mv
+            bwd_rules = fwd_rules
+        mv, mm = fwd_rules
+        rmv, rmm = bwd_rules if bwd_rules is not None else (None, None)
         dtype = fwd[0].data.dtype
         super().__init__(n, m, matvec=mv, matvec_transp=rmv,
                          symmetric=symmetric,
                          hermitian=symmetric and not dtype.is_complex,
-                         dtype=dtype, device=fwd[0].data.device)
+                         dtype=dtype, device=fwd[0].data.device,
+                         matmat=mm, matmat_transp=rmm)
         nnz_tot = sum(b.nnz for b in fwd)
         self.levels = fwd
         self.fill = bell_fill(fwd[0])
@@ -1401,7 +1501,8 @@ class BellOperator(LinearOperator):
 
     def plain(self):
         """The same operator over the same containers with every product
-        through :func:`bell_matvec_plain` (on any device)."""
+        through :func:`bell_matvec_plain` and :func:`bell_matmat_plain`
+        (on any device)."""
         return BellOperator(plain=True, **self._args)
 
 

@@ -213,20 +213,23 @@ def ell_matvec(a: ELL, x):
 
 
 def dia_matvec(a: DIA, x):
-    """``y[i] = sum_d data[d, i] * x[i + off_d]`` as shifted slices.
+    """``y[i] = sum_d data[d, i] * x[i + off_d]`` as shifted slices, for x
+    of shape (n,) or an (n, K) block (``Y[i, k]``, every column at once).
 
     Each diagonal adds its product into the rows whose column lies inside
     the matrix, in ascending diagonal order, each product and sum rounded
-    on its own: the CUDA kernel's order and rounding.
+    on its own: the CUDA kernels' order and rounding.
     """
     m, n = a.shape
     ct = torch.promote_types(a.data.dtype, x.dtype)
     x = x.to(ct)
-    y = torch.zeros(m, dtype=ct, device=x.device)
+    tail = tuple(x.shape[1:])            # () or (K,)
+    y = torch.zeros((m,) + tail, dtype=ct, device=x.device)
     for d, off in enumerate(a.offsets):
         lo, hi = max(0, -off), min(m, n - off)
         if lo < hi:
-            y[lo:hi].add_(a.data[d, lo:hi].to(ct) * x[lo + off:hi + off])
+            w = a.data[d, lo:hi].to(ct).reshape((hi - lo,) + (1,) * len(tail))
+            y[lo:hi].add_(w * x[lo + off:hi + off])
     return y
 
 

@@ -1,15 +1,19 @@
-"""The CUDA DIA SpMV kernel's surface: wrapper, plain version, operator.
+"""The CUDA DIA kernels' surface: wrappers, plain versions, operator.
 
-Counterpart of ``pykrylov_tpu/sparse/kernels.py``.  The kernel itself is
-``csrc/dia_spmv.cu`` (it replaces ``_dia_kernel_ring`` and ``_dia_kernel``);
-``_build`` compiles it at first use.  It takes the unpadded ``(ndiag, m)``
-container of :mod:`.formats`, so the TPU kernel's block padding, block
-choice and packing (``choose_block``, ``ensure_dia_padded``, ``pack_dia``,
-the ``_halo_rows*`` helpers) have no counterpart here.
+Counterpart of ``pykrylov_tpu/sparse/kernels.py``.  The SpMV kernel is
+``csrc/dia_spmv.cu`` (it replaces ``_dia_kernel_ring`` and ``_dia_kernel``),
+the block product (SpMM) kernel ``csrc/dia_spmm.cu`` (it replaces
+``_dia_mm_kernel_ring``); ``_build`` compiles them at first use.  Both take
+the unpadded ``(ndiag, m)`` container of :mod:`.formats`, and the SpMM the
+(n, K) row-major block as the batched solvers hold it, so the TPU kernels'
+block padding, block choice and packing (``choose_block``,
+``ensure_dia_padded``, ``pack_dia``, the ``_halo_rows*`` helpers, the
+``(K, m/128, 128)`` relayout of X) have no counterpart here.
 
-:func:`dia_matvec` launches the kernel for CUDA tensors and runs the plain
-torch version, :func:`dia_matvec_plain`, for CPU tensors; anything else
-raises.  There is no fallback from the kernel to the plain version.
+:func:`dia_matvec` and :func:`dia_matmat` launch their kernel for CUDA
+tensors and run the plain torch version (:func:`dia_matvec_plain`,
+:func:`dia_matmat_plain`) for CPU tensors; anything else raises.  There is
+no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ import torch
 from . import formats as F
 from .. import _build
 
-__all__ = ["DIA_LAUNCHES", "MAX_DIAGS", "dia_matvec", "dia_matvec_plain",
+__all__ = ["DIA_LAUNCHES", "DIA_MM_LAUNCHES", "MAX_DIAGS", "dia_matvec",
+           "dia_matvec_plain", "dia_matmat", "dia_matmat_plain",
            "dia_transpose", "cuda_dia_operator"]
 
-# Launches of the DIA kernel in this process; the wrapper adds one per
-# launch and nothing else touches it except a caller resetting it.
+# Launches of the DIA SpMV and SpMM kernels in this process; each wrapper
+# adds one per launch and nothing else touches them except a caller
+# resetting them.
 DIA_LAUNCHES = 0
+DIA_MM_LAUNCHES = 0
 
 MAX_DIAGS = 64  # size of the kernel's by-value offsets argument
 
@@ -37,6 +44,8 @@ _ENTRY = {
     (torch.bfloat16, torch.float32): "dia_spmv_bf16",
     (torch.float64, torch.float64): "dia_spmv_f64",
 }
+_MM_ENTRY = {key: name.replace("spmv", "spmm")
+             for key, name in _ENTRY.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,16 +58,27 @@ def _entry(name):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _mm_entry(name):
+    fn = getattr(_build.load("dia_spmm"), name)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @functools.lru_cache(maxsize=256)
 def _offsets_arg(offsets):
     return (ctypes.c_int64 * max(1, len(offsets)))(*offsets)
 
 
-def _check(data, offsets, x):
-    if data.ndim != 2 or x.ndim != 1:
-        raise ValueError("dia_matvec expects data (ndiag, m) and x (n,), "
-                         "got %s and %s"
-                         % (tuple(data.shape), tuple(x.shape)))
+def _check(data, offsets, x, xdim=1):
+    if data.ndim != 2 or x.ndim != xdim:
+        raise ValueError("%s expects data (ndiag, m) and %s, got %s and %s"
+                         % ("dia_matvec" if xdim == 1 else "dia_matmat",
+                            "x (n,)" if xdim == 1 else "X (n, K)",
+                            tuple(data.shape), tuple(x.shape)))
     if len(offsets) != data.shape[0]:
         raise ValueError("%d offsets for %d diagonals"
                          % (len(offsets), data.shape[0]))
@@ -89,14 +109,20 @@ def dia_matvec(data, offsets, x):
     return _launch(data, offsets, x)
 
 
-def _launch(data, offsets, x):
-    global DIA_LAUNCHES
+def _compute_dtype(data, x):
+    """The kernels' compute dtype for ``data`` and ``x``; raises for a
+    pair they do not take."""
     ct = torch.promote_types(data.dtype, x.dtype)
-    name = _ENTRY.get((data.dtype, ct))
-    if name is None:
-        raise TypeError("the DIA kernel takes f32, bf16 or f64 data with "
+    if (data.dtype, ct) not in _ENTRY:
+        raise TypeError("the DIA kernels take f32, bf16 or f64 data with "
                         "an f32 or f64 product, not %s data with %s x"
                         % (data.dtype, x.dtype))
+    return ct
+
+
+def _launch(data, offsets, x):
+    global DIA_LAUNCHES
+    ct = _compute_dtype(data, x)
     x = x.to(ct)
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("the DIA kernel needs contiguous data and x")
@@ -104,7 +130,7 @@ def _launch(data, offsets, x):
     y = torch.empty(m, dtype=ct, device=x.device)
     if m == 0:
         return y
-    fn = _entry(name)
+    fn = _entry(_ENTRY[(data.dtype, ct)])
     offs = _offsets_arg(tuple(int(o) for o in offsets))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -115,6 +141,55 @@ def _launch(data, offsets, x):
                            % err)
     DIA_LAUNCHES += 1
     return y
+
+
+def dia_matmat_plain(data, offsets, X):
+    """Plain torch version of the SpMM kernel: shifted-slice products on
+    (m, K) blocks, summed in ascending diagonal order, each product and sum
+    rounded on its own (:func:`.formats.dia_matvec`); column k equals
+    :func:`dia_matvec_plain` on column k bit for bit."""
+    _check(data, offsets, X, xdim=2)
+    return F.dia_matvec(F.DIA(data, tuple(offsets),
+                              (data.shape[1], X.shape[0])), X)
+
+
+def dia_matmat(data, offsets, X):
+    """``Y[i, k] = sum_d data[d, i] * X[i + offsets[d], k]`` for an (n, K)
+    block, in the promoted dtype of data and X, streaming the diagonals
+    once for all K columns: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    _check(data, offsets, X, xdim=2)
+    if data.device.type == "cpu" and X.device.type == "cpu":
+        return dia_matmat_plain(data, offsets, X)
+    if data.device.type != "cuda" or X.device != data.device:
+        raise ValueError("dia_matmat: data on %s and X on %s; the kernel "
+                         "takes both on one CUDA device"
+                         % (data.device, X.device))
+    return _launch_mm(data, offsets, X)
+
+
+def _launch_mm(data, offsets, X):
+    global DIA_MM_LAUNCHES
+    ct = _compute_dtype(data, X)
+    X = X.to(ct).contiguous()           # the kernel reads X row-major
+    if not data.is_contiguous():
+        raise ValueError("the DIA SpMM kernel needs contiguous data")
+    ndiag, m = data.shape
+    n, K = X.shape
+    Y = torch.empty((m, K), dtype=ct, device=X.device)
+    if m == 0 or K == 0:
+        return Y
+    fn = _mm_entry(_MM_ENTRY[(data.dtype, ct)])
+    offs = _offsets_arg(tuple(int(o) for o in offsets))
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
+                 X.data_ptr(), Y.data_ptr(), m, n, K, stream)
+    if err != 0:
+        raise RuntimeError("DIA SpMM kernel launch failed with CUDA error %d"
+                           % err)
+    DIA_MM_LAUNCHES += 1
+    return Y
 
 
 def dia_transpose(a: F.DIA) -> F.DIA:
@@ -143,10 +218,12 @@ def dia_transpose(a: F.DIA) -> F.DIA:
 
 def cuda_dia_operator(dia: F.DIA, symmetric=False):
     """A :class:`~.linop.SparseOperator` (``fmt="cuda-dia"``) whose
-    products are :func:`dia_matvec` over the container's tensors: the CUDA
-    kernel when they lie on a CUDA device.  An unsymmetric operator keeps
-    the :func:`dia_transpose` for ``A.T``.  Counterpart of
-    ``pallas_dia_operator``; no padding."""
+    products are :func:`dia_matvec` and, on (n, K) blocks,
+    :func:`dia_matmat` over the container's tensors: the CUDA kernels when
+    they lie on a CUDA device.  An unsymmetric operator keeps the
+    :func:`dia_transpose` for ``A.T`` and ``A.T @ X``.  Counterpart of
+    ``pallas_dia_operator`` with its ``matmat``/``matmat_transp``; no
+    padding."""
     from .linop import SparseOperator
 
     bwd = None if symmetric else dia_transpose(dia)

@@ -34,9 +34,17 @@ def _kernel_dia_matvec(a, x):
     return K.dia_matvec(a.data, a.offsets, x)
 
 
+def _kernel_dia_matmat(a, X):
+    return K.dia_matmat(a.data, a.offsets, X)
+
+
 # compute format -> product over one container
 _PRODUCTS = {"coo": F.coo_matvec, "csr": F.csr_matvec, "ell": F.ell_matvec,
              "dia": F.dia_matvec, "cuda-dia": _kernel_dia_matvec}
+# compute format -> native block product over one container; the plain
+# formats apply an (n, K) block column by column, as the JAX package vmaps
+# them
+_BLOCK_PRODUCTS = {"cuda-dia": _kernel_dia_matmat}
 _FORMAT_OF = {F.COO: "coo", F.CSR: "csr", F.ELL: "ell", F.DIA: "dia"}
 
 
@@ -47,7 +55,8 @@ class SparseOperator(LinearOperator):
     transpose is A).  ``fmt`` names the compute format: the container's
     own (``"coo"``, ``"csr"``, ``"ell"``, ``"dia"``: plain torch) by
     default, or ``"cuda-dia"`` for a DIA container whose products go
-    through :func:`.kernels.dia_matvec`.
+    through :func:`.kernels.dia_matvec` and, on (n, K) blocks,
+    :func:`.kernels.dia_matmat`.
     """
 
     def __init__(self, fwd, bwd=None, symmetric=False, fmt=None, **kwargs):
@@ -56,6 +65,7 @@ class SparseOperator(LinearOperator):
         if fmt == "cuda-dia" and not isinstance(fwd, F.DIA):
             raise TypeError("fmt='cuda-dia' needs a DIA container")
         product = _PRODUCTS[fmt]
+        block = _BLOCK_PRODUCTS.get(fmt)
         m, n = fwd.shape
         transposed = fwd if symmetric else bwd
         is_complex = fwd.data.dtype.is_complex
@@ -64,7 +74,10 @@ class SparseOperator(LinearOperator):
             matvec_transp=(lambda x: product(transposed, x))
             if transposed is not None else None,
             symmetric=symmetric, hermitian=symmetric and not is_complex,
-            dtype=fwd.data.dtype, device=fwd.data.device, **kwargs)
+            dtype=fwd.data.dtype, device=fwd.data.device,
+            matmat=(lambda X: block(fwd, X)) if block else None,
+            matmat_transp=(lambda X: block(transposed, X))
+            if block and transposed is not None else None, **kwargs)
         self.container = fwd
         self.fmt = fmt
 
