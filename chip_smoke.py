@@ -14,8 +14,9 @@ one right-hand side and with a block of K = 8:
   * DIA: CG on the 3-D Poisson matrix at n = 240 (13.8M rows, 96.4M
     nonzeros), which the policy puts on the CUDA DIA kernels;
   * BELL: CG on 1138bus tiled 1024 times (1,165,312 rows, 4,151,296
-    nonzeros, general sparsity), which the policy puts on the CUDA BELL
-    kernels.
+    nonzeros, general sparsity), which the policy packs into BELL levels;
+    the operator derives their padding-free SELL-C-sigma card form and runs
+    every product through the CUDA SELL kernels.
 
 Phases, in order:
 
@@ -24,11 +25,13 @@ Phases, in order:
      registers and spills per kernel, and the card's copy rate (a large
      ``copy_``), which sets the bounds below;
   3. SpMV kernels vs plain on the card: DIA in f64, f32 and bf16 storage;
-     BELL on the auto policy's packings of ``bench.py``'s three matrix
-     classes at 131,072 rows and on explicit containers (int8 indices,
-     bf16 storage, f64, window 2, two levels, a COO remainder);
+     SELL on the card forms, at both sorting windows (SIGMAS), of the auto
+     policy's packings of ``bench.py``'s three matrix classes at 131,072
+     rows and of explicit containers (int8 indices, bf16 storage, f64,
+     window 2, two levels, a COO remainder): kernel = plain bit for bit,
+     and the card form's plain product against the container's own;
   3b. SpMM kernels vs plain on the same matrices (DIA at K = 1, 3, 8, 64,
-     BELL at K = 3, 8, 64, and the row-split and RCM operators at K = 8),
+     SELL at K = 3, 8, 64, and the row-split and RCM operators at K = 8),
      and every column of every block product bit for bit against the SpMV
      kernel on that column;
   4. the DIA path: a warm-up solve, then the timed ``solve(A, b)`` with
@@ -40,14 +43,20 @@ Phases, in order:
      true residual in f64 and its iterations against a single solve of
      that column, a profiled block solve, and the block solve through the
      plain operator;
-  5. the BELL path: the same on tiled 1138bus, launches = matvecs x
-     levels, the same solve through the plain BELL operator, and, in turns
+  5. the BELL path: the same on tiled 1138bus, one SELL launch per
+     matvec, the time to derive the card form, the same solve through the
+     plain BELL operator (the containers' own products), and, in turns
      with the kernel's, through ``fmt="ell"`` (the policy's CUDA choice
      before the BELL kernel) and ``fmt="csr"``;
-  5b. the BELL block path: as 4b on tiled 1138bus, launches = block
-     products x levels;
-  6. timing (CUDA events, best of 3 runs of back-to-back calls): each SpMV
-     kernel, its plain version, the port's plain ELL operator (BELL
+  5b. the BELL block path: as 4b on tiled 1138bus, one SELL SpMM launch
+     per block product;
+  6. timing (CUDA events around back-to-back calls that a sleep kernel
+     lets the host enqueue ahead of the device, so that a kernel shorter
+     than its wrapper's host work is timed and not the host; best of 3
+     runs in turns; a call's time with its host work is logged apart):
+     each SpMV
+     kernel (SELL at both sorting windows), its plain version, the BELL
+     container's plain product, the port's plain ELL operator (BELL
      matrices) and torch's CSR matvec (cuSPARSE, timed as a yardstick
      only), against the bound: the smaller of the matrix's bytes as the
      kernel stores it and as CSR, plus x and y, at the measured copy rate;
@@ -79,16 +88,20 @@ CLASS_ROWS = 1 << 17  # rows of bench.py's matrix classes
 COPY_BYTES = 1 << 30  # bytes of the copy that measures the copy rate
 DEVICE = "cuda"
 F32_TFLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+SLEEP_HZ = 2e9      # above the card's SM clock: a sleep of n cycles lasts
+                    # at least n / SLEEP_HZ seconds
 KB = 8              # right-hand sides of the block paths (phases 4b, 5b)
+SIGMAS = (256, 4096)  # SELL sorting windows held and timed
 DIA_MM_K = (1, 3, 8, 64)   # block widths of the DIA SpMM checks (3b)
 BELL_MM_K = (3, 8, 64)     # block widths of the BELL SpMM checks (3b)
 CURVE_K = (8, 16, 32, 64)  # block widths of the K-curve (6b)
 ITER_RTOL = 0.1     # block vs single solve, iterations per column
 
-# max|y_kernel - y_plain| / max|y_plain|.  The DIA kernel rounds each
-# product and sum as the plain version does, in the same order; the BELL
-# plain version sums a 4-row group in torch's order and adds group sums
-# with index_add_, whose order on the card is not fixed.
+# max|y - y_ref| / max|y_ref|, where an output is held against another
+# product that sums in another order: the SELL card form against the BELL
+# container's own product, which sums a 4-row group in torch's order and
+# adds group sums with index_add_, whose order on the card is not fixed.
+# Every kernel equals its own plain version bit for bit.
 REL_BOUND = {torch.float64: 1e-12, torch.float32: 1e-6,
              torch.bfloat16: 1e-6}
 
@@ -350,25 +363,64 @@ def _far_cluster(m, seed=51):
     return vals, rows[first], cols[first], (m, m)
 
 
+def _exact(label, y, ref, tag="3 kernel"):
+    """Hold a kernel's output against its plain version's, bit for bit."""
+    if y.shape != ref.shape or y.dtype != ref.dtype:
+        raise AssertionError("%s: kernel gave %s %s, plain %s %s"
+                             % (label, tuple(y.shape), y.dtype,
+                                tuple(ref.shape), ref.dtype))
+    if not torch.isfinite(y).all():
+        raise AssertionError("%s: non-finite kernel output" % label)
+    if not torch.equal(y, ref):
+        raise AssertionError("%s: kernel differs from plain (max abs %.3e)"
+                             % (label, (y - ref).abs().max().item()))
+    log("[%s] %-44s kernel = plain bit for bit" % (tag, label))
+
+
+def _card_forms(levels, rows_out):
+    """The card form of the levels at each sorting window, and the seconds
+    the first derivation took."""
+    from pykrylov_tpu_torch.sparse import sell as S
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cards = {S.SIGMA: S.sell_from_levels(levels, rows_out)}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for sigma in SIGMAS:
+        if sigma not in cards:
+            cards[sigma] = S.sell_from_levels(levels, rows_out, sigma=sigma)
+    return cards, secs
+
+
 def _check_levels(cases, label, levels, rows_out, n_in, rng):
-    """The kernel's product over a packing's levels against the plain
-    version's, on one random x; the packing joins ``cases`` for the SpMM
-    checks of phase 3b."""
+    """The SELL kernel on the levels' card forms (each sorting window)
+    against its plain version, bit for bit, and the card form's product
+    against the container's own, on one random x; the levels join
+    ``cases`` for the SpMM checks of phase 3b."""
     from pykrylov_tpu_torch.sparse import bell as B
-    cases.append((label, levels, rows_out, n_in))
+    from pykrylov_tpu_torch.sparse import sell as S
+    cards, secs = _card_forms(levels, rows_out)
+    nnz = int(cards[S.SIGMA].row_len.sum())
+    log("[3 kernel] %s: card form of %d rows, %d entries, derived in %.3f "
+        "s; fill %s" % (label, rows_out, nnz, secs, ", ".join(
+            "%.3f at sigma %d" % (nnz / max(1, c.vals.numel()), sg)
+            for sg, c in sorted(cards.items()))))
+    cases.append((label, cards, levels, rows_out, n_in))
     dtype = levels[0].data.dtype
     xdt = torch.float64 if dtype == torch.float64 else torch.float32
     x = torch.from_numpy(rng.standard_normal(n_in)).to(DEVICE, xdt)
-    y = B.bell_levels_matvec(levels, x, rows_out)
+    for sigma, card in sorted(cards.items()):
+        y = S.sell_matvec(card, x)
+        torch.cuda.synchronize()
+        _exact("%s sigma %d" % (label, sigma), y, S.sell_matvec_plain(card, x))
+    ref = B.bell_levels_matvec(levels, x, rows_out)
     torch.cuda.synchronize()
-    ref = B.bell_levels_matvec(levels, x, rows_out,
-                               product=B.bell_matvec_plain)
-    torch.cuda.synchronize()
-    return _hold(label, y, ref, dtype)
+    return _hold("%s card vs container" % label, y, ref, dtype)
 
 
 def phase_bell_kernel(pt):
-    """The BELL kernel on every container variant the packer emits."""
+    """The SELL kernel on the card form of every container variant the BELL
+    packer emits."""
     from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import formats as F
     from pykrylov_tpu_torch.sparse import operator_from_coo
@@ -388,12 +440,13 @@ def phase_bell_kernel(pt):
         b0 = A.levels[0]
         log("[3 kernel] %s: %d rows, %d nnz, built in %.2f s: %d level(s), "
             "window %d, nb %d, nblk %d, data %s, %s, split rows %d, "
-            "permuted %s, fill %.3f"
+            "permuted %s, fill %.3f; card form %d bytes, BELL %d"
             % (name, t[3][0], len(t[0]), secs, len(A.levels), b0.window,
                b0.nb, b0.nblk, tuple(b0.data.shape),
                "segmented (%d wide)" % b0.seg_mixed if b0.seg is not None
                else "monolithic", A.split_rows,
-               A.solve_permutation is not None, A.fill))
+               A.solve_permutation is not None, A.fill, A.card_bytes,
+               A.stream_bytes))
         _check_levels(cases, "BELL %s levels" % name, A.levels, A.level_rows,
                       t[3][1], rng)
         x = torch.from_numpy(rng.standard_normal(t[3][1])
@@ -456,6 +509,7 @@ def phase_spmm_kernels(dia_cases, bell_cases, classes):
     column against the SpMV kernels, on phase 3's matrices."""
     from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
 
     rng = np.random.default_rng(3)
     t0 = time.perf_counter()
@@ -473,24 +527,23 @@ def phase_spmm_kernels(dia_cases, bell_cases, classes):
             _same_columns(label, Y, lambda x: K.dia_matvec(data, offsets, x),
                           X)
             checks += 1
-    for label, levels, rows_out, n_in in bell_cases:
+    for label, cards, levels, rows_out, n_in in bell_cases:
         dtype = levels[0].data.dtype
         xdt = torch.float64 if dtype == torch.float64 else torch.float32
         for kb in BELL_MM_K:
             X = torch.from_numpy(rng.standard_normal((n_in, kb))).to(DEVICE,
                                                                      xdt)
-            Y = B.bell_levels_matmat(levels, X, rows_out)
-            torch.cuda.synchronize()
-            ref = B.bell_levels_matmat(levels, X, rows_out,
-                                       product=B.bell_matmat_plain)
-            _hold("%s K=%d" % (label, kb), Y, ref, dtype, tag="3b spmm")
+            for sigma, card in sorted(cards.items()):
+                Y = S.sell_matmat(card, X)
+                torch.cuda.synchronize()
+                _exact("%s sigma %d K=%d" % (label, sigma, kb), Y,
+                       S.sell_matmat_plain(card, X), tag="3b spmm")
+                _same_columns(label, Y, lambda x: S.sell_matvec(card, x), X)
+                checks += 1
+            ref = B.bell_levels_matmat(levels, X, rows_out)
+            _hold("%s K=%d card vs container" % (label, kb), Y, ref, dtype,
+                  tag="3b spmm")
             del ref
-            # each level's slot product, column by column (the remainder's
-            # index_add_ sums in an unfixed order on the card)
-            for c in levels:
-                _same_columns(label, B.bell_matmat(c, X, rows_out),
-                              lambda x: B.bell_matvec(c, x, rows_out), X)
-            checks += 1
     # the operators' block rules: the row split's fold and two-piece
     # transpose, the RCM operator's gathers
     for name in ("power_law", "permuted_blockdiag"):
@@ -650,8 +703,8 @@ def _timed_solve(pt, label, A, b):
 
 def phase_bell_path(pt):
     from pykrylov_tpu_torch.gallery import tiled_general_coo
-    from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import operator_from_coo
+    from pykrylov_tpu_torch.sparse import sell as S
 
     t0 = time.perf_counter()
     coo = tiled_general_coo("1138bus", tiles=TILES, coupling=0)
@@ -670,17 +723,32 @@ def phase_bell_path(pt):
                      b0.window, b0.nb, b0.nblk, tuple(b0.data.shape),
                      "segmented" if b0.seg is not None else "monolithic",
                      A.fill, A.bytes_per_nnz))
+    card = A.card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S.sell_from_levels(levels, A.level_rows)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    log("[5 BELL path] card form (sigma %d): %d slots for %d entries "
+        "(fill %.4f), %d bytes, %.1f per nonzero; derived in %.3f s (part "
+        "of the build)" % (S.SIGMA, card.vals.numel(),
+                           int(card.row_len.sum()),
+                           int(card.row_len.sum()) / card.vals.numel(),
+                           A.card_bytes, A.card_bytes / len(coo[0]), card_s))
 
     x_true = torch.from_numpy(np.random.default_rng(0).standard_normal(m)
                               .astype(np.float32)).to(DEVICE)
     b = A * x_true
     torch.cuda.synchronize()
-    ref = A.plain() * x_true
+    ref = S.sell_matvec_plain(card, x_true)
+    _exact("5 BELL path: b = A x_true", b, ref, tag="5 BELL path")
     err = (b - ref).abs().max().item()
-    log("[5 BELL path] b = A x_true: kernel vs plain rel err %.3e, "
-        "max abs err %.3e" % (relerr(b, ref), err))
+    ref = A.plain() * x_true
+    log("[5 BELL path] b = A x_true: card form vs the BELL container's "
+        "product rel err %.3e, max abs err %.3e"
+        % (relerr(b, ref), (b - ref).abs().max().item()))
     if not relerr(b, ref) <= REL_BOUND[torch.float32]:
-        raise AssertionError("BELL kernel disagrees with plain")
+        raise AssertionError("the card form disagrees with the container")
     del ref
 
     t0 = time.perf_counter()
@@ -690,20 +758,20 @@ def phase_bell_path(pt):
         % (int(warm.n_iter), time.perf_counter() - t0))
     del warm
 
-    B.BELL_LAUNCHES = 0
+    S.SELL_LAUNCHES = 0
     res, secs = _timed_solve(pt, "solve", A, b)
-    launches = B.BELL_LAUNCHES
+    launches = S.SELL_LAUNCHES
     n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
-    log("[5 BELL path] kernel launches=%d for %d matvecs x %d level(s)"
-        % (launches, n_matvec, len(levels)))
-    if launches != n_matvec * len(levels) or launches == 0:
-        raise AssertionError("%d kernel launches for %d matvecs x %d levels"
-                             % (launches, n_matvec, len(levels)))
+    log("[5 BELL path] kernel launches=%d for %d matvecs (%d level(s), one "
+        "card form)" % (launches, n_matvec, len(levels)))
+    if launches != n_matvec or launches == 0:
+        raise AssertionError("%d kernel launches for %d matvecs"
+                             % (launches, n_matvec))
     if int(res.istop) != 0:
         raise AssertionError("solve stopped with istop %d" % int(res.istop))
     if res.x.shape != (m,) or not torch.isfinite(res.x).all():
         raise AssertionError("bad solution: shape %s" % (tuple(res.x.shape),))
-    # the true residual in f64, through the COO triples (not BELL)
+    # the true residual in f64, through the COO triples (not the card)
     rows = torch.from_numpy(coo[1]).to(DEVICE)
     cols = torch.from_numpy(coo[2]).to(DEVICE)
     vals = torch.from_numpy(coo[0]).to(DEVICE, torch.float64)
@@ -723,9 +791,9 @@ def phase_bell_path(pt):
     del rows, cols, vals, x64, ax, b64
     _profile_solve(pt, "5 BELL path", A, b, secs)
 
-    before = B.BELL_LAUNCHES
+    before = S.SELL_LAUNCHES
     res_plain, secs_plain = _timed_solve(pt, "plain BELL", A.plain(), b)
-    if B.BELL_LAUNCHES != before:
+    if S.SELL_LAUNCHES != before:
         raise AssertionError("the plain BELL operator launched the kernel")
     n_plain = int(res_plain.n_iter)
     if abs(n_plain - n_iter) > 0.1 * n_iter:
@@ -757,8 +825,8 @@ def phase_bell_path(pt):
     del others
     return A, coo, {"launches": launches, "max_abs_err": err,
                     "n_iter": n_iter, "solve_s": secs, "build_s": build_s,
-                    "plain_n_iter": n_plain, "plain_solve_s": secs_plain,
-                    "ms_per_iter": per_iter}
+                    "card_s": card_s, "plain_n_iter": n_plain,
+                    "plain_solve_s": secs_plain, "ms_per_iter": per_iter}
 
 
 def _block_checks(pt, tag, A, Bm, res, ax64):
@@ -875,41 +943,42 @@ def phase_dia_block(pt, A, dia):
 
 
 def phase_bell_block(pt, A, coo, bell):
-    """5b: ``solve(A, B)`` for KB right-hand sides through the BELL SpMM
+    """5b: ``solve(A, B)`` for KB right-hand sides through the SELL SpMM
     kernel."""
-    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import sell as S
 
     tag = "5b BELL block"
     m = A.shape[0]
-    levels = A.levels
     X_true = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (m, KB)).astype(np.float32)).to(DEVICE)
     Bm = A @ X_true
     torch.cuda.synchronize()
-    ref = A.plain() @ X_true
+    ref = S.sell_matmat_plain(A.card, X_true)
+    _exact("%s: B = A X_true" % tag, Bm, ref, tag=tag)
     err = (Bm - ref).abs().max().item()
-    log("[%s] B = A X_true (%d x %d): kernel vs plain rel err %.3e, max "
-        "abs err %.3e" % (tag, m, KB, relerr(Bm, ref), err))
+    ref = A.plain() @ X_true
+    log("[%s] B = A X_true (%d x %d): card form vs the BELL container's "
+        "product rel err %.3e, max abs err %.3e"
+        % (tag, m, KB, relerr(Bm, ref), (Bm - ref).abs().max().item()))
     if not relerr(Bm, ref) <= REL_BOUND[torch.float32]:
-        raise AssertionError("%s: kernel disagrees with plain" % tag)
+        raise AssertionError("%s: the card form disagrees with the "
+                             "container" % tag)
     del ref
     warm = pt.solve(A, Bm, maxiter=20)
     torch.cuda.synchronize()
     del warm
 
-    B.BELL_MM_LAUNCHES = 0
-    B.BELL_LAUNCHES = 0
+    S.SELL_MM_LAUNCHES = 0
+    S.SELL_LAUNCHES = 0
     res, secs = _timed_block_solve(pt, A, Bm)
-    launches, spmv = B.BELL_MM_LAUNCHES, B.BELL_LAUNCHES
+    launches, spmv = S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES
     n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
-    log("[%s] solve: converged=%s n_iter=%d n_matvec=%d SpMM launches=%d "
-        "for %d level(s), SpMV launches=%d"
-        % (tag, res.converged.tolist(), n_iter, n_matvec, launches,
-           len(levels), spmv))
-    if launches != n_matvec * len(levels) or launches == 0 or spmv != 0:
+    log("[%s] solve: converged=%s n_iter=%d n_matvec=%d SpMM launches=%d, "
+        "SpMV launches=%d" % (tag, res.converged.tolist(), n_iter, n_matvec,
+                              launches, spmv))
+    if launches != n_matvec or launches == 0 or spmv != 0:
         raise AssertionError("%s: %d SpMM and %d SpMV launches for %d block "
-                             "products x %d levels"
-                             % (tag, launches, spmv, n_matvec, len(levels)))
+                             "products" % (tag, launches, spmv, n_matvec))
     rows = torch.from_numpy(coo[1]).to(DEVICE)
     cols = torch.from_numpy(coo[2]).to(DEVICE)
     vals = torch.from_numpy(coo[0]).to(DEVICE, torch.float64)
@@ -927,13 +996,13 @@ def phase_bell_block(pt, A, coo, bell):
         % (tag, secs, per_iter, per_iter / KB, single_ms))
     _profile_solve(pt, tag, A, Bm, secs)
 
-    before = (B.BELL_MM_LAUNCHES, B.BELL_LAUNCHES)
+    before = (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES)
     res_p, secs_p = _timed_block_solve(pt, A.plain(), Bm)
     n_p = int(res_p.n_iter)
     log("[%s] plain BELL: converged=%s n_iter=%d, %.3f s, %.4f ms per "
         "block iteration" % (tag, res_p.converged.tolist(), n_p, secs_p,
                              1e3 * secs_p / max(n_p, 1)))
-    if (B.BELL_MM_LAUNCHES, B.BELL_LAUNCHES) != before:
+    if (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES) != before:
         raise AssertionError("%s: the plain operator launched a kernel" % tag)
     cols_p = res_p.info["n_iter_columns"].tolist()
     if any(abs(a - b) > ITER_RTOL * b for a, b in zip(out["columns"],
@@ -949,16 +1018,53 @@ def phase_bell_block(pt, A, coo, bell):
 # 6. timing
 # --------------------------------------------------------------------------
 
-def _best_ms(variants, iters):
-    """Best of 3 runs of ``iters`` back-to-back calls for each variant,
-    the runs in turns (forward, backward, forward), after a warm-up."""
+def device_ms(fn, iters):
+    """ms per call of ``fn`` as the device runs ``iters`` calls back to
+    back.  A kernel of some tens of microseconds takes less time on the
+    card than its wrapper's host work, so calls timed as the host enqueues
+    them would time the host.  Here a sleep kernel holds the stream while
+    the host enqueues the calls; the timing counts if the device had not
+    reached the first of them when the last was enqueued.  A call that
+    launches many kernels (a plain version) can fill CUDA's launch
+    queue, which then holds the host back until the device drains it: the
+    device is busy throughout, and the calls are timed as enqueued."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0     # at most, if ``fn`` waits
+    torch.cuda.synchronize()
+    cycles = int(2 * iters * enqueue * SLEEP_HZ) + 1000000
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        if not start.query():
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+        torch.cuda.synchronize()
+        cycles *= 4
+    return events_ms(fn, iters)
+
+
+def _best_ms(variants, iters, host_waits=()):
+    """Best of 3 device times (:func:`device_ms`) of ``iters`` calls for
+    each variant, the runs in turns (forward, backward, forward), after a
+    warm-up.  The variants named in ``host_waits`` wait for the device
+    inside a call (a plain version that reads sizes back), so no sleep can
+    put the host ahead: they are timed as enqueued (:func:`events_ms`),
+    their host work included."""
     for _, fn in variants:
         events_ms(fn, 3)
     best = {}
     for rep in range(3):
         for label, fn in (variants if rep % 2 == 0 else variants[::-1]):
+            timer = events_ms if label in host_waits else device_ms
             best[label] = min(best.get(label, float("inf")),
-                              events_ms(fn, iters))
+                              timer(fn, iters))
     return best
 
 
@@ -1047,6 +1153,7 @@ def phase_dia_timing(A, coo, rate):
 def phase_bell_timing(A, coo, classes, rate):
     from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import operator_from_coo
+    from pykrylov_tpu_torch.sparse import sell as S
 
     out = {}
     cases = [("tiled_1138bus", A, coo)] + [(n, a, t) for n, (a, t)
@@ -1055,45 +1162,66 @@ def phase_bell_timing(A, coo, classes, rate):
         m, n = t[3]
         nnz = len(t[0])
         levels, rows_out = op.levels, op.level_rows
+        cards, _ = _card_forms(levels, rows_out)
         csr = _torch_csr(t, DEVICE)
         ell = operator_from_coo(*t, fmt="ell", device=DEVICE)
         g = torch.Generator(device=DEVICE).manual_seed(2000)
         x = torch.randn(n, device=DEVICE, generator=g)
-        # one matvec on the kernel's own levels (and COO remainders), the
-        # plain version's, and the operator's whole product, which adds
-        # the row split's fold or the permutation's gathers
-        variants = [
-            ("kernel", lambda: B.bell_levels_matvec(levels, x, rows_out)),
-            ("plain", lambda: B.bell_levels_matvec(
-                levels, x, rows_out, product=B.bell_matvec_plain)),
+        # one matvec over the card form at each sorting window, its plain
+        # version, the BELL container's own product, and the operator's
+        # whole product, which adds the row split's fold or the
+        # permutation's gathers
+        variants = [("kernel sigma %d" % sg,
+                     (lambda c: lambda: S.sell_matvec(c, x))(c))
+                    for sg, c in sorted(cards.items())]
+        variants += [
+            ("plain", lambda: S.sell_matvec_plain(cards[S.SIGMA], x)),
+            ("BELL plain", lambda: B.bell_levels_matvec(levels, x, rows_out)),
             ("operator", lambda: op * x),
             ("plain ELL", lambda: ell * x),
             ("torch CSR", lambda: csr @ x)]
-        best = _best_ms(variants, 50)
-        own = sum(B.bell_stream_bytes(b) + B.bell_map_bytes(b)
-                  for b in levels) + 4 * (n + rows_out)
+        best = _best_ms(variants, 50, host_waits=("plain",))
+        best["kernel"] = best["kernel sigma %d" % S.SIGMA]
+        # a call's time with its host work: back-to-back calls timed with
+        # events, which the host's enqueue rate bounds for a kernel this short
+        wall = {label: min(events_ms(fn, 200) for _ in range(3))
+                for label, fn in variants
+                if label in ("kernel sigma %d" % S.SIGMA, "torch CSR")}
+        log("[6 timing] BELL %-18s per call with its host work (events): "
+            "kernel %.4f ms, torch CSR %.4f ms"
+            % (name, wall["kernel sigma %d" % S.SIGMA], wall["torch CSR"]))
+        best["kernel_call"] = wall["kernel sigma %d" % S.SIGMA]
+        io = 4 * (n + rows_out)          # x read once and y written once
+        own = {sg: S.sell_bytes(c) + io for sg, c in cards.items()}
+        bell_b = sum(B.bell_stream_bytes(b) + B.bell_map_bytes(b)
+                     for b in levels) + io
         csr_b = _csr_bytes(nnz, m, n)
-        bound, by = _bound(own, csr_b, nnz, rate)
+        bound, by = _bound(own[S.SIGMA], csr_b, nnz, rate)
         for label, _ in variants:
             ms = best[label]
-            log("[6 timing] BELL %-18s %-9s %.4f ms per matvec: %.1f GB/s "
+            mine = (own[int(label.split()[-1])] if label.startswith("kernel")
+                    else bell_b if label == "BELL plain" else own[S.SIGMA])
+            log("[6 timing] BELL %-18s %-16s %.4f ms per matvec: %.1f GB/s "
                 "of its own %d bytes, %.1f GB/s of %d CSR bytes"
-                % (name, label, ms, own / (ms * 1e-3) / 1e9, own,
+                % (name, label, ms, mine / (ms * 1e-3) / 1e9, mine,
                    csr_b / (ms * 1e-3) / 1e9, csr_b))
-        log("[6 timing] BELL %-18s bound %.4f ms (%s); kernel at %.1f%% "
-            "of it, %.2fx torch CSR's time"
-            % (name, bound, by, 100 * bound / best["kernel"],
+        log("[6 timing] BELL %-18s bound %.4f ms (%s; card form %d bytes "
+            "with x and y, CSR %d, BELL container %d); kernel at %.1f%% of "
+            "it, %.2fx torch CSR's time"
+            % (name, bound, by, own[S.SIGMA], csr_b, bell_b,
+               100 * bound / best["kernel"],
                best["kernel"] / best["torch CSR"]))
         out[name] = (best, bound, by)
-        del csr, ell
+        del csr, ell, cards
     return out
 
 
 def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rate,
-                      iters):
+                      iters, extra=(), host_waits=()):
     """6b: the K-curve of one SpMM kernel: per block and per column at each
     K of CURVE_K, beside K times its SpMV kernel's time, its plain version,
-    the bound and torch's CSR SpMM (cuSPARSE, a yardstick only)."""
+    the bound, torch's CSR SpMM (cuSPARSE, a yardstick only) and the
+    ``extra`` (label, block product) variants."""
     vals, _, _, (m, n) = coo
     nnz = len(vals)
     csr = _torch_csr(coo, DEVICE)
@@ -1105,7 +1233,9 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rate,
         variants = [("kernel", lambda: mm(X)),
                     ("plain", lambda: plain_mm(X)),
                     ("torch CSR SpMM", lambda: torch.sparse.mm(csr, X))]
-        best = _best_ms(variants, iters)
+        variants += [(label, (lambda f: lambda: f(X))(f))
+                     for label, f in extra]
+        best = _best_ms(variants, iters, host_waits)
         # the matrix once (the smaller of its own and its CSR bytes) plus
         # K columns of X read and of Y written, f32
         t_bytes = (min(own_matrix, csr_matrix) + kb * (n + m) * 4) \
@@ -1117,13 +1247,16 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rate,
                  "spmv_x_k_ms": spmv_ms * kb, "plain_ms": best["plain"],
                  "bound_ms": bound, "bound_by": by,
                  "library_ms": best["torch CSR SpMM"]}
+        point.update((label + "_ms", best[label]) for label, _ in extra)
         curve[kb] = point
         log("[6b K-curve] %s K=%2d: kernel %.4f ms per block, %.5f per "
             "column; K x SpMV %.4f; plain %.4f; torch CSR SpMM %.4f; bound "
-            "%.4f ms (%s), kernel at %.1f%% of it"
+            "%.4f ms (%s), kernel at %.1f%% of it%s"
             % (name, kb, point["ms"], point["ms_per_column"],
                point["spmv_x_k_ms"], point["plain_ms"], point["library_ms"],
-               bound, by, 100 * bound / point["ms"]))
+               bound, by, 100 * bound / point["ms"],
+               "".join("; %s %.4f" % (label, best[label])
+                       for label, _ in extra)))
         del X, variants
     del csr
     return curve
@@ -1161,8 +1294,8 @@ def main():
     bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
     dia_best, dia_bound, dia_by = phase_dia_timing(A_dia, coo_dia, rate)
 
-    from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
     data, offsets = A_dia.container.data, A_dia.container.offsets
     dia_curve = phase_spmm_timing(
         "DIA n=%d" % N, lambda X: K.dia_matmat(data, offsets, X),
@@ -1171,14 +1304,15 @@ def main():
     del A_dia, coo_dia, data
     bell_times = phase_bell_timing(A_bell, coo_bell, classes, rate)
     bt, b_bound, b_by = bell_times["tiled_1138bus"]
-    levels, rows_out = A_bell.levels, A_bell.level_rows
+    sell = A_bell.card
+    extra = [("kernel sigma %d" % sg, (lambda c: lambda X: S.sell_matmat(
+        c, X))(S.sell_from_levels(A_bell.levels, A_bell.level_rows,
+                                  sigma=sg)))
+             for sg in SIGMAS if sg != S.SIGMA]
     bell_curve = phase_spmm_timing(
-        "BELL tiled_1138bus",
-        lambda X: B.bell_levels_matmat(levels, X, rows_out),
-        lambda X: B.bell_levels_matmat(levels, X, rows_out,
-                                       product=B.bell_matmat_plain),
-        coo_bell, sum(B.bell_stream_bytes(b) + B.bell_map_bytes(b)
-                      for b in levels), bt["kernel"], rate, 20)
+        "BELL tiled_1138bus", lambda X: S.sell_matmat(sell, X),
+        lambda X: S.sell_matmat_plain(sell, X), coo_bell,
+        S.sell_bytes(sell), bt["kernel"], rate, 20, extra, ("plain",))
     if any(m.split(".")[0] in ("jax", "jaxlib", "pykrylov_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -1198,9 +1332,9 @@ def main():
         "bf16_ms": dia_best["kernel bf16"],
         "bf16_plain_ms": dia_best["plain bf16"],
     }, {
-        "name": "bell_spmv",
+        "name": "sell_spmv",
         "route": "cuda",
-        "source": "pykrylov_tpu_torch/csrc/bell_spmv.cu",
+        "source": "pykrylov_tpu_torch/csrc/sell_spmv.cu",
         "replaces": "pykrylov_tpu/sparse/bell.py:1021",
         "launches": bell["launches"],
         "max_abs_err": bell["max_abs_err"],
@@ -1209,15 +1343,21 @@ def main():
         "bound_ms": b_bound,
         "bound_by": b_by,
         "library_ms": bt["torch CSR"],
-        "classes_ms": {name: [t[0]["kernel"], t[0]["torch CSR"], t[1]]
+        "sigma": S.SIGMA,
+        "classes_ms": {name: {"kernel": t[0]["kernel"],
+                              "library": t[0]["torch CSR"], "bound": t[1],
+                              **{"sigma_%d" % sg: t[0]["kernel sigma %d" % sg]
+                                 for sg in SIGMAS}}
                        for name, t in bell_times.items()},
+        "card_form_s": bell["card_s"],
+        "operator_build_s": bell["build_s"],
         "plain_ell_ms": bt["plain ELL"],
         "solve_ms_per_iter": bell["ms_per_iter"],
     }]
     for name, src, replaces, path, curve in (
             ("dia_spmm", "dia_spmm.cu", "pykrylov_tpu/sparse/kernels.py:355",
              dia_mm, dia_curve),
-            ("bell_spmm", "bell_spmm.cu", "pykrylov_tpu/sparse/bell.py:1405",
+            ("sell_spmm", "sell_spmm.cu", "pykrylov_tpu/sparse/bell.py:1405",
              bell_mm, bell_curve)):
         at = curve[KB]
         kernels.append({

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "find_nvcc", "build", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", name + ".cu")
-           for name in ("dia_spmv", "bell_spmv", "dia_spmm", "bell_spmm")}
+           for name in ("dia_spmv", "sell_spmv", "dia_spmm", "sell_spmm")}
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,5 @@
-"""Sparse containers, the CUDA DIA and BELL SpMV kernels, and
-sparse-backed operators."""
+"""Sparse containers, the CUDA DIA and SELL kernels, the BELL container
+with its card form, and sparse-backed operators."""
 
 from .formats import (COO, CSR, ELL, DIA,
                       coo_from_arrays, csr_from_coo, ell_from_coo,
@@ -7,9 +7,10 @@ from .formats import (COO, CSR, ELL, DIA,
                       coo_matvec, csr_matvec, ell_matvec, dia_matvec,
                       to_dense)
 from .kernels import cuda_dia_operator, dia_transpose
+from .sell import (SELL, sell_from_levels, sell_matvec, sell_matvec_plain,
+                   sell_matmat, sell_matmat_plain)
 from .bell import (BELL, BellOperator, SpanError, bell_from_coo,
-                   bell_operator, bell_matvec, bell_matvec_plain,
-                   reorder_rcm)
+                   bell_operator, bell_matvec_plain, reorder_rcm)
 from .linop import (SparseOperator, sparse_operator, operator_from_coo,
                     jacobi_preconditioner, diag_of_coo,
                     cuda_dia_sparse_operator)
@@ -20,8 +21,10 @@ __all__ = [
     "transpose_coo", "bandwidth_profile",
     "coo_matvec", "csr_matvec", "ell_matvec", "dia_matvec", "to_dense",
     "cuda_dia_operator", "dia_transpose",
+    "SELL", "sell_from_levels", "sell_matvec", "sell_matvec_plain",
+    "sell_matmat", "sell_matmat_plain",
     "BELL", "BellOperator", "SpanError", "bell_from_coo", "bell_operator",
-    "bell_matvec", "bell_matvec_plain", "reorder_rcm",
+    "bell_matvec_plain", "reorder_rcm",
     "SparseOperator", "sparse_operator", "operator_from_coo",
     "jacobi_preconditioner", "diag_of_coo", "cuda_dia_sparse_operator",
 ]

@@ -25,17 +25,21 @@ Layout, as the JAX package defines it:
   * Entries deeper than a window's byte-optimal capped depth go to a COO
     remainder (``sp_row/sp_col/sp_val``), added outside the kernel.
 
-The product runs through ``csrc/bell_spmv.cu`` (:func:`bell_matvec`; it
-replaces the TPU kernel ``_bell_kernel``), one thread per output row, and
-an (n, K) block through ``csrc/bell_spmm.cu`` (:func:`bell_matmat`; it
-replaces ``_bell_mm_kernel``), which reads the slot stream once for a
-tile of up to 32 columns.  For these kernels the packer adds one thing
-the JAX container does not have: a CSR map from each (step, block) pair
-to its 4-row groups in ascending position (``grp_ptr``, ``grp_idx``).
-The TPU kernels' one-hot staging modes (``stage=``, ``passes=``), their
-call-time VMEM guard, the band-major layout of X (``_to_band_major``) and
-the K chunking of wide blocks (``_mm_kmax``, ``lax.map``) have no
-counterpart.
+The card does not stream this container.  Its padding (fill 0.12 on tiled
+1138bus: about 167 MB against 38 MB of CSR) would cost more bytes than the
+library's whole CSR product, so :class:`BellOperator` derives a padding-free
+SELL-C-sigma form from its levels at construction (:mod:`.sell`) and runs
+every product over it, through ``csrc/sell_spmv.cu`` and
+``csrc/sell_spmm.cu`` on the card.  The container's own products
+(:func:`bell_matvec_plain`, :func:`bell_matmat_plain`,
+:func:`bell_levels_matvec`) stay as its meaning in plain torch: the JAX
+parity tests and :meth:`BellOperator.plain` use them.  The packer also
+emits a CSR map from each (step, block) pair to its 4-row groups in
+ascending position (``grp_ptr``, ``grp_idx``), which the JAX container
+does not have.  The TPU kernels' one-hot staging modes (``stage=``,
+``passes=``), their call-time VMEM guard, the band-major layout of X
+(``_to_band_major``) and the K chunking of wide blocks (``_mm_kmax``,
+``lax.map``) have no counterpart.
 
 The planners run in NumPy; ``device=None`` keeps a container's arrays in
 NumPy, any other device gives tensors there.
@@ -43,24 +47,21 @@ NumPy, any other device gives tensors there.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from . import formats as F
-from .. import _build
+from .sell import sell_bytes, sell_from_levels, sell_matmat, sell_matvec
 from ..ops.base import LinearOperator
 from ..utils.types import as_dtype, to_tensor
 
-__all__ = ["BELL", "SpanError", "BELL_LAUNCHES", "BellOperator",
+__all__ = ["BELL", "SpanError", "BellOperator",
            "bell_from_coo", "bell_to_device", "bell_fill",
            "bell_stream_bytes", "bell_map_bytes", "bell_with_values_dtype",
-           "bell_with_idx_fmt", "bell_to_dense", "bell_matvec",
-           "bell_matvec_plain", "bell_levels_matvec", "BELL_MM_LAUNCHES",
-           "bell_matmat", "bell_matmat_plain", "bell_levels_matmat",
+           "bell_with_idx_fmt", "bell_to_dense", "bell_matvec_plain",
+           "bell_levels_matvec", "bell_matmat_plain", "bell_levels_matmat",
            "bell_operator", "reorder_rcm", "LANES"]
 
 LANES = 128     # matrix rows per block (lane dimension)
@@ -68,12 +69,6 @@ NB_MAX = 1024   # window budget in 128-column bands
 GS_TARGET = 1024  # sublane rows per grid step the packer aims for
 SEG_ROWS = 256   # sublane rows per staging segment (segmented mode)
 SEG_BANDS = 256  # x bands staged per segment (segmented mode)
-
-# Launches of the BELL SpMV and SpMM kernels in this process; each wrapper
-# adds one per launch and nothing else touches them except a caller
-# resetting them.
-BELL_LAUNCHES = 0
-BELL_MM_LAUNCHES = 0
 
 
 class SpanError(ValueError):
@@ -948,39 +943,16 @@ def reorder_rcm(coo: F.COO):
 
 
 # ---------------------------------------------------------------------------
-# The product: the CUDA kernel, its plain torch version, the level sum
+# The container's product, in plain torch
 # ---------------------------------------------------------------------------
-
-# (storage dtype, compute dtype) -> C entry point
-_ENTRY = {
-    (torch.float32, torch.float32): "bell_spmv_f32",
-    (torch.bfloat16, torch.float32): "bell_spmv_bf16",
-    (torch.float64, torch.float64): "bell_spmv_f64",
-}
-_MM_ENTRY = {key: name.replace("spmv", "spmm")
-             for key, name in _ENTRY.items()}
-
-
-@functools.lru_cache(maxsize=None)
-def _entry(name):
-    source = name[:9]                  # "bell_spmv" or "bell_spmm"
-    fn = getattr(_build.load(source), name)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    # the SpMM entry takes the block's column count before `accumulate`
-    kcols = [i32] if source == "bell_spmm" else []
-    fn.argtypes = [p, p, i32, p, i64, p, p, i32, p, p, p, i64, p, i64,
-                   i32, i32, i32] + kcols + [i32, p]
-    fn.restype = ctypes.c_int
-    return fn
-
 
 def _check_mv(b, x, rows_out, out):
     """Shape checks of a product over one container; ``x`` is (n,) or, for
     the block product, (n, K).  Returns the number of output rows."""
     block = x.ndim == 2
     if len(b.data.shape) != 3 or x.ndim not in (1, 2):
-        raise ValueError("bell_matvec expects data (nsteps, GS, 128) and "
-                         "x (n,) or (n, K), got %s and %s"
+        raise ValueError("bell_matvec_plain expects data (nsteps, GS, 128) "
+                         "and x (n,) or (n, K), got %s and %s"
                          % (tuple(b.data.shape), tuple(x.shape)))
     rows = b.padded_shape[0] if rows_out is None else int(rows_out)
     if not 0 < rows <= b.padded_shape[0]:
@@ -1003,17 +975,11 @@ def _natural_blocks(blocks):
     return nat
 
 
-def _plain_product(b: BELL, x, rows_out, out):
-    """The plain product over one container for x of shape (n,) or (n,
-    K): gather, product, fold each 4-row group, ``index_add_`` the group
-    sums into ``nsteps*(nblk+1)`` block rows, drop the dummy row; a block
-    carries its K columns as a trailing axis."""
-    rows = _check_mv(b, x, rows_out, out)
-    nsteps, GS, L = b.data.shape
-    tail = tuple(x.shape[1:])            # () or (K,)
-    ct = torch.promote_types(b.data.dtype, x.dtype)
-    x = x.to(ct)
-    dev = b.data.device
+def _slot_coords(b: BELL):
+    """What each slot of a container multiplies: the (nsteps, GS, 128)
+    int64 column of x of every slot, and the (nsteps, GS/4) block of every
+    4-row group in natural order (``nblk``: the dummy block)."""
+    nsteps, GS, _ = b.data.shape
     if b.idx_fmt == "int8":
         idx = b.lanes.long()
     else:
@@ -1024,14 +990,29 @@ def _plain_product(b: BELL, x, rows_out, out):
         s = b.seg.long().repeat_interleave(SEG_ROWS, dim=1)[:, :GS]
         base = base + torch.where(s >= 0, s, torch.zeros_like(s))
     col = ((b.band_lo.long()[:, None] + base) * LANES)[:, :, None] + idx
+    return col, _natural_blocks(b.blocks).long()
+
+
+def _plain_product(b: BELL, x, rows_out, out):
+    """The plain product over one container for x of shape (n,) or (n,
+    K): gather, product, fold each 4-row group, ``index_add_`` the group
+    sums into ``nsteps*(nblk+1)`` block rows, drop the dummy row; a block
+    carries its K columns as a trailing axis.  Every slot is multiplied,
+    padding included."""
+    rows = _check_mv(b, x, rows_out, out)
+    nsteps, GS, L = b.data.shape
+    tail = tuple(x.shape[1:])            # () or (K,)
+    ct = torch.promote_types(b.data.dtype, x.dtype)
+    x = x.to(ct)
+    dev = b.data.device
+    col, blk = _slot_coords(b)
     inside = (col >= 0) & (col < x.shape[0])
     inside = inside.reshape(inside.shape + (1,) * len(tail))
     xv = torch.where(inside, x[col.clamp(0, max(x.shape[0] - 1, 0))],
                      torch.zeros((), dtype=ct, device=dev))
     vals = b.data.to(ct).reshape(b.data.shape + (1,) * len(tail))
     gsum = (vals * xv).reshape((nsteps, GS // 4, 4, L) + tail).sum(dim=2)
-    target = (torch.arange(nsteps, device=dev)[:, None] * (b.nblk + 1)
-              + _natural_blocks(b.blocks).long())
+    target = torch.arange(nsteps, device=dev)[:, None] * (b.nblk + 1) + blk
     ys = torch.zeros((nsteps * (b.nblk + 1), L) + tail, dtype=ct,
                      device=dev)
     ys.index_add_(0, target.reshape(-1), gsum.reshape((-1, L) + tail))
@@ -1041,11 +1022,11 @@ def _plain_product(b: BELL, x, rows_out, out):
 
 
 def bell_matvec_plain(b: BELL, x, rows_out=None, out=None):
-    """Plain torch version of the SpMV kernel: gather, product, fold each
-    4-row group, ``index_add_`` the group sums into ``nsteps*(nblk+1)``
-    block rows, drop the dummy row.  The COO remainder is not included
-    (see :func:`bell_levels_matvec`).  Returns the first ``rows_out``
-    rows, or adds them into ``out`` and returns it."""
+    """One level's slot product ``y = A_slots x`` in plain torch: gather,
+    product, fold each 4-row group, ``index_add_`` the group sums into
+    ``nsteps*(nblk+1)`` block rows, drop the dummy row.  The COO remainder
+    is not included (see :func:`bell_levels_matvec`).  Returns the first
+    ``rows_out`` rows, or adds them into ``out`` and returns it."""
     if x.ndim != 1:
         raise ValueError("bell_matvec_plain expects x (n,), got %s"
                          % (tuple(x.shape),))
@@ -1053,117 +1034,26 @@ def bell_matvec_plain(b: BELL, x, rows_out=None, out=None):
 
 
 def bell_matmat_plain(b: BELL, X, rows_out=None, out=None):
-    """Plain torch version of the SpMM kernel: :func:`bell_matvec_plain`'s
-    gather and ``index_add_`` on a trailing axis of K columns.  Returns
-    the first ``rows_out`` rows of ``A_slots X`` (rows_out, K), or adds
-    them into ``out`` and returns it."""
+    """One level's slot block product in plain torch:
+    :func:`bell_matvec_plain`'s gather and ``index_add_`` on a trailing
+    axis of K columns.  Returns the first ``rows_out`` rows of ``A_slots
+    X`` (rows_out, K), or adds them into ``out`` and returns it."""
     if X.ndim != 2:
         raise ValueError("bell_matmat_plain expects X (n, K), got %s"
                          % (tuple(X.shape),))
     return _plain_product(b, X, rows_out, out)
 
 
-def bell_matvec(b: BELL, x, rows_out=None, out=None):
-    """One level's slot product ``y = A_slots x`` (first ``rows_out``
-    rows; added into ``out`` when given): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors; anything else raises."""
-    if x.ndim != 1:
-        raise ValueError("bell_matvec expects x (n,), got %s"
-                         % (tuple(x.shape),))
-    return _product(b, x, rows_out, out, bell_matvec_plain)
-
-
-def bell_matmat(b: BELL, X, rows_out=None, out=None):
-    """One level's slot block product ``Y = A_slots X`` for an (n, K)
-    block (first ``rows_out`` rows; added into ``out`` when given),
-    streaming the slots once for up to 32 columns: the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors; anything else
-    raises."""
-    if X.ndim != 2:
-        raise ValueError("bell_matmat expects X (n, K), got %s"
-                         % (tuple(X.shape),))
-    return _product(b, X, rows_out, out, bell_matmat_plain)
-
-
-def _product(b, x, rows_out, out, plain):
-    _check_mv(b, x, rows_out, out)
-    if b.data.device.type == "cpu" and x.device.type == "cpu":
-        return plain(b, x, rows_out, out)
-    if b.data.device.type != "cuda" or x.device != b.data.device:
-        raise ValueError("bell_mat%s: data on %s and x on %s; the kernel "
-                         "takes both on one CUDA device"
-                         % ("vec" if x.ndim == 1 else "mat", b.data.device,
-                            x.device))
-    return _launch(b, x, rows_out, out)
-
-
-def _launch(b, x, rows_out, out):
-    """Launch the SpMV kernel for a 1-D x, the SpMM kernel for an (n, K)
-    block."""
-    global BELL_LAUNCHES, BELL_MM_LAUNCHES
-    block = x.ndim == 2
-    ct = torch.promote_types(b.data.dtype, x.dtype)
-    name = (_MM_ENTRY if block else _ENTRY).get((b.data.dtype, ct))
-    if name is None:
-        raise TypeError("the BELL kernels take f32, bf16 or f64 values with "
-                        "an f32 or f64 product, not %s values with %s x"
-                        % (b.data.dtype, x.dtype))
-    if b.grp_ptr is None:
-        raise ValueError("the BELL kernel needs the container's group map "
-                         "(bell_from_coo and convert.from_numpy build it)")
-    x = x.to(ct)
-    if block:
-        x = x.contiguous()              # the SpMM kernel reads X row-major
-    arrays = [b.data, b.lanes, b.bands, b.band_lo, b.grp_ptr, b.grp_idx, x]
-    if b.seg is not None:
-        arrays.append(b.seg)
-    if not all(a.is_contiguous() and a.device == x.device for a in arrays):
-        raise ValueError("the BELL kernel needs contiguous arrays on one "
-                         "device")
-    rows = b.padded_shape[0] if rows_out is None else int(rows_out)
-    shape = (rows,) + tuple(x.shape[1:])
-    if out is None:
-        y = torch.empty(shape, dtype=ct, device=x.device)
-    elif out.dtype != ct or out.device != x.device or \
-            not out.is_contiguous():
-        raise ValueError("out must be a contiguous %s tensor on %s"
-                         % (ct, x.device))
-    else:
-        y = out
-    if block and x.shape[1] == 0:
-        return y
-    nsteps, GS, _ = b.data.shape
-    fn = _entry(name)
-    kcols = (int(x.shape[1]),) if block else ()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(b.data.data_ptr(), b.lanes.data_ptr(),
-                 int(b.idx_fmt == "packed"), b.bands.data_ptr(),
-                 int(b.bands.shape[1] * b.bands.shape[2]),
-                 b.band_lo.data_ptr(),
-                 None if b.seg is None else b.seg.data_ptr(),
-                 0 if b.seg is None else int(b.seg.shape[1]),
-                 b.grp_ptr.data_ptr(), b.grp_idx.data_ptr(),
-                 x.data_ptr(), x.shape[0], y.data_ptr(), rows,
-                 nsteps, GS, b.nblk, *kcols, int(out is not None), stream)
-    if err != 0:
-        raise RuntimeError("BELL %s kernel launch failed with CUDA error %d"
-                           % ("SpMM" if block else "SpMV", err))
-    if block:
-        BELL_MM_LAUNCHES += 1
-    else:
-        BELL_LAUNCHES += 1
-    return y
-
-
-def bell_levels_matvec(levels, x, rows_out, product=bell_matvec):
-    """``A x`` over a packing's levels: each level's slot product (the
-    second and later ones added into the first's ``y``) and its COO
-    remainder, in the promoted dtype of the values and x.  An (n, K) block
-    goes through :func:`bell_levels_matmat`'s arithmetic when ``product``
-    is a block product."""
+def bell_levels_matvec(levels, x, rows_out):
+    """``A x`` over a packing's levels, the container's own product in
+    plain torch: each level's slot product (the second and later ones added
+    into the first's ``y``) and its COO remainder, in the promoted dtype of
+    the values and x.  An (n, K) block goes through
+    :func:`bell_matmat_plain`, its remainder added for every column with
+    one ``index_add_`` on (rows, K)."""
     ct = torch.promote_types(levels[0].data.dtype, x.dtype)
     x = x.to(ct)
+    product = bell_matmat_plain if x.ndim == 2 else bell_matvec_plain
     tail = (1,) * (x.ndim - 1)
     y = None
     for c in levels:
@@ -1174,12 +1064,13 @@ def bell_levels_matvec(levels, x, rows_out, product=bell_matvec):
     return y
 
 
-def bell_levels_matmat(levels, X, rows_out, product=bell_matmat):
-    """``A X`` for an (n, K) block over a packing's levels: each level's
-    slot block product (later ones added into the first's ``Y``) and its
-    COO remainder, added for every column with one ``index_add_`` on
-    (rows, K)."""
-    return bell_levels_matvec(levels, X, rows_out, product)
+def bell_levels_matmat(levels, X, rows_out):
+    """``A X`` for an (n, K) block over a packing's levels (the container's
+    own product in plain torch; see :func:`bell_levels_matvec`)."""
+    if X.ndim != 2:
+        raise ValueError("bell_levels_matmat expects X (n, K), got %s"
+                         % (tuple(X.shape),))
+    return bell_levels_matvec(levels, X, rows_out)
 
 
 # ---------------------------------------------------------------------------
@@ -1399,11 +1290,13 @@ def _split_transpose_levels(coo_k, M0, nb_max, sc, levels, window,
 
 
 class BellOperator(LinearOperator):
-    """LinearOperator whose products run over BELL levels
-    (:func:`bell_levels_matvec`, and :func:`bell_levels_matmat` on (n, K)
-    blocks): the CUDA kernels on CUDA tensors, the plain versions on CPU
-    tensors, or the plain versions everywhere with ``plain=True`` (see
-    :meth:`plain`).
+    """LinearOperator over BELL levels whose products run over the card
+    form each tuple of levels derives at construction
+    (:func:`~.sell.sell_from_levels`): :func:`~.sell.sell_matvec` and, on
+    (n, K) blocks, :func:`~.sell.sell_matmat`, which launch the CUDA
+    kernels on CUDA tensors and run their plain versions on CPU tensors.
+    :meth:`plain` gives the same operator over the containers' own plain
+    products instead (:func:`bell_levels_matvec`).
 
     ``fwd``/``bwd`` are the levels of A and A^T (``bwd`` None: symmetric,
     or no transpose).  ``split=(heavy, M0)``: a row-split packing, whose
@@ -1411,34 +1304,57 @@ class BellOperator(LinearOperator):
     ``perm=(p, ip)``: the levels hold ``A' = A[p][:, p]`` and the
     operator applies ``A = P^T A' P`` by two gathers per product;
     ``solve_permutation = (p, ip, inner)`` lets ``solve()`` work in the
-    permuted space instead.  ``bwd_ell``: an ELL container of A^T for
-    the transpose product, which applies a block column by column.
-    Every other product has its block twin, as the JAX package's
-    ``_bell_mm_factory``, ``_bell_mm_perm_factory`` and the split rules
+    permuted space instead (``inner`` shares this operator's card forms).
+    ``bwd_ell``: an ELL container of A^T for the transpose product, which
+    applies a block column by column.  Every other product has its block
+    twin, as the JAX package's ``_bell_mm_factory``,
+    ``_bell_mm_perm_factory`` and the split rules
     ``_bell_split_mm_factory``/``_bell_split_rmm_factory`` give it.
+
+    ``card`` is the forward product's card form (None for :meth:`plain`)
+    and ``card_bytes`` the bytes a matvec reads from it, beside the
+    containers' ``stream_bytes``.
     """
 
     fmt = "bell"
 
     def __init__(self, shape, fwd, bwd=None, symmetric=False, perm=None,
-                 split=None, bwd_ell=None, plain=False):
+                 split=None, bwd_ell=None, plain=False, _cards=None):
         self._args = dict(shape=shape, fwd=fwd, bwd=bwd,
                           symmetric=symmetric, perm=perm, split=split,
                           bwd_ell=bwd_ell)
         m, n = shape
-        vec = bell_matvec_plain if plain else bell_matvec
-        mat = bell_matmat_plain if plain else bell_matmat
+        H = 0 if split is None else int(split[0].shape[0])
+        # rows of the levels' product: the split's virtual rows included
+        level_rows = split[1] + H * LANES if split is not None else m
+        # (levels, rows of their product) of each product the operator runs
+        products = {"fwd": (fwd, level_rows)}
+        if bwd is not None and bwd_ell is None and not symmetric:
+            if split is not None:
+                products.update(bwd_l=(bwd[0], n), bwd_a=(bwd[1], n))
+            else:
+                products["bwd"] = (bwd, n)
+        if plain:
+            cards = None
+        elif _cards is not None:
+            cards = _cards
+        else:
+            cards = {key: sell_from_levels(lv, rows)
+                     for key, (lv, rows) in products.items()}
 
-        def levels_rules(lv, rows_out):
-            """(1-D rule, block rule) over the levels ``lv``."""
-            return (lambda x: bell_levels_matvec(lv, x, rows_out, vec),
-                    lambda X: bell_levels_matmat(lv, X, rows_out, mat))
+        def rules(key):
+            """(1-D rule, block rule) of one product."""
+            if plain:
+                lv, rows = products[key]
+                return (lambda x: bell_levels_matvec(lv, x, rows),
+                        lambda X: bell_levels_matmat(lv, X, rows))
+            card = cards[key]
+            return (lambda x: sell_matvec(card, x),
+                    lambda X: sell_matmat(card, X))
 
         bwd_rules = None
-        H = 0
         if split is not None:
             heavy, M0 = split
-            H = int(heavy.shape[0])
 
             def fold(inner):
                 # each heavy row's 128 virtual lanes sum back into its row
@@ -1453,22 +1369,21 @@ class BellOperator(LinearOperator):
                 return lambda x: inner_l(x) + inner_a(
                     x[heavy].repeat_interleave(LANES, dim=0))
 
-            fwd_rules = tuple(fold(r) for r in
-                              levels_rules(fwd, M0 + H * LANES))
-            if bwd is not None:
+            fwd_rules = tuple(fold(r) for r in rules("fwd"))
+            if "bwd_l" in products:
                 bwd_rules = tuple(spread(rl, ra) for rl, ra in zip(
-                    levels_rules(bwd[0], n), levels_rules(bwd[1], n)))
+                    rules("bwd_l"), rules("bwd_a")))
         else:
-            fwd_rules = levels_rules(fwd, m)
-            if bwd is not None:
-                bwd_rules = levels_rules(bwd, n)
+            fwd_rules = rules("fwd")
+            if "bwd" in products:
+                bwd_rules = rules("bwd")
         if bwd_ell is not None:
             bwd_rules = (lambda x: F.ell_matvec(bwd_ell, x), None)
         self.solve_permutation = None
         if perm is not None:
             p, ip = perm
             self.solve_permutation = (p, ip, BellOperator(
-                shape, fwd, bwd, symmetric, plain=plain))
+                shape, fwd, bwd, symmetric, plain=plain, _cards=cards))
 
             def permuted(inner):
                 return None if inner is None else (lambda x: inner(x[p])[ip])
@@ -1488,6 +1403,8 @@ class BellOperator(LinearOperator):
                          matmat=mm, matmat_transp=rmm)
         nnz_tot = sum(b.nnz for b in fwd)
         self.levels = fwd
+        self.card = None if cards is None else cards["fwd"]
+        self.card_bytes = None if cards is None else sell_bytes(self.card)
         self.fill = bell_fill(fwd[0])
         self.spill_frac = (nnz_tot - fwd[0].nnz + fwd[0].nnz_spill) / max(
             1, nnz_tot)
@@ -1496,13 +1413,12 @@ class BellOperator(LinearOperator):
         self.remainder = sum(b.nnz_spill for b in fwd)
         self.nb_max_level = max(b.nb for b in fwd)
         self.split_rows = H
-        # rows of the levels' product: the split's virtual rows included
-        self.level_rows = split[1] + H * LANES if split is not None else m
+        self.level_rows = level_rows
 
     def plain(self):
         """The same operator over the same containers with every product
-        through :func:`bell_matvec_plain` and :func:`bell_matmat_plain`
-        (on any device)."""
+        through the containers' own plain products
+        (:func:`bell_levels_matvec`, on any device)."""
         return BellOperator(plain=True, **self._args)
 
 

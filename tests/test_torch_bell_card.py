@@ -1,4 +1,5 @@
-"""The BELL kernel against its plain version on an NVIDIA GPU.
+"""The SELL SpMV kernel, over the card form of BELL containers, against its
+plain version on an NVIDIA GPU.
 
 Every test here needs a card and nvcc (a CUDA kernel has no CPU mode) and
 skips without them.  The file imports neither JAX nor the JAX package, so
@@ -6,7 +7,12 @@ it runs on a machine without them, from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_bell_card.py
 
-(``tests/conftest.py`` configures JAX, hence ``--noconftest``.)"""
+(``tests/conftest.py`` configures JAX, hence ``--noconftest``.)
+
+The kernel adds a row's products one by one in slot order, as its plain
+version does, so the two agree bit for bit; against the container's own
+product (which sums 4-row groups with ``index_add_``) the bound is 1e-12
+relative in f64 and 1e-6 in f32 and bf16 storage (f32 sums)."""
 
 import numpy as np
 import pytest
@@ -14,12 +20,13 @@ import torch
 
 from pykrylov_tpu_torch.sparse import bell as B
 from pykrylov_tpu_torch.sparse import formats as F
+from pykrylov_tpu_torch.sparse import sell as S
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the BELL kernel has no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (the SELL kernels have no CPU mode)")
     return "cuda"
 
 
@@ -39,28 +46,35 @@ def wide_window(m=2048, n=90000, far_frac=0.08, heavy=10, seed=11):
     return vals, rows[first], cols[first], (m, n)
 
 
+def card_form(dev, window, idx_fmt, dtype, sigma=S.SIGMA):
+    """(BELL container of :func:`wide_window`, its card form) on ``dev``."""
+    vals, rows, cols, (m, n) = wide_window()
+    b = B.bell_from_coo(F.coo_from_arrays(vals, rows, cols, (m, n),
+                                          device=None),
+                        spill_cost=None, window=window, segment=True,
+                        idx_fmt=idx_fmt, device=dev)
+    b = B.bell_with_values_dtype(b, dtype)
+    return b, S.sell_from_levels((b,), m, sigma=sigma)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window,idx_fmt", [(1, "packed"), (1, "int8"),
                                             (2, "packed")])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.bfloat16])
 def test_kernel_matches_plain(card, dtype, window, idx_fmt):
-    # f64 within 1e-12 relative; f32 and bf16 storage (f32 sums) within
-    # 1e-6: the plain version adds group sums in another order
-    vals, rows, cols, (m, n) = wide_window()
-    b = B.bell_from_coo(F.coo_from_arrays(vals, rows, cols, (m, n),
-                                          device=None),
-                        spill_cost=None, window=window, segment=True,
-                        idx_fmt=idx_fmt, device=card)
-    b = B.bell_with_values_dtype(b, dtype)
+    b, sell = card_form(card, window, idx_fmt, dtype)
+    m, n = b.shape
     xdt = torch.float64 if dtype == torch.float64 else torch.float32
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(n)).to(
         card, xdt)
-    before = B.BELL_LAUNCHES
-    y = B.bell_matvec(b, x, m)
+    before = S.SELL_LAUNCHES
+    y = S.sell_matvec(sell, x)
     torch.cuda.synchronize()
-    assert B.BELL_LAUNCHES == before + 1
-    ref = B.bell_matvec_plain(b, x, m)
+    assert S.SELL_LAUNCHES == before + 1
+    assert y.shape == (m,) and y.dtype == xdt
+    assert torch.equal(y, S.sell_matvec_plain(sell, x))
+    ref = B.bell_levels_matvec((b,), x, m)
     err = ((y - ref).abs().max() / ref.abs().max()).item()
     assert err <= (1e-12 if dtype == torch.float64 else 1e-6)
 
@@ -68,23 +82,38 @@ def test_kernel_matches_plain(card, dtype, window, idx_fmt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("idx_fmt", ["packed", "int8"])
 def test_kernel_propagates_non_finite_x_as_plain(card, idx_fmt):
-    # the kernel multiplies padding slots as the plain version does, so a
-    # NaN in x that only padding reaches gives NaN in both: x is NaN at
-    # three band starts (a padding slot's index is 0) that no stored entry
-    # of the matrix reaches (765 of the 2048 rows become NaN)
-    vals, rows, cols, (m, n) = wide_window()
-    b = B.bell_from_coo(F.coo_from_arrays(vals, rows, cols, (m, n),
-                                          device=None),
-                        spill_cost=None, window=1, segment=True,
-                        idx_fmt=idx_fmt, device=card)
+    # the card kernel equals the card form's plain version on a non-finite
+    # x: NaN and inf reach exactly the rows whose stored entries read them
+    # (the card form has no padding to spread them further)
+    b, sell = card_form(card, 1, idx_fmt, torch.float64)
+    m, n = b.shape
     x = np.random.default_rng(3).standard_normal(n)
-    x[np.setdiff1d(np.arange(0, n, B.LANES), cols)[:3]] = np.nan
+    x[np.random.default_rng(4).integers(0, n, 40)] = np.nan
+    x[np.random.default_rng(5).integers(0, n, 10)] = np.inf
     x = torch.from_numpy(x).to(card)
-    y = B.bell_matvec(b, x, m)
-    ref = B.bell_matvec_plain(b, x, m)
+    y = S.sell_matvec(sell, x)
+    ref = S.sell_matvec_plain(sell, x)
     torch.cuda.synchronize()
     nan = torch.isnan(ref)
     assert nan.any() and not nan.all()
     assert torch.equal(torch.isnan(y), nan)
-    err = ((y - ref)[~nan].abs().max() / ref[~nan].abs().max()).item()
-    assert err <= 1e-12
+    assert torch.equal(y[~nan], ref[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [32, 256, 4096])
+def test_kernel_writes_every_row_once(card, sigma):
+    # rows without entries come out 0 (y starts uninitialised), and the
+    # window of the length sort changes the layout but not one bit of y
+    vals, rows, cols, (m, n) = wide_window()
+    keep = rows % 7 != 3                  # every seventh row empty
+    b = B.bell_from_coo(F.coo_from_arrays(vals[keep], rows[keep], cols[keep],
+                                          (m, n), device=None),
+                        spill_cost=None, window=1, segment=True, device=card)
+    sell = S.sell_from_levels((b,), m, sigma=sigma)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(n)).to(card)
+    y = S.sell_matvec(sell, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, S.sell_matvec_plain(sell, x))
+    assert torch.equal(y, S.sell_matvec(S.sell_from_levels((b,), m), x))
+    assert bool((y[3::7] == 0).all()) and bool((y[0::7] != 0).all())

@@ -3,11 +3,12 @@
 The JAX package packs; ``convert`` carries its container into the port,
 so both multiply by the same stored matrix.  The JAX product runs its
 Pallas kernel in interpret mode, as ``tests/test_bell.py`` runs it; the
-port's runs the kernel's plain torch version (the wrapper's choice for CPU
-tensors).  Only summation order differs: f64 products agree to 1e-12
-relative.  The operator tests cover the forward and transpose products of
-window-1, two-level window-2, row-split, RCM-permuted and COO-remainder
-containers."""
+port's runs the container's plain torch product, and its operators run the
+card form derived from the containers (``sell.py``; its plain version, the
+wrappers' choice for CPU tensors).  Only summation order differs: f64
+products agree to 1e-12 relative.  The operator tests cover the forward and
+transpose products of window-1, two-level window-2, row-split,
+RCM-permuted and COO-remainder containers."""
 
 import ml_dtypes
 import numpy as np
@@ -21,6 +22,7 @@ from pykrylov_tpu.sparse import formats as JF
 
 from pykrylov_tpu_torch import convert
 from pykrylov_tpu_torch.sparse import bell as TB
+from pykrylov_tpu_torch.sparse import sell as S
 
 from test_torch_bell_pack import triples, wide_window
 
@@ -113,15 +115,14 @@ def test_bf16_storage():
         b = convert.from_numpy(ref, device=DEV)
         assert b.data.dtype == torch.bfloat16
         x = np.random.default_rng(3).standard_normal(400).astype(np.float32)
-        y = TB.bell_matvec(b, torch.from_numpy(x), 400)
+        y = TB.bell_matvec_plain(b, torch.from_numpy(x), 400)
         assert y.dtype == torch.float32
         exact = dense(t16) @ x.astype(np.float64)
         assert rel(y.numpy(), exact) <= 1e-6
 
 
 def test_levels_accumulate_into_out():
-    # a later level adds into the earlier one's y, as the kernel's
-    # ``accumulate`` flag does
+    # a later level adds into the earlier one's y
     t = triples(1000, 1000, 8000, 1, bandwidth=90)
     c = JF.coo_from_arrays(*t, device=False)
     lv = JB._pack_levels(c, 16, 12.0, 2, device=False, window=2)
@@ -130,8 +131,8 @@ def test_levels_accumulate_into_out():
     y = TB.bell_levels_matvec(levels, torch.from_numpy(x), 1000).numpy()
     assert rel(y, dense(t) @ x) <= 1e-12
     out = torch.ones(1000, dtype=torch.float64)
-    TB.bell_matvec(levels[0], torch.from_numpy(x), 1000, out=out)
-    first = TB.bell_matvec(levels[0], torch.from_numpy(x), 1000)
+    TB.bell_matvec_plain(levels[0], torch.from_numpy(x), 1000, out=out)
+    first = TB.bell_matvec_plain(levels[0], torch.from_numpy(x), 1000)
     np.testing.assert_array_equal(out.numpy(), first.numpy() + 1.0)
 
 
@@ -205,23 +206,28 @@ def test_operator_matches_jax(name):
     assert rel(fwd, np.asarray(jop * jnp.asarray(x))) <= 1e-12
     assert rel(bwd, np.asarray(jop.T * jnp.asarray(y))) <= 1e-12
     assert rel(fwd, a @ x) <= 1e-12 and rel(bwd, a.T @ y) <= 1e-12
-    # the operator's plain twin computes the same products
+    # the operator's plain twin, over the containers' own products, computes
+    # the same products up to summation order (the card form adds a row's
+    # products one by one, the container 4-row group sums): 1e-12 in f64
     plain = top.plain()
-    np.testing.assert_array_equal((plain * torch.from_numpy(x)).numpy(), fwd)
+    assert rel((plain * torch.from_numpy(x)).numpy(), fwd) <= 1e-12
 
 
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():
+    # the card form's wrapper runs its plain version for CPU tensors and
+    # refuses any other device; the container's plain product checks rows
     t = triples(300, 300, 1500, 9, bandwidth=40)
     b = TB.bell_from_coo(TB.F.coo_from_arrays(*t, device=None),
                          spill_cost=None, device=DEV)
+    card = S.sell_from_levels((b,), 300)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(300))
-    before = TB.BELL_LAUNCHES
-    np.testing.assert_array_equal(TB.bell_matvec(b, x, 300).numpy(),
-                                  TB.bell_matvec_plain(b, x, 300).numpy())
-    assert TB.BELL_LAUNCHES == before   # no kernel ran
-    # a container on another device is refused, not run on the CPU
-    meta = TB.bell_to_device(b, "meta")
+    before = S.SELL_LAUNCHES
+    np.testing.assert_array_equal(S.sell_matvec(card, x).numpy(),
+                                  S.sell_matvec_plain(card, x).numpy())
+    assert S.SELL_LAUNCHES == before   # no kernel ran
+    # a card form on another device is refused, not run on the CPU
+    meta = S.SELL(*(a.to("meta") for a in card[:5]), *card[5:])
     with pytest.raises(ValueError, match="CUDA"):
-        TB.bell_matvec(meta, x, 300)
+        S.sell_matvec(meta, x)
     with pytest.raises(ValueError, match="rows_out"):
-        TB.bell_matvec(b, x, 10 ** 6)
+        TB.bell_matvec_plain(b, x, 10 ** 6)

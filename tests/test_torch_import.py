@@ -28,7 +28,8 @@ def test_import_loads_no_jax():
                    timeout=120)
 
 
-@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py",
+                                            "chip_sell_variants.py"])
 def test_source_does_not_import_jax(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|pykrylov_tpu)\b", text,
@@ -62,7 +63,7 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
         open(libs[name], "wb").close()
     monkeypatch.setattr(_build.shutil, "which", lambda *a, **k: None)
     assert _build.build() == libs
-    assert _build.build("bell_spmv") == libs["bell_spmv"]
+    assert _build.build("sell_spmv") == libs["sell_spmv"]
 
 
 def _public_device_defaults():

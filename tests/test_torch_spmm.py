@@ -1,12 +1,14 @@
 """The port's block products (SpMM) against the JAX package.
 
-``kernels.dia_matmat`` and ``bell.bell_matmat`` run their plain torch
-versions on CPU tensors; they are held against the Pallas SpMM kernels in
-interpret mode (``dia_matmat_packed``, ``bell_matmat_pallas``, as
-``tests/test_spmm.py`` runs them) on the same stored matrices, carried
-across with ``convert.from_numpy``, and against the dense product.  The
-CUDA kernels themselves run only on the card (``chip_smoke.py``,
-``tests/test_torch_spmm_card.py``).
+``kernels.dia_matmat`` runs its plain torch version on CPU tensors, and
+``bell.bell_matmat_plain`` is the BELL container's own block product; they
+are held against the Pallas SpMM kernels in interpret mode
+(``dia_matmat_packed``, ``bell_matmat_pallas``, as ``tests/test_spmm.py``
+runs them) on the same stored matrices, carried across with
+``convert.from_numpy``, and against the dense product.  A BELL operator's
+block rule runs over its card form (``sell.sell_matmat``, plain on CPU
+tensors; ``tests/test_torch_sell.py``).  The CUDA kernels themselves run
+only on the card (``chip_smoke.py``, ``tests/test_torch_spmm_card.py``).
 
 Tolerances: 1e-12 relative (max norm) in float64, where only the summation
 order differs.  Column k of a plain block product equals the plain matvec
@@ -36,6 +38,7 @@ from pykrylov_tpu_torch.sparse import bell as TB
 from pykrylov_tpu_torch.sparse import formats as F
 from pykrylov_tpu_torch.sparse import kernels as K
 from pykrylov_tpu_torch.sparse import linop as TL
+from pykrylov_tpu_torch.sparse import sell as S
 
 from test_torch_bell_pack import triples, wide_window
 from test_torch_bell_product import _square_with_heavy_rows
@@ -230,7 +233,7 @@ def test_bell_matmat_matches_pallas(name):
     assert rel(Y.numpy(), pallas_mm(ref, X)) <= 1e-12
     assert rel(Y.numpy(), dense(t) @ X) <= 1e-12
     # the slot product's column k is the plain matvec on column k
-    slots = TB.bell_matmat(b, torch.from_numpy(X), m)
+    slots = TB.bell_matmat_plain(b, torch.from_numpy(X), m)
     for k in range(3):
         col = TB.bell_matvec_plain(b, torch.from_numpy(X[:, k]), m)
         assert torch.equal(slots[:, k], col)
@@ -247,18 +250,22 @@ def test_bell_matmat_accumulates_levels_and_checks_shapes():
     Y = TB.bell_levels_matmat(levels, X, 1000)
     assert rel(Y.numpy(), dense(t) @ X.numpy()) <= 1e-12
     out = torch.ones((1000, 4), dtype=torch.float64)
-    TB.bell_matmat(levels[0], X, 1000, out=out)
-    assert torch.equal(out, TB.bell_matmat(levels[0], X, 1000) + 1.0)
-    before = TB.BELL_MM_LAUNCHES
-    assert torch.equal(TB.bell_matmat(levels[0], X, 1000),
-                       TB.bell_matmat_plain(levels[0], X, 1000))
-    assert TB.BELL_MM_LAUNCHES == before   # no kernel ran
+    TB.bell_matmat_plain(levels[0], X, 1000, out=out)
+    assert torch.equal(out, TB.bell_matmat_plain(levels[0], X, 1000) + 1.0)
+    # the card form of the two levels: its wrapper runs the plain version
+    # on the CPU (no kernel) and refuses another device
+    card = S.sell_from_levels(levels, 1000)
+    before = S.SELL_MM_LAUNCHES
+    assert torch.equal(S.sell_matmat(card, X), S.sell_matmat_plain(card, X))
+    assert rel(S.sell_matmat(card, X).numpy(), Y.numpy()) <= 1e-12
+    assert S.SELL_MM_LAUNCHES == before   # no kernel ran
     with pytest.raises(ValueError, match=r"X \(n, K\)"):
-        TB.bell_matmat(levels[0], X[:, 0], 1000)
+        TB.bell_matmat_plain(levels[0], X[:, 0], 1000)
     with pytest.raises(ValueError, match="out has shape"):
-        TB.bell_matmat(levels[0], X, 1000, out=torch.zeros(1000, 3))
+        TB.bell_matmat_plain(levels[0], X, 1000, out=torch.zeros(1000, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        TB.bell_matmat(TB.bell_to_device(levels[0], "meta"), X, 1000)
+        S.sell_matmat(S.SELL(*(a.to("meta") for a in card[:5]), *card[5:]),
+                      X)
 
 
 def _jax_bwd_ell(t):

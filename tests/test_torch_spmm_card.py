@@ -1,4 +1,4 @@
-"""The DIA and BELL SpMM kernels against their plain versions and against
+"""The DIA and SELL SpMM kernels against their plain versions and against
 the SpMV kernels on an NVIDIA GPU.
 
 Every test here needs a card and nvcc (a CUDA kernel has no CPU mode) and
@@ -11,8 +11,10 @@ it runs on a machine without them, from the repository root:
 
 Each SpMM kernel rounds every product and sum in its SpMV kernel's order,
 so column k of a block product equals the SpMV kernel on column k bit for
-bit; against the plain version the bound is 1e-12 relative in f64 and
-1e-6 in f32 (the plain BELL version sums in torch's order)."""
+bit, and each equals its plain version bit for bit.  The SELL kernels run
+over the card form of BELL containers, which is held against the
+container's own block product within 1e-12 relative in f64 and 1e-6 in f32
+(the container sums 4-row groups in torch's order)."""
 
 import numpy as np
 import pytest
@@ -23,8 +25,9 @@ from pykrylov_tpu_torch.solvers import cg_batched
 from pykrylov_tpu_torch.sparse import bell as B
 from pykrylov_tpu_torch.sparse import formats as F
 from pykrylov_tpu_torch.sparse import kernels as K
+from pykrylov_tpu_torch.sparse import sell as S
 
-from test_torch_bell_card import wide_window
+from test_torch_bell_card import card_form
 
 
 @pytest.fixture
@@ -68,27 +71,57 @@ def test_dia_spmm_matches_plain_and_spmv(card, dtype, ncols):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_bell_spmm_matches_plain_and_spmv(card, dtype, window, idx_fmt,
                                           ncols):
-    vals, rows, cols, (m, n) = wide_window()
-    b = B.bell_from_coo(F.coo_from_arrays(vals, rows, cols, (m, n),
-                                          device=None),
-                        spill_cost=None, window=window, segment=True,
-                        idx_fmt=idx_fmt, device=card)
-    b = B.bell_with_values_dtype(b, dtype)
+    b, sell = card_form(card, window, idx_fmt, dtype)
+    m, n = b.shape
     X = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (n, ncols))).to(card, dtype)
-    before = B.BELL_MM_LAUNCHES
-    Y = B.bell_matmat(b, X, m)
+    before = S.SELL_MM_LAUNCHES
+    Y = S.sell_matmat(sell, X)
     torch.cuda.synchronize()
-    assert B.BELL_MM_LAUNCHES == before + 1
-    ref = B.bell_matmat_plain(b, X, m)
+    assert S.SELL_MM_LAUNCHES == before + 1
+    assert Y.shape == (m, ncols) and Y.dtype == dtype
+    assert torch.equal(Y, S.sell_matmat_plain(sell, X))
+    ref = B.bell_levels_matmat((b,), X, m)
     assert relerr(Y, ref) <= (1e-12 if dtype == torch.float64 else 1e-6)
     for k in range(ncols):
-        assert torch.equal(Y[:, k], B.bell_matvec(b, X[:, k].contiguous(),
-                                                  m))
-    # a later level adds into the first's Y, as in the SpMV
-    out = torch.ones_like(Y)
-    B.bell_matmat(b, X, m, out=out)
-    assert torch.equal(out, torch.ones_like(Y).add_(Y))
+        assert torch.equal(Y[:, k], S.sell_matvec(sell, X[:, k].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [8, 64, 200])
+def test_sell_spmm_bf16_storage_and_wide_blocks(card, ncols):
+    # bf16 values with an f32 block, and blocks past 128 columns, which
+    # the kernel covers in chunks of 128
+    b, sell = card_form(card, 1, "packed", torch.bfloat16)
+    m, n = b.shape
+    X = torch.from_numpy(np.random.default_rng(ncols).standard_normal(
+        (n, ncols))).to(card, torch.float32)
+    Y = S.sell_matmat(sell, X)
+    torch.cuda.synchronize()
+    assert Y.dtype == torch.float32
+    assert torch.equal(Y, S.sell_matmat_plain(sell, X))
+    for k in (0, ncols // 2, ncols - 1):
+        assert torch.equal(Y[:, k], S.sell_matvec(sell, X[:, k].contiguous()))
+
+
+@pytest.mark.cuda
+def test_cg_batched_through_a_bell_operator(card):
+    # every block product of a BELL operator is one SELL SpMM launch
+    from pykrylov_tpu_torch.gallery import tiled_general_coo
+    vals, rows, cols, shape = tiled_general_coo("1138bus", tiles=4,
+                                                coupling=0)
+    A = B.bell_operator((vals.astype(np.float64), rows, cols, shape),
+                        symmetric=True, device=card)
+    X = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (shape[0], 4))).to(card)
+    rhs = A @ X
+    S.SELL_MM_LAUNCHES = 0
+    S.SELL_LAUNCHES = 0
+    res = cg_batched(A, rhs, rtol=1e-6)
+    torch.cuda.synchronize()
+    assert S.SELL_MM_LAUNCHES == int(res.n_matvec) > 0
+    assert S.SELL_LAUNCHES == 0
+    assert bool(res.converged.all())
 
 
 @pytest.mark.cuda
