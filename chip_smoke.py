@@ -22,8 +22,9 @@ Phases, in order:
 
   1. device: torch/CUDA versions, card name and power limit, TF32 off;
   2. build: the four kernel libraries from source at once, the compiler's
-     registers and spills per kernel, and the card's copy rate (a large
-     ``copy_``), which sets the bounds below;
+     registers and spills per kernel, the card's published peaks
+     (``PEAKS``), which set the bounds below, and its copy rate (a large
+     ``copy_``), which sets the achievable times beside them;
   3. SpMV kernels vs plain on the card: DIA in f64, f32 and bf16 storage;
      SELL on the card forms, at both sorting windows (SIGMAS), of the auto
      policy's packings of ``bench.py``'s three matrix classes at 131,072
@@ -59,14 +60,18 @@ Phases, in order:
      container's plain product, the port's plain ELL operator (BELL
      matrices) and torch's CSR matvec (cuSPARSE, timed as a yardstick
      only), against the bound: the smaller of the matrix's bytes as the
-     kernel stores it and as CSR, plus x and y, at the measured copy rate;
+     kernel stores it and as CSR, plus x and y, at the card's published
+     memory rate, or its operations at the float32 rate if longer (and
+     the same bytes at the measured copy rate, as the achievable time);
   6b. the K-curve: each SpMM kernel at K = 8, 16, 32, 64 on both matrices,
      per block and per column, against K times its SpMV kernel, its plain
      version, its bound (the matrix once plus K columns of X and Y) and
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
-  7. a JSON line naming the kernels, then the result line
-     ``{"ok": true, "device": {...}}``.
+  7. a JSON line naming the kernels (the DIA SpMM's with its host plan,
+     V columns a thread, T rows a tile, Kc columns a panel, at each K,
+     and each template instance's registers and spill bytes), then the
+     result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the result line.
 Without a CUDA device, or without the package beside it, it exits 2.
@@ -74,6 +79,7 @@ Without a CUDA device, or without the package beside it, it exits 2.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,7 +93,12 @@ TILES = 1024        # 1138bus tiles of the BELL path (bench.py's 1M-row scale)
 CLASS_ROWS = 1 << 17  # rows of bench.py's matrix classes
 COPY_BYTES = 1 << 30  # bytes of the copy that measures the copy rate
 DEVICE = "cuda"
-F32_TFLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+# Published peaks by the name torch.cuda.get_device_name reports (NVIDIA's
+# data sheet, H100 SXM at its 700 W limit): device-memory bytes a second and
+# float32 operations a second outside the tensor cores.  The bounds divide
+# by these; the copy rate measured in phase 2 gives an achievable time
+# beside them.
+PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, "f32": 67e12}}
 SLEEP_HZ = 2e9      # above the card's SM clock: a sleep of n cycles lasts
                     # at least n / SLEEP_HZ seconds
 KB = 8              # right-hand sides of the block paths (phases 4b, 5b)
@@ -129,7 +140,7 @@ def events_ms(fn, iters):
 
 
 # --------------------------------------------------------------------------
-# 1-2. device, build, copy rate
+# 1-2. device, build, rates
 # --------------------------------------------------------------------------
 
 def phase_device():
@@ -159,27 +170,61 @@ def phase_build():
     log("[2 build] %s in %.3f s" % (", ".join(
         os.path.basename(p) for p in libs.values()),
         time.perf_counter() - t0))
+    regs = {}
     for name, lib in libs.items():
+        fn = None
         with open(lib + ".log") as f:
             for line in f.read().splitlines():
                 if "entry function" in line:
-                    log("[2 build] %s: %s" % (name, line.split("'")[1]))
+                    fn = line.split("'")[1]
+                    log("[2 build] %s: %s" % (name, fn))
                 elif "spill" in line or "registers" in line:
                     log("[2 build] %s:     %s" % (name, line.strip()))
+                    if fn is not None:
+                        regs.setdefault(name, {}).setdefault(fn, []).append(
+                            line.strip())
+    return {name: {_instance(fn): _usage(" ".join(lines))
+                   for fn, lines in fns.items()}
+            for name, fns in regs.items()}
 
 
-def phase_copy_rate():
-    """Device-memory rate of a large ``copy_`` (bytes read + written per
+def _usage(report):
+    """{"registers": n, "spill_bytes": stores + loads} of one kernel's
+    ``-Xptxas -v`` lines."""
+    spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
+    used = re.search(r"Used (\d+) registers", report)
+    return {"registers": int(used.group(1)) if used else None,
+            "spill_bytes": sum(int(s) for s in spill)}
+
+
+def _instance(mangled):
+    """A template instance of the DIA SpMM kernel by its types and V
+    ("f32 V=4"); other kernels keep their mangled names."""
+    hit = re.search(r"dia_spmm_kernelI(13__nv_bfloat16|f|d)[fd]Li(\d+)E",
+                    mangled)
+    if not hit:
+        return mangled
+    kind = {"f": "f32", "d": "f64"}.get(hit.group(1), "bf16")
+    return "%s V=%s" % (kind, hit.group(2))
+
+
+def phase_rates():
+    """The card's published peaks (``PEAKS``) and, as ``copy``, the
+    device-memory rate of a large ``copy_`` (bytes read + written per
     second), best of 5."""
+    name = torch.cuda.get_device_name(0)
+    if name not in PEAKS:
+        raise AssertionError("no published peak for %r in PEAKS" % name)
     src = torch.ones(COPY_BYTES // 4, device=DEVICE)
     dst = torch.empty_like(src)
     dst.copy_(src)
     ms = min(events_ms(lambda: dst.copy_(src), 10) for _ in range(5))
     rate = 2 * COPY_BYTES / (ms * 1e-3)
-    log("[2 build] copy rate: %.1f GB/s (copy of %d bytes, %.4f ms)"
-        % (rate / 1e9, COPY_BYTES, ms))
+    log("[2 build] copy rate: %.1f GB/s (copy of %d bytes, %.4f ms); "
+        "published peak %.1f GB/s" % (rate / 1e9, COPY_BYTES, ms,
+                                     PEAKS[name]["bytes"] / 1e9))
     del src, dst
-    return rate
+    return dict(PEAKS[name], copy=rate)
 
 
 # --------------------------------------------------------------------------
@@ -892,8 +937,10 @@ def phase_dia_block(pt, A, dia):
     torch.cuda.synchronize()
     ref = K.dia_matmat_plain(data, offsets, X_true)
     err = (Bm - ref).abs().max().item()
+    plan = K.dia_matmat_plan(data, offsets, X_true)
     log("[%s] B = A X_true (%d x %d): kernel vs plain rel err %.3e, max "
-        "abs err %.3e" % (tag, m, KB, relerr(Bm, ref), err))
+        "abs err %.3e; SpMM plan V=%d T=%d Kc=%d"
+        % (tag, m, KB, relerr(Bm, ref), err, plan.v, plan.rows, plan.kc))
     if not relerr(Bm, ref) <= REL_BOUND[torch.float32]:
         raise AssertionError("%s: kernel disagrees with plain" % tag)
     del ref
@@ -1089,16 +1136,19 @@ def _csr_bytes(nnz, m, n):
     return nnz * 8 + (m + 1) * 4 + n * 4 + m * 4
 
 
-def _bound(own_bytes, csr_bytes, nnz, rate):
-    """The least time for ``y = A x``: the matrix's bytes (the smaller of
-    its own storage and CSR) plus x and y at the copy rate, against its
-    2 nnz float32 operations at the card's peak; the larger of the two."""
-    t_bytes = min(own_bytes, csr_bytes) / rate * 1e3
-    t_ops = 2 * nnz / F32_TFLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(nbytes, flops, rates):
+    """The least time for work that must move ``nbytes`` and do ``flops``
+    float32 operations: the larger of the bytes at the card's published
+    memory rate and the operations at its float32 rate; beside it, as
+    ``achievable_ms``, the bytes at the copy rate measured in phase 2."""
+    t_bytes = nbytes / rates["bytes"] * 1e3
+    t_ops = flops / rates["f32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "achievable_ms": nbytes / rates["copy"] * 1e3}
 
 
-def phase_dia_timing(A, coo, rate):
+def phase_dia_timing(A, coo, rates):
     from pykrylov_tpu_torch.sparse import kernels as K
 
     offsets = A.container.offsets
@@ -1141,16 +1191,16 @@ def phase_dia_timing(A, coo, rate):
             "its own %d bytes" % (N, label, best[label],
                                   nbytes / (best[label] * 1e-3) / 1e9,
                                   nbytes))
-    bound, by = _bound(own["f32"], csr_b, nnz, rate)
+    b = _bound(min(own["f32"], csr_b), 2 * nnz, rates)
     log("[6 timing] DIA n=%d bound %.4f ms (%s): %d own bytes, %d CSR "
-        "bytes; kernel at %.1f%% of it"
-        % (N, bound, by, own["f32"], csr_b,
-           100 * bound / best["kernel f32"]))
+        "bytes; kernel at %.1f%% of it; achievable %.4f ms at the copy rate"
+        % (N, b["bound_ms"], b["bound_by"], own["f32"], csr_b,
+           100 * b["bound_ms"] / best["kernel f32"], b["achievable_ms"]))
     del csr, d32, d16, state
-    return best, bound, by
+    return best, b
 
 
-def phase_bell_timing(A, coo, classes, rate):
+def phase_bell_timing(A, coo, classes, rates):
     from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import operator_from_coo
     from pykrylov_tpu_torch.sparse import sell as S
@@ -1196,7 +1246,7 @@ def phase_bell_timing(A, coo, classes, rate):
         bell_b = sum(B.bell_stream_bytes(b) + B.bell_map_bytes(b)
                      for b in levels) + io
         csr_b = _csr_bytes(nnz, m, n)
-        bound, by = _bound(own[S.SIGMA], csr_b, nnz, rate)
+        b = _bound(min(own[S.SIGMA], csr_b), 2 * nnz, rates)
         for label, _ in variants:
             ms = best[label]
             mine = (own[int(label.split()[-1])] if label.startswith("kernel")
@@ -1207,21 +1257,22 @@ def phase_bell_timing(A, coo, classes, rate):
                    csr_b / (ms * 1e-3) / 1e9, csr_b))
         log("[6 timing] BELL %-18s bound %.4f ms (%s; card form %d bytes "
             "with x and y, CSR %d, BELL container %d); kernel at %.1f%% of "
-            "it, %.2fx torch CSR's time"
-            % (name, bound, by, own[S.SIGMA], csr_b, bell_b,
-               100 * bound / best["kernel"],
-               best["kernel"] / best["torch CSR"]))
-        out[name] = (best, bound, by)
+            "it, %.2fx torch CSR's time; achievable %.4f ms"
+            % (name, b["bound_ms"], b["bound_by"], own[S.SIGMA], csr_b,
+               bell_b, 100 * b["bound_ms"] / best["kernel"],
+               best["kernel"] / best["torch CSR"], b["achievable_ms"]))
+        out[name] = (best, b)
         del csr, ell, cards
     return out
 
 
-def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rate,
-                      iters, extra=(), host_waits=()):
+def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rates,
+                      iters, extra=(), host_waits=(), plan=None):
     """6b: the K-curve of one SpMM kernel: per block and per column at each
     K of CURVE_K, beside K times its SpMV kernel's time, its plain version,
     the bound, torch's CSR SpMM (cuSPARSE, a yardstick only) and the
-    ``extra`` (label, block product) variants."""
+    ``extra`` (label, block product) variants; ``plan(X)``, where given,
+    records the host plan the kernel took for the timed block."""
     vals, _, _, (m, n) = coo
     nnz = len(vals)
     csr = _torch_csr(coo, DEVICE)
@@ -1238,23 +1289,22 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rate,
         best = _best_ms(variants, iters, host_waits)
         # the matrix once (the smaller of its own and its CSR bytes) plus
         # K columns of X read and of Y written, f32
-        t_bytes = (min(own_matrix, csr_matrix) + kb * (n + m) * 4) \
-            / rate * 1e3
-        t_ops = 2 * nnz * kb / F32_TFLOPS * 1e3
-        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                     else (t_ops, "operations"))
+        b = _bound(min(own_matrix, csr_matrix) + kb * (n + m) * 4,
+                   2 * nnz * kb, rates)
         point = {"ms": best["kernel"], "ms_per_column": best["kernel"] / kb,
                  "spmv_x_k_ms": spmv_ms * kb, "plain_ms": best["plain"],
-                 "bound_ms": bound, "bound_by": by,
-                 "library_ms": best["torch CSR SpMM"]}
+                 **b, "library_ms": best["torch CSR SpMM"]}
         point.update((label + "_ms", best[label]) for label, _ in extra)
+        if plan is not None:
+            point["plan"] = plan(X)
         curve[kb] = point
         log("[6b K-curve] %s K=%2d: kernel %.4f ms per block, %.5f per "
             "column; K x SpMV %.4f; plain %.4f; torch CSR SpMM %.4f; bound "
-            "%.4f ms (%s), kernel at %.1f%% of it%s"
+            "%.4f ms (%s), kernel at %.1f%% of it, achievable %.4f%s"
             % (name, kb, point["ms"], point["ms_per_column"],
                point["spmv_x_k_ms"], point["plain_ms"], point["library_ms"],
-               bound, by, 100 * bound / point["ms"],
+               b["bound_ms"], b["bound_by"], 100 * b["bound_ms"] / point["ms"],
+               b["achievable_ms"],
                "".join("; %s %.4f" % (label, best[label])
                        for label, _ in extra)))
         del X, variants
@@ -1282,8 +1332,8 @@ def main():
 
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
-    rate = phase_copy_rate()
+    regs = phase_build()
+    rates = phase_rates()
     dia_cases = phase_dia_kernel(pt)
     classes, bell_cases = phase_bell_kernel(pt)
     phase_spmm_kernels(dia_cases, bell_cases, classes)
@@ -1292,7 +1342,7 @@ def main():
     dia_mm = phase_dia_block(pt, A_dia, dia)
     A_bell, coo_bell, bell = phase_bell_path(pt)
     bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
-    dia_best, dia_bound, dia_by = phase_dia_timing(A_dia, coo_dia, rate)
+    dia_best, dia_b = phase_dia_timing(A_dia, coo_dia, rates)
 
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import sell as S
@@ -1300,10 +1350,11 @@ def main():
     dia_curve = phase_spmm_timing(
         "DIA n=%d" % N, lambda X: K.dia_matmat(data, offsets, X),
         lambda X: K.dia_matmat_plain(data, offsets, X), coo_dia,
-        data.shape[0] * data.shape[1] * 4, dia_best["kernel f32"], rate, 10)
+        data.shape[0] * data.shape[1] * 4, dia_best["kernel f32"], rates, 10,
+        plan=lambda X: K.dia_matmat_plan(data, offsets, X)._asdict())
     del A_dia, coo_dia, data
-    bell_times = phase_bell_timing(A_bell, coo_bell, classes, rate)
-    bt, b_bound, b_by = bell_times["tiled_1138bus"]
+    bell_times = phase_bell_timing(A_bell, coo_bell, classes, rates)
+    bt, bell_b = bell_times["tiled_1138bus"]
     sell = A_bell.card
     extra = [("kernel sigma %d" % sg, (lambda c: lambda X: S.sell_matmat(
         c, X))(S.sell_from_levels(A_bell.levels, A_bell.level_rows,
@@ -1312,7 +1363,7 @@ def main():
     bell_curve = phase_spmm_timing(
         "BELL tiled_1138bus", lambda X: S.sell_matmat(sell, X),
         lambda X: S.sell_matmat_plain(sell, X), coo_bell,
-        S.sell_bytes(sell), bt["kernel"], rate, 20, extra, ("plain",))
+        S.sell_bytes(sell), bt["kernel"], rates, 20, extra, ("plain",))
     if any(m.split(".")[0] in ("jax", "jaxlib", "pykrylov_tpu")
            for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -1326,8 +1377,9 @@ def main():
         "max_abs_err": dia["max_abs_err"],
         "ms": dia_best["kernel f32"],
         "plain_ms": dia_best["plain f32"],
-        "bound_ms": dia_bound,
-        "bound_by": dia_by,
+        "bound_ms": dia_b["bound_ms"],
+        "bound_by": dia_b["bound_by"],
+        "achievable_ms": dia_b["achievable_ms"],
         "library_ms": dia_best["torch CSR f32"],
         "bf16_ms": dia_best["kernel bf16"],
         "bf16_plain_ms": dia_best["plain bf16"],
@@ -1340,12 +1392,14 @@ def main():
         "max_abs_err": bell["max_abs_err"],
         "ms": bt["kernel"],
         "plain_ms": bt["plain"],
-        "bound_ms": b_bound,
-        "bound_by": b_by,
+        "bound_ms": bell_b["bound_ms"],
+        "bound_by": bell_b["bound_by"],
+        "achievable_ms": bell_b["achievable_ms"],
         "library_ms": bt["torch CSR"],
         "sigma": S.SIGMA,
         "classes_ms": {name: {"kernel": t[0]["kernel"],
-                              "library": t[0]["torch CSR"], "bound": t[1],
+                              "library": t[0]["torch CSR"],
+                              "bound": t[1]["bound_ms"],
                               **{"sigma_%d" % sg: t[0]["kernel sigma %d" % sg]
                                  for sg in SIGMAS}}
                        for name, t in bell_times.items()},
@@ -1371,11 +1425,13 @@ def main():
             "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"],
+            "achievable_ms": at["achievable_ms"],
             "library_ms": at["library_ms"],
             "k": KB,
             "k_curve": {str(k): v for k, v in curve.items()},
             "solve_ms_per_block_iter": path["ms_per_iter"],
         })
+    kernels[2].update(plan=dia_curve[KB]["plan"], registers=regs["dia_spmm"])
     log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s, K=%d "
         "block %d in %.3f s; BELL tiled 1138bus: %d iterations in %.3f s, "
         "K=%d block %d in %.3f s; smoke took %.1f s"

@@ -6,42 +6,58 @@
 // over the unpadded DIA container of pykrylov_tpu_torch.sparse.formats:
 // data is (ndiag, m) row-major, offsets holds ndiag <= 64 diagonal offsets,
 // X is (n, K) row-major and Y is (m, K) row-major, the layout in which the
-// batched solvers hold their blocks (no transposed copy of X or Y).  A term
-// whose row i + offsets[d] of X falls outside [0, n) is skipped.
+// batched solvers hold their blocks.  A term whose row i + offsets[d] of X
+// falls outside [0, n) is skipped, never multiplied: a NaN or inf stored in
+// such a slot does not reach Y.
 //
-// Replaces pykrylov_tpu/sparse/kernels.py::_dia_mm_kernel_ring, which
-// computes the same product on a TPU over diagonals packed into
-// (ndiag, m/128, 128) blocks and X relaid out as (K, m/128, 128): it loads
-// each diagonal block once into VMEM and multiplies it against all K
-// columns, with a 4-slot VMEM ring of X blocks.  None of that layout
-// carries over.  Here one thread computes one element (i, k) of Y, in a
-// grid-stride loop over the m * K elements in row-major order, on a grid
-// of one full wave of resident blocks.  The K threads of row i are
-// neighbours, so a row's diagonal values are one address per diagonal for
-// those K threads (a broadcast from L1), and its reads of X row i + off and
-// its write of Y row i are K contiguous values: one 32-byte sector at
-// K = 8 in f32.  One launch per block product, for any K >= 1.
+// Replaces pykrylov_tpu/sparse/kernels.py::_dia_mm_kernel_ring, which loads
+// each diagonal block once into VMEM, multiplies it against all K columns
+// and reads X from HBM once through a ring of halo-extended windows.
 //
-// Bound: device-memory bytes.  The product must read the diagonals once
-// and X and Y once each: (ndiag * s_d + K * (s_x + s_y)) * m bytes for a
-// square matrix (s_d, s_x, s_y the storage sizes).  For the 3-D Poisson
-// matrix at n = 240 (m = 13.8M, 7 diagonals, f32) and K = 8 that is
-// 387.1 MB of diagonals and 884.7 MB of X and Y, 1.27 GB, against
-// 2 * 7 * m * K flops.  The diagonal stream is read as in the SpMV, now
-// once for K columns; the reuse of X across diagonals comes from L1 and L2
-// as in the SpMV: the offsets span +-n^2 rows of X (+-1.8 MB at n = 240,
-// K = 8), far inside the 50 MB L2.
+// Bound: device-memory bytes.  The product reads the diagonals once and X
+// and Y once each,
 //
-// Products and sums are rounded one by one (no FMA contraction), in
-// ascending d, exactly as csrc/dia_spmv.cu computes each row: column k of
-// Y equals the SpMV kernel on column k of X bit for bit, and equals the
-// plain torch version (kernels.dia_matmat_plain).
+//   ndiag * m * s_d  +  K * (n * s_x + m * s_y)   bytes
+//
+// (s_d, s_x, s_y the storage sizes), against 2 * ndiag * m * K flops.  For
+// the 3-D Poisson matrix at n = 240 (m = 13.8M, 7 diagonals, f32) that is
+// 1.27 GB at K = 8 and 7.46 GB at K = 64: 0.38 and 2.23 ms at the 3.35 TB/s
+// an H100 SXM publishes (NVIDIA H100 80GB HBM3, 700 W); the flops take
+// 0.18 ms at its float32 rate at K = 64.
+//
+// The design, against what held back one thread per element (i, k)
+// (measured in PERF.md section 6, chip_smoke.py and chip_dia_variants.py):
+//
+// 1. The K columns of a row share its work.  One thread owns a row and V
+//    columns (V = 4 for f32 X, 2 for f64: 16-byte loads and stores,
+//    neighbouring threads on neighbouring addresses), loads each diagonal
+//    value once for its V columns, and issues kChunk diagonals' loads
+//    before the chunk's first product.  Index arithmetic is 64-bit only
+//    for a tile's base.  V = 1 is the path for K % V != 0 and for X that
+//    is not 16-byte aligned; the wrapper chooses V.
+// 2. X is reused across diagonals through the caches: a stencil's +-1
+//    terms hit L1 within a tile, the +-n and +-n^2 terms L2.  X is read
+//    straight from global memory: staging a tile's X windows in shared
+//    memory moves the same bytes (the windows of a tile far shorter than
+//    the stencil's 2 n rows are distinct rows of X) and measured slower.
+// 3. The +-max|off| reuse stays in L2 at wide K.  Blocks are persistent,
+//    one wave on the card, and walk tiles of kRows rows in ascending
+//    order, so the tiles in flight are one band of rows.  The tiles run
+//    panel-major over panels of Kc columns; the wrapper
+//    (sparse/kernels.py::dia_mm_plan) picks Kc so that the reuse window
+//    2 * max|off| * Kc * s_x stays within 16 MB.
+//
+// Products and sums are rounded one by one (__fmul_rn/__fadd_rn,
+// __dmul_rn/__dadd_rn; no FMA contraction), in ascending d, exactly as
+// csrc/dia_spmv.cu computes each row: column k of Y equals the SpMV kernel
+// on column k of X bit for bit, and equals the plain torch version
+// (kernels.dia_matmat_plain).
 //
 // Types: f32 data with f32 X; bf16 data with f32 X (converted with
 // __bfloat162float, f32 compute); f64 data with f64 X.
 //
 // Each entry point launches on the given stream, does not synchronise, and
-// returns cudaGetLastError() as an int (0 on success).
+// returns a CUDA error code as an int (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,9 +68,20 @@ namespace {
 
 constexpr int kMaxDiags = 64;
 constexpr int kThreads = 256;
+constexpr int kRows = 256;      // T, rows a tile (kernels.MM_ROWS)
+constexpr int kChunk = 4;       // diagonals loaded ahead of their products
 
 struct Offsets {
-  int64_t v[kMaxDiags];
+  int ndiag;
+  int64_t min_off;
+  int64_t max_off;
+  int64_t off[kMaxDiags];
+  int64_t xoff[kMaxDiags];     // off * K
+};
+
+template <typename TC, int V>
+struct alignas(sizeof(TC) * V) Pack {
+  TC v[V];
 };
 
 __device__ __forceinline__ float to_compute(float v) { return v; }
@@ -76,104 +103,158 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-template <typename TD, typename TC>
-__global__ void __launch_bounds__(kThreads)
-    dia_spmm_kernel(const TD* __restrict__ data,
-                    const __grid_constant__ Offsets offsets, int ndiag,
-                    const TC* __restrict__ x, TC* __restrict__ y, int64_t m,
-                    int64_t n, int64_t kcols) {
-  // Element e = i * kcols + k; the grid stride advances (i, k) by
-  // (sq, sr), so the loop divides only once, before it starts.
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t sq = stride / kcols;
-  const int64_t sr = stride - sq * kcols;
-  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-  int64_t i = e0 / kcols;
-  int64_t k = e0 - i * kcols;
-  for (; i < m; i += sq, k += sr) {
-    if (k >= kcols) {
-      k -= kcols;
-      ++i;
-      if (i >= m) break;
-    }
-    TC acc = TC(0);
-#pragma unroll 8
-    for (int d = 0; d < ndiag; ++d) {
-      const int64_t j = i + offsets.v[d];
-      if (j >= 0 && j < n) {
-        acc = add_rn(acc,
-                     mul_rn(to_compute(data[d * m + i]), x[j * kcols + k]));
+// The two streams read or written once: the diagonal values and Y.
+template <typename T>
+__device__ __forceinline__ T load_value(const T* p) {
+  return *p;
+}
+template <typename P>
+__device__ __forceinline__ void store_block(P* p, const P& v) {
+  *p = v;
+}
+
+// Row i of the block, columns [col, col + V): dr points at data[0, i], xr
+// at X[i, col], yr at Y[i, col].  CHECK tests each term's row of X against
+// [0, n); a tile whose every term lies inside skips the test.
+template <bool CHECK, int V, typename TD, typename TC>
+__device__ __forceinline__ void row_product(const Offsets& o,
+                                            const TD* __restrict__ dr,
+                                            int64_t m,
+                                            const TC* __restrict__ xr,
+                                            int64_t i, int64_t n,
+                                            TC* __restrict__ yr) {
+  using P = Pack<TC, V>;
+  P acc;
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc.v[v] = TC(0);
+  for (int d0 = 0; d0 < o.ndiag; d0 += kChunk) {
+    TC val[kChunk];
+    P xv[kChunk];
+    bool live[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int d = d0 + u;
+      bool ok = d < o.ndiag;
+      if (CHECK && ok) {
+        const int64_t j = i + o.off[d];
+        ok = j >= 0 && j < n;
+      }
+      live[u] = ok;
+      if (ok) {
+        val[u] = to_compute(load_value(dr + u * m));
+        xv[u] = *reinterpret_cast<const P*>(xr + o.xoff[d]);
       }
     }
-    y[i * kcols + k] = acc;
+    dr += kChunk * m;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      if (live[u]) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          acc.v[v] = add_rn(acc.v[v], mul_rn(val[u], xv[u].v[v]));
+        }
+      }
+    }
+  }
+  store_block(reinterpret_cast<P*>(yr), acc);
+}
+
+template <typename TD, typename TC, int V>
+__global__ void __launch_bounds__(kThreads)
+    dia_spmm_kernel(const TD* __restrict__ data,
+                    const __grid_constant__ Offsets o,
+                    const TC* __restrict__ x, TC* __restrict__ y, int64_t m,
+                    int64_t n, int64_t kcols, int kc) {
+  const int g = kc / V;   // threads a row
+  const int64_t row_tiles = (m + kRows - 1) / kRows;
+  const int64_t tiles = row_tiles * (kcols / kc);
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t p = t / row_tiles;
+    const int64_t i0 = (t - p * row_tiles) * kRows;
+    const int teff = static_cast<int>(m - i0 < kRows ? m - i0 : kRows);
+    const bool inside = i0 + o.min_off >= 0 && i0 + teff + o.max_off <= n;
+    // the tile's bases in 64 bits; offsets inside a tile in 32
+    const TD* db = data + i0;
+    const TC* xb = x + i0 * kcols + p * kc;
+    TC* yb = y + i0 * kcols + p * kc;
+    for (int e = threadIdx.x; e < teff * g; e += kThreads) {
+      const int r = e / g;
+      const int xo = r * static_cast<int>(kcols) + (e - r * g) * V;
+      if (inside) {
+        row_product<false, V>(o, db + r, m, xb + xo, i0 + r, n, yb + xo);
+      } else {
+        row_product<true, V>(o, db + r, m, xb + xo, i0 + r, n, yb + xo);
+      }
+    }
   }
 }
 
-// Blocks of the kernel that fit on one SM at once; the grid is one full
-// wave of them (a part-filled last wave leaves most SMs idle).
-template <typename TD, typename TC>
-int resident_blocks_per_sm() {
-  static const int per_sm = [] {
-    int v = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &v, dia_spmm_kernel<TD, TC>, kThreads, 0);
-    return v > 0 ? v : 1;
-  }();
-  return per_sm;
-}
-
-template <typename TD, typename TC>
-int launch(const void* data, const void* offsets, int64_t ndiag,
-           const void* x, void* y, int64_t m, int64_t n, int64_t kcols,
-           void* stream) {
-  if (ndiag < 0 || ndiag > kMaxDiags || m < 1 || kcols < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Offsets offs;
-  const int64_t* src = static_cast<const int64_t*>(offsets);
-  for (int d = 0; d < kMaxDiags; ++d) {
-    offs.v[d] = d < ndiag ? src[d] : 0;
-  }
+template <typename TD, typename TC, int V>
+int launch_kernel(const TD* data, const Offsets& o, const TC* x, TC* y,
+                  int64_t m, int64_t n, int64_t kcols, int kc,
+                  cudaStream_t stream) {
+  auto kernel = dia_spmm_kernel<TD, TC, V>;
   int device = 0;
   int sms = 1;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  int64_t blocks = (m * kcols + kThreads - 1) / kThreads;
-  const int64_t cap =
-      static_cast<int64_t>(sms) * resident_blocks_per_sm<TD, TC>();
-  if (blocks > cap) blocks = cap;
-  dia_spmm_kernel<TD, TC>
-      <<<static_cast<unsigned int>(blocks), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const TD*>(data), offs, static_cast<int>(ndiag),
-          static_cast<const TC*>(x), static_cast<TC*>(y), m, n, kcols);
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // persistent blocks: one wave, each walking tiles in ascending order
+  const int64_t tiles = (m + kRows - 1) / kRows * (kcols / kc);
+  int64_t blocks = static_cast<int64_t>(sms) * per_sm;
+  if (blocks > tiles) blocks = tiles;
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+      data, o, x, y, m, n, kcols, kc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// v columns a thread (1 or VW), panels of kc columns (kc divides kcols,
+// v divides kc).
+template <typename TD, typename TC, int VW>
+int launch(const void* data, const void* offsets, int64_t ndiag, int64_t v,
+           int64_t kc, const void* x, void* y, int64_t m, int64_t n,
+           int64_t kcols, void* stream) {
+  if (ndiag < 0 || ndiag > kMaxDiags || m < 1 || kcols < 1 || kc < 1 ||
+      kcols % kc != 0 || (v != 1 && v != VW) || kc % v != 0 ||
+      kRows * kcols >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t* off = static_cast<const int64_t*>(offsets);
+  Offsets o = {};
+  o.ndiag = static_cast<int>(ndiag);
+  for (int d = 0; d < o.ndiag; ++d) {
+    o.off[d] = off[d];
+    o.xoff[d] = off[d] * kcols;
+    if (d == 0 || off[d] < o.min_off) o.min_off = off[d];
+    if (d == 0 || off[d] > o.max_off) o.max_off = off[d];
+  }
+  const TD* d = static_cast<const TD*>(data);
+  const TC* xs = static_cast<const TC*>(x);
+  TC* ys = static_cast<TC*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int c = static_cast<int>(kc);
+  if (v == 1) return launch_kernel<TD, TC, 1>(d, o, xs, ys, m, n, kcols, c, s);
+  return launch_kernel<TD, TC, VW>(d, o, xs, ys, m, n, kcols, c, s);
 }
 
 }  // namespace
 
+#define DIA_SPMM_ENTRY(NAME, TD, TC, VW)                                    \
+  int NAME(const void* data, const void* offsets, int64_t ndiag, int64_t v, \
+           int64_t kc, const void* x, void* y, int64_t m, int64_t n,        \
+           int64_t kcols, void* stream) {                                   \
+    return launch<TD, TC, VW>(data, offsets, ndiag, v, kc, x, y, m, n,      \
+                              kcols, stream);                               \
+  }
+
 extern "C" {
 
-int dia_spmm_f32(const void* data, const void* offsets, int64_t ndiag,
-                 const void* x, void* y, int64_t m, int64_t n, int64_t kcols,
-                 void* stream) {
-  return launch<float, float>(data, offsets, ndiag, x, y, m, n, kcols,
-                              stream);
-}
-
-int dia_spmm_bf16(const void* data, const void* offsets, int64_t ndiag,
-                  const void* x, void* y, int64_t m, int64_t n,
-                  int64_t kcols, void* stream) {
-  return launch<__nv_bfloat16, float>(data, offsets, ndiag, x, y, m, n,
-                                      kcols, stream);
-}
-
-int dia_spmm_f64(const void* data, const void* offsets, int64_t ndiag,
-                 const void* x, void* y, int64_t m, int64_t n, int64_t kcols,
-                 void* stream) {
-  return launch<double, double>(data, offsets, ndiag, x, y, m, n, kcols,
-                                stream);
-}
+DIA_SPMM_ENTRY(dia_spmm_f32, float, float, 4)
+DIA_SPMM_ENTRY(dia_spmm_bf16, __nv_bfloat16, float, 4)
+DIA_SPMM_ENTRY(dia_spmm_f64, double, double, 2)
 
 }  // extern "C"

@@ -8,7 +8,9 @@ the unpadded ``(ndiag, m)`` container of :mod:`.formats`, and the SpMM the
 (n, K) row-major block as the batched solvers hold it, so the TPU kernels'
 block padding, block choice and packing (``choose_block``,
 ``ensure_dia_padded``, ``pack_dia``, the ``_halo_rows*`` helpers, the
-``(K, m/128, 128)`` relayout of X) have no counterpart here.
+``(K, m/128, 128)`` relayout of X) have no counterpart here.  The SpMM's
+host plan (:func:`dia_mm_plan`: columns per thread and column panels) is
+made here and handed to the kernel with the offsets.
 
 :func:`dia_matvec` and :func:`dia_matmat` launch their kernel for CUDA
 tensors and run the plain torch version (:func:`dia_matvec_plain`,
@@ -20,14 +22,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import formats as F
 from .. import _build
 
-__all__ = ["DIA_LAUNCHES", "DIA_MM_LAUNCHES", "MAX_DIAGS", "dia_matvec",
-           "dia_matvec_plain", "dia_matmat", "dia_matmat_plain",
+__all__ = ["DIA_LAUNCHES", "DIA_MM_LAUNCHES", "MAX_DIAGS", "DiaMMPlan",
+           "dia_matvec", "dia_matvec_plain", "dia_matmat",
+           "dia_matmat_plain", "dia_matmat_plan", "dia_mm_plan",
            "dia_transpose", "cuda_dia_operator"]
 
 # Launches of the DIA SpMV and SpMM kernels in this process; each wrapper
@@ -62,8 +66,9 @@ def _entry(name):
 def _mm_entry(name):
     fn = getattr(_build.load("dia_spmm"), name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -168,6 +173,47 @@ def dia_matmat(data, offsets, X):
     return _launch_mm(data, offsets, X)
 
 
+class DiaMMPlan(NamedTuple):
+    """How the SpMM kernel covers one block product (:func:`dia_mm_plan`):
+    ``v`` columns a thread, tiles of ``rows`` rows by ``kc`` columns
+    (``kc`` divides K; the tiles run panel-major)."""
+    v: int
+    rows: int
+    kc: int
+
+
+MM_ROWS = 256                # T, rows a tile: kRows in csrc/dia_spmm.cu
+L2_WINDOW_BYTES = 16 << 20   # X rows a panel keeps for its +-max|off| reuse
+
+
+def dia_mm_plan(offsets, k, itemsize, aligned):
+    """The SpMM kernel's plan for ``offsets`` and a block of ``k`` columns
+    of ``itemsize``-byte values whose data pointer is 16-byte ``aligned``.
+
+    V is 16 bytes of columns (4 in f32, 2 in f64) when it divides K and X
+    is aligned, else 1 (the scalar path).  Kc is K halved while the reuse
+    window 2 max|off| Kc itemsize passes L2_WINDOW_BYTES.  T is the
+    kernel's MM_ROWS at every K (measured fastest at K = 8-64 against half
+    and twice that: chip_dia_variants.py).
+    """
+    vw = 16 // itemsize
+    v = vw if aligned and k % vw == 0 else 1
+    reach = max((abs(int(o)) for o in offsets), default=0)
+    kc = k
+    while (2 * reach * kc * itemsize > L2_WINDOW_BYTES and kc % 2 == 0
+           and (kc // 2) % v == 0):
+        kc //= 2
+    return DiaMMPlan(v, MM_ROWS, kc)
+
+
+def dia_matmat_plan(data, offsets, X):
+    """The plan :func:`dia_matmat` takes for these tensors on the card."""
+    ct = _compute_dtype(data, X)
+    item = torch.empty((), dtype=ct).element_size()
+    return dia_mm_plan(offsets, X.shape[1], item,
+                       X.to(ct).contiguous().data_ptr() % 16 == 0)
+
+
 def _launch_mm(data, offsets, X):
     global DIA_MM_LAUNCHES
     ct = _compute_dtype(data, X)
@@ -180,11 +226,15 @@ def _launch_mm(data, offsets, X):
     if m == 0 or K == 0:
         return Y
     fn = _mm_entry(_MM_ENTRY[(data.dtype, ct)])
-    offs = _offsets_arg(tuple(int(o) for o in offsets))
+    offsets = tuple(int(o) for o in offsets)
+    plan = dia_mm_plan(offsets, K, X.element_size(),
+                       X.data_ptr() % 16 == 0)
+    offs = _offsets_arg(offsets)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
-                 X.data_ptr(), Y.data_ptr(), m, n, K, stream)
+                 plan.v, plan.kc, X.data_ptr(), Y.data_ptr(), m, n, K,
+                 stream)
     if err != 0:
         raise RuntimeError("DIA SpMM kernel launch failed with CUDA error %d"
                            % err)

@@ -41,11 +41,30 @@ def relerr(y, ref):
     return ((y - ref).abs().max() / ref.abs().max()).item()
 
 
+def hold_dia_spmm(data, offsets, X):
+    """One launch of the DIA SpMM kernel on (data, offsets, X), held bit
+    for bit against its plain version and, column by column, against the
+    SpMV kernel; returns the block."""
+    xdt = torch.promote_types(data.dtype, X.dtype)
+    before = K.DIA_MM_LAUNCHES
+    Y = K.dia_matmat(data, offsets, X)
+    torch.cuda.synchronize()
+    assert K.DIA_MM_LAUNCHES == before + 1
+    assert Y.shape == (data.shape[1], X.shape[1]) and Y.dtype == xdt
+    assert torch.equal(Y, K.dia_matmat_plain(data, offsets, X))
+    for k in range(X.shape[1]):
+        assert torch.equal(Y[:, k], K.dia_matvec(data, offsets,
+                                                 X[:, k].contiguous()))
+    return Y
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ncols", [1, 3, 8, 64])
+@pytest.mark.parametrize("ncols", [1, 2, 3, 4, 5, 8, 16, 17, 32, 64, 65,
+                                   200])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.bfloat16])
 def test_dia_spmm_matches_plain_and_spmv(card, dtype, ncols):
+    # m = 20011 is odd: each diagonal's values start misaligned
     rng = np.random.default_rng(ncols)
     m = 20011
     offsets = (-9000, -130, -1, 0, 3, 129)
@@ -53,15 +72,112 @@ def test_dia_spmm_matches_plain_and_spmv(card, dtype, ncols):
     data = torch.from_numpy(data).to(card, dtype)
     xdt = torch.float64 if dtype == torch.float64 else torch.float32
     X = torch.from_numpy(rng.standard_normal((m, ncols))).to(card, xdt)
+    hold_dia_spmm(data, offsets, X)
+
+
+def _dia_case(name, card, dtype, ncols):
+    """(data, offsets, X) of a named container case; slots whose column
+    lies outside [0, n) are zero unless the case says otherwise."""
+    rng = np.random.default_rng(len(name) + ncols)
+    m, n = 3001, 3001
+    offsets = (-260, -3, 0, 1, 257)
+    if name == "rectangular, n > m":
+        n = 3001 + 45
+    elif name == "rectangular, n < m":
+        n = 3001 - 70
+    elif name == "far offsets":
+        # 700 is past the wrapper's tile of 256 rows; +-(m + 2) lie
+        # wholly outside the matrix
+        offsets = (-m - 2, -700, 0, 700, m + 2)
+    elif name == "64 diagonals, one cluster":
+        offsets = tuple(range(-40, 24))
+    elif name == "64 diagonals, scattered":
+        offsets = tuple(sorted(rng.choice(np.arange(-2000, 2000), 64,
+                                          replace=False).tolist()))
+    elif name == "shorter than a tile":
+        m = n = 37
+        offsets = (-5, 0, 2)
+    vals = rng.standard_normal((len(offsets), m))
+    i = np.arange(m)
+    for d, off in enumerate(offsets):
+        out = (i + off < 0) | (i + off >= n)
+        vals[d, out] = (np.nan if d % 2 else np.inf) \
+            if name == "non-finite outside" else 0.0
+    data = torch.from_numpy(vals).to(card, dtype)
+    xdt = torch.float64 if dtype == torch.float64 else torch.float32
+    X = torch.from_numpy(rng.standard_normal((n, ncols))).to(card, xdt)
+    return data, offsets, X
+
+
+DIA_CASES = ["rectangular, n > m", "rectangular, n < m", "far offsets",
+             "64 diagonals, one cluster", "64 diagonals, scattered",
+             "shorter than a tile", "non-finite outside"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [5, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("name", DIA_CASES)
+def test_dia_spmm_containers(card, name, dtype, ncols):
+    data, offsets, X = _dia_case(name, card, dtype, ncols)
+    Y = hold_dia_spmm(data, offsets, X)
+    assert torch.isfinite(Y).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dia_spmm_unaligned_block(card, dtype):
+    # X a contiguous slice of a larger buffer, one element past 16-byte
+    # alignment: the wrapper takes the scalar path (V = 1)
+    m, k = 20011, 8
+    data, offsets, _ = _dia_case("far offsets", card, dtype, k)
+    data = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (len(offsets), m))).to(card, dtype)
+    buf = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        m * k + 1)).to(card, dtype)
+    X = buf[1:].view(m, k)
+    assert X.is_contiguous() and X.data_ptr() % 16 != 0
+    assert K.dia_matmat_plan(data, offsets, X).v == 1
+    hold_dia_spmm(data, offsets, X)
+    assert K.dia_matmat_plan(data, offsets, X.clone()).v == 16 // \
+        X.element_size()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols,kc", [(8, 4), (64, 4), (64, 16), (64, 32)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["far offsets", "non-finite outside",
+                                  "64 diagonals, one cluster"])
+def test_dia_spmm_column_panels(card, monkeypatch, name, dtype, ncols, kc):
+    # a narrower L2 budget makes the wrapper split the block into panels
+    # of kc columns, which the kernel walks panel-major in one launch
+    data, offsets, X = _dia_case(name, card, dtype, ncols)
+    reach = max(abs(o) for o in offsets)
+    monkeypatch.setattr(K, "L2_WINDOW_BYTES",
+                        2 * reach * kc * X.element_size())
+    assert K.dia_matmat_plan(data, offsets, X).kc == kc
+    Y = hold_dia_spmm(data, offsets, X)
+    assert torch.isfinite(Y).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [3, 8])
+def test_dia_spmm_transpose_of_an_unsymmetric_operator(card, ncols):
+    # A.T @ X of an unsymmetric cuda-dia operator runs the kernel over the
+    # transposed container
+    data, offsets, X = _dia_case("square", card, torch.float32, ncols)
+    A = K.cuda_dia_operator(F.DIA(data, offsets, (data.shape[1],) * 2))
+    At = K.dia_transpose(A.container)
     before = K.DIA_MM_LAUNCHES
-    Y = K.dia_matmat(data, offsets, X)
+    Y = A.T @ X
     torch.cuda.synchronize()
     assert K.DIA_MM_LAUNCHES == before + 1
-    assert Y.shape == (m, ncols) and Y.dtype == xdt
-    assert torch.equal(Y, K.dia_matmat_plain(data, offsets, X))
-    for k in range(ncols):
-        assert torch.equal(Y[:, k], K.dia_matvec(data, offsets,
-                                                 X[:, k].contiguous()))
+    assert torch.equal(Y, K.dia_matmat_plain(At.data, At.offsets, X))
+    hold_dia_spmm(At.data, At.offsets, X)
+    ref = torch.stack([F.dia_rmatvec(A.container, X[:, k])
+                       for k in range(ncols)], dim=1)
+    assert relerr(Y, ref) <= 1e-6
 
 
 @pytest.mark.cuda
