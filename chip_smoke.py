@@ -16,7 +16,13 @@ one right-hand side and with a block of K = 8:
   * BELL: CG on 1138bus tiled 1024 times (1,165,312 rows, 4,151,296
     nonzeros, general sparsity), which the policy packs into BELL levels;
     the operator derives their padding-free SELL-C-sigma card form and runs
-    every product through the CUDA SELL kernels.
+    every product through the CUDA SELL kernels;
+
+and, with one right-hand side, the indefinite and nonsymmetric paths:
+the CG→MINRES fallback and SYMMLQ on a Helmholtz-shifted Poisson matrix
+at n = 240 (DIA), MINRES's Jacobi golden on tiled 1138bus (SELL),
+BiCGSTAB, CGS and TFQMR on a 4.2M-row convection-diffusion matrix (DIA),
+and the reference's bmark on jpwh_991 tiled 1024 times (SELL, f64).
 
 Phases, in order:
 
@@ -35,6 +41,10 @@ Phases, in order:
      SELL at K = 3, 8, 64, and the row-split and RCM operators at K = 8),
      and every column of every block product bit for bit against the SpMV
      kernel on that column;
+  3c. the mixed pairs: the four kernels with f32 and with bf16 storage
+     against an f64 x or X (their f32f64 and bf16f64 entries) on phase 3's
+     matrices, each product bit for bit its plain version (the widened
+     data's f64 product) and each block column the mixed SpMV on it;
   4. the DIA path: a warm-up solve, then the timed ``solve(A, b)`` with
      the kernel's launches counted from 0, the true residual in f64, one
      more solve under torch.profiler (device time by kernel, idle share),
@@ -51,6 +61,33 @@ Phases, in order:
      before the BELL kernel) and ``fmt="csr"``;
   5b. the BELL block path: as 4b on tiled 1138bus, one SELL SpMM launch
      per block product;
+  8. the indefinite path: Poisson n = 240 shifted by sigma midway between
+     its two lowest eigenvalues (one negative eigenvalue), f32 storage on
+     the DIA kernel, b standard normal in f64 (``HELM_RTOL``): CG alone
+     meets nonpositive curvature (istop 2); ``solve`` then takes CG and
+     MINRES, with DIA launches = CG's matvecs + MINRES's and the true
+     relative residual in f64 at most 1e-4; the same MINRES on the f32 b
+     (logged: the f32 recurrence's true residual); then
+     ``solve(method="symmlq")`` with the same checks; a profiled run of
+     each (device busy and idle share);
+  8b. MINRES's golden (BASELINE config #2): tiled 1138bus from phase 5
+     with M = 1/max(|d|, 1) in f64 (the SELL f32f64 entry), b = A 1 /
+     sqrt(TILES) (which keeps beta1, and so every stop test, the single
+     matrix's): 412 iterations at rtol 1e-6 and 583-584 at 1e-8, within
+     one, one SELL launch a matvec, the true residual logged;
+  9. the nonsymmetric path: ``convdiff2d_coo(2048, wx=2049, wy=1024.5)``
+     (4,194,304 rows, |w| h = 1 and 0.5), f32 storage on the DIA kernel,
+     b = A x_true in f64 (the f32 recurrences stall above rtol 1e-6 here;
+     an f32 BiCGSTAB capped at 4000 matvecs is logged to show it):
+     ``solve`` (BiCGSTAB), CGS, TFQMR and BiCGSTAB with an f64 Jacobi M,
+     each istop 0, DIA launches = matvecs, true relative residual at most
+     1e-4; one profiled BiCGSTAB;
+  9b. the reference's bmark: jpwh_991 tiled 1024 times in f64 through
+     ``fmt="auto"`` (logged whether ``_try_bell`` accepts it; else
+     ``fmt="bell"``), x0 = tile(1 + arange(991)), rtol 1e-8, matvec_max =
+     2 * 991: CGS, TFQMR and BiCGSTAB within 4 of 82, 84 and 84 matvecs
+     (70, 70 and 64 with Jacobi floor=1), one SELL launch a matvec (CGS
+     and TFQMR launch one more, for the guess they do not count);
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -63,15 +100,24 @@ Phases, in order:
      kernel stores it and as CSR, plus x and y, at the card's published
      memory rate, or its operations at the float32 rate if longer (and
      the same bytes at the measured copy rate, as the achievable time);
+     the DIA and SELL SpMV kernels also with f32 storage and an f64 x
+     (Poisson n = 240, tiled 1138bus), against the same bound with f64 x
+     and y and the operations at the float64 rate;
   6b. the K-curve: each SpMM kernel at K = 8, 16, 32, 64 on both matrices,
      per block and per column, against K times its SpMV kernel, its plain
      version, its bound (the matrix once plus K columns of X and Y) and
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
-  7. a JSON line naming the kernels (the DIA SpMM's with its host plan,
-     V columns a thread, T rows a tile, Kc columns a panel, at each K,
-     and each template instance's registers and spill bytes), then the
-     result line ``{"ok": true, "device": {...}}``.
+  7. a line of each phase's numbers, then a JSON line naming the kernels
+     (each with its launches in every run of phases 8-9b,
+     ``launches_by_phase``; the SpMV kernels with their mixed-pair times
+     and bounds; the DIA SpMM's with its host plan, V columns a thread, T
+     rows a tile, Kc columns a panel, at each K, and each template
+     instance's registers and spill bytes), then the result line
+     ``{"ok": true, "device": {...}}``.
+
+Phases 8-9b run after 5b and before 6; each resets every launch count
+to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
 Without a CUDA device, or without the package beside it, it exits 2.
@@ -98,7 +144,8 @@ DEVICE = "cuda"
 # float32 operations a second outside the tensor cores.  The bounds divide
 # by these; the copy rate measured in phase 2 gives an achievable time
 # beside them.
-PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, "f32": 67e12}}
+PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, "f32": 67e12,
+                                   "f64": 34e12}}
 SLEEP_HZ = 2e9      # above the card's SM clock: a sleep of n cycles lasts
                     # at least n / SLEEP_HZ seconds
 KB = 8              # right-hand sides of the block paths (phases 4b, 5b)
@@ -107,6 +154,15 @@ DIA_MM_K = (1, 3, 8, 64)   # block widths of the DIA SpMM checks (3b)
 BELL_MM_K = (3, 8, 64)     # block widths of the BELL SpMM checks (3b)
 CURVE_K = (8, 16, 32, 64)  # block widths of the K-curve (6b)
 ITER_RTOL = 0.1     # block vs single solve, iterations per column
+MIXED_K = (3, 8)    # block widths of the mixed-pair SpMM checks (3c)
+HELM_RTOL = 1e-8    # rtol of the indefinite path (8): MINRES's test is
+                    # relative to Anorm ynorm, so 1e-6 leaves the true
+                    # residual near 1e-4 at this n
+CD_N = 2048         # convection-diffusion grid of the nonsymmetric path (9)
+BMARK_TILES = 1024  # jpwh_991 tiles of the bmark path (9b)
+# the reference's bmark on jpwh_991 (examples/bmark.py): matvecs to rtol
+# 1e-8 from x0 = 1 + arange(n), unpreconditioned and with Jacobi floor=1
+BMARK = {"cgs": (82, 70), "tfqmr": (84, 70), "bicgstab": (84, 64)}
 
 # max|y - y_ref| / max|y_ref|, where an output is held against another
 # product that sums in another order: the SELL card form against the BELL
@@ -199,13 +255,16 @@ def _usage(report):
 
 def _instance(mangled):
     """A template instance of the DIA SpMM kernel by its types and V
-    ("f32 V=4"); other kernels keep their mangled names."""
-    hit = re.search(r"dia_spmm_kernelI(13__nv_bfloat16|f|d)[fd]Li(\d+)E",
+    ("f32 V=4", "f32/f64 V=2" for f32 data with f64 compute); other
+    kernels keep their mangled names."""
+    hit = re.search(r"dia_spmm_kernelI(13__nv_bfloat16|f|d)([fd])Li(\d+)E",
                     mangled)
     if not hit:
         return mangled
     kind = {"f": "f32", "d": "f64"}.get(hit.group(1), "bf16")
-    return "%s V=%s" % (kind, hit.group(2))
+    if hit.group(2) == "d" and kind != "f64":
+        kind += "/f64"
+    return "%s V=%s" % (kind, hit.group(3))
 
 
 def phase_rates():
@@ -604,22 +663,82 @@ def phase_spmm_kernels(dia_cases, bell_cases, classes):
         "column bit for bit, in %.1f s" % (checks, time.perf_counter() - t0))
 
 
+def phase_mixed_pairs(dia_cases, bell_cases):
+    """3c: the four kernels with f32 and with bf16 storage against an f64
+    x or X (the f32f64 and bf16f64 entries), on phase 3's matrices: each
+    product equals its plain version (the widened data's f64 product) bit
+    for bit, and each SpMM column the mixed SpMV on that column."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "3c mixed"
+    rng = np.random.default_rng(4)
+    t0 = time.perf_counter()
+    checks = 0
+    for label, data, offsets in dia_cases:
+        if data.dtype == torch.float64:
+            continue
+        storages = ((torch.bfloat16,) if data.dtype == torch.bfloat16
+                    else (torch.float32, torch.bfloat16))
+        for storage in storages:
+            d = data.to(storage)
+            name = "%s, %s data, f64 x" % (label, str(storage)[6:])
+            x = torch.from_numpy(rng.standard_normal(d.shape[1])).to(DEVICE)
+            y = K.dia_matvec(d, offsets, x)
+            torch.cuda.synchronize()
+            _exact(name, y, K.dia_matvec_plain(d, offsets, x), tag=tag)
+            for kb in MIXED_K:
+                X = torch.from_numpy(rng.standard_normal((d.shape[1], kb))).to(
+                    DEVICE)
+                Y = K.dia_matmat(d, offsets, X)
+                torch.cuda.synchronize()
+                _exact("%s K=%d" % (name, kb), Y,
+                       K.dia_matmat_plain(d, offsets, X), tag=tag)
+                _same_columns(name, Y, lambda v: K.dia_matvec(d, offsets, v),
+                              X)
+                checks += 1
+    for label, cards, levels, rows_out, n_in in bell_cases:
+        if levels[0].data.dtype == torch.float64:
+            continue
+        card = cards[S.SIGMA]
+        for storage in (torch.float32, torch.bfloat16):
+            c = card._replace(vals=card.vals.to(storage))
+            name = "%s, %s values, f64 x" % (label, str(storage)[6:])
+            x = torch.from_numpy(rng.standard_normal(n_in)).to(DEVICE)
+            y = S.sell_matvec(c, x)
+            torch.cuda.synchronize()
+            _exact(name, y, S.sell_matvec_plain(c, x), tag=tag)
+            for kb in MIXED_K:
+                X = torch.from_numpy(rng.standard_normal((n_in, kb))).to(
+                    DEVICE)
+                Y = S.sell_matmat(c, X)
+                torch.cuda.synchronize()
+                _exact("%s K=%d" % (name, kb), Y, S.sell_matmat_plain(c, X),
+                       tag=tag)
+                _same_columns(name, Y, lambda v: S.sell_matvec(c, v), X)
+                checks += 1
+    log("[%s] %d mixed-pair block products and their SpMVs held against "
+        "plain and, column by column, the mixed SpMV, bit for bit, in %.1f s"
+        % (tag, checks, time.perf_counter() - t0))
+
+
 # --------------------------------------------------------------------------
 # 4-5. the main paths
 # --------------------------------------------------------------------------
 
-def _profile_solve(pt, tag, A, b, secs):
-    """One more warm ``solve(A, b)`` under torch.profiler: device time by
-    kernel per CG iteration, and the device's idle share of ``secs``, the
-    unprofiled solve's wall time."""
+def _profile_solve(pt, tag, A, b, secs, n=None, **opts):
+    """One more warm ``solve(A, b, **opts)`` under torch.profiler: device
+    time by kernel per iteration (``n`` iterations, else the result's), and
+    the device's idle share of ``secs``, the unprofiled solve's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        res = pt.solve(A, b)
+        res = pt.solve(A, b, **opts)
         torch.cuda.synchronize()
-    n = max(int(res.n_iter), 1)
+    n = max(int(res.n_iter) if n is None else n, 1)
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -627,13 +746,15 @@ def _profile_solve(pt, tag, A, b, secs):
     if not rows:
         raise AssertionError("%s: the profiler saw no device time" % tag)
     busy = sum(r[0] for r in rows) * 1e-6
+    idle = max(0.0, 1 - busy / secs)
     log("[%s] profile: device busy %.4f ms per iteration over %d "
         "iterations; unprofiled wall %.4f ms per iteration, device idle "
         "%.1f%% of it" % (tag, 1e3 * busy / n, n, 1e3 * secs / n,
-                          100 * max(0.0, 1 - busy / secs)))
+                          100 * idle))
     for us, count, key in rows[:8]:
         log("[%s] profile: %.4f ms per iteration, %.2f calls per "
             "iteration: %s" % (tag, us * 1e-3 / n, count / n, key[:80]))
+    return {"busy_ms_per_iter": 1e3 * busy / n, "idle": idle}
 
 
 def phase_dia_path(pt):
@@ -1062,6 +1183,352 @@ def phase_bell_block(pt, A, coo, bell):
 
 
 # --------------------------------------------------------------------------
+# 8-9. indefinite and nonsymmetric systems
+# --------------------------------------------------------------------------
+
+COUNTERS = (("dia_spmv", "kernels", "DIA_LAUNCHES"),
+            ("dia_spmm", "kernels", "DIA_MM_LAUNCHES"),
+            ("sell_spmv", "sell", "SELL_LAUNCHES"),
+            ("sell_spmm", "sell", "SELL_MM_LAUNCHES"))
+
+
+def _reset_counts():
+    import importlib
+    for _, mod, attr in COUNTERS:
+        setattr(importlib.import_module("pykrylov_tpu_torch.sparse." + mod),
+                attr, 0)
+
+
+def _counts():
+    import importlib
+    return {name: getattr(importlib.import_module(
+        "pykrylov_tpu_torch.sparse." + mod), attr)
+        for name, mod, attr in COUNTERS}
+
+
+def _counted_solve(tag, label, fn, kernel, expect=lambda res: 0):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; ``kernel``'s launches must equal the result's matvecs plus
+    ``expect(res)``, and no other kernel may launch.  Returns (result,
+    seconds, counts)."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    n_iter, n_mv = int(res.n_iter), int(res.n_matvec)
+    log("[%s] %s: converged=%s istop=%d n_iter=%d n_matvec=%d, %d %s "
+        "launches, %.3f s, %.4f ms per iteration"
+        % (tag, label, bool(res.converged), int(res.istop), n_iter, n_mv,
+           counts[kernel], kernel, secs, 1e3 * secs / max(n_iter, 1)))
+    want = n_mv + expect(res)
+    if counts[kernel] != want or want == 0:
+        raise AssertionError("%s %s: %d %s launches for %d matvecs"
+                             % (tag, label, counts[kernel], kernel, want))
+    if any(v for k, v in counts.items() if k != kernel):
+        raise AssertionError("%s %s: other kernels launched: %s"
+                             % (tag, label, counts))
+    if not torch.isfinite(res.x).all():
+        raise AssertionError("%s %s: non-finite solution" % (tag, label))
+    return res, secs, counts
+
+
+def _true_rel(b, ax64, x):
+    """``||b - A x|| / ||b||`` in f64, ``ax64`` giving A x in f64."""
+    b64 = b.double()
+    return (torch.linalg.vector_norm(b64 - ax64(x.double()))
+            / torch.linalg.vector_norm(b64)).item()
+
+
+def phase_indefinite(pt, coo):
+    """8: a Helmholtz-shifted 3-D Poisson matrix at n = N, shifted midway
+    between the Laplacian's two lowest eigenvalues (one negative
+    eigenvalue), f32 storage on the DIA kernel: ``solve`` takes CG, which
+    meets nonpositive curvature, then MINRES; then SYMMLQ.  b is standard
+    normal (its part along the negative eigenvector is far above rtol) in
+    f64, so the recurrences run in f64 through the f32f64 entry; the same
+    MINRES on the f32 b shows why (its true residual is logged)."""
+    from pykrylov_tpu_torch.gallery import poisson_eigenvalue_bounds
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
+    tag = "8 indefinite"
+    vals, rows, cols, shape = coo
+    h = np.pi / (2 * (N + 1))
+    l1 = poisson_eigenvalue_bounds(N, 3)[0]
+    l2 = 8 * np.sin(h) ** 2 + 4 * np.sin(2 * h) ** 2
+    sigma = 0.5 * (l1 + l2)
+    t0 = time.perf_counter()
+    shifted = np.where(rows == cols, vals - np.float32(sigma),
+                       vals).astype(np.float32)
+    A = operator_from_coo(shifted, rows, cols, shape, symmetric=True,
+                          device=DEVICE)
+    del shifted
+    torch.cuda.synchronize()
+    m = shape[0]
+    log("[%s] A = poisson3d(%d) - sigma I, sigma %.6e between %.6e and "
+        "%.6e: %d rows, fmt=%s, %s, built in %.1f s"
+        % (tag, N, sigma, l1, l2, m, A.fmt, str(A.dtype)[6:],
+           time.perf_counter() - t0))
+    if A.fmt != "cuda-dia" or A.dtype != torch.float32:
+        raise AssertionError("auto policy picked %r, %s" % (A.fmt, A.dtype))
+    data, offsets = A.container.data, A.container.offsets
+
+    def ax64(x):
+        return K.dia_matvec_plain(data.double(), offsets, x)
+
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(m)).to(
+        DEVICE)
+    s = torch.sin(torch.arange(1, N + 1, dtype=torch.float64,
+                               device=DEVICE) * (np.pi / (N + 1)))
+    v = (s[:, None, None] * s[None, :, None] * s[None, None, :]).reshape(-1)
+    part = (torch.dot(v, b) / (torch.linalg.vector_norm(v)
+                               * torch.linalg.vector_norm(b))).item()
+    del s, v
+    log("[%s] b standard normal (f64), part along the negative "
+        "eigenvector %.3e of ||b||" % (tag, part))
+    pt.cg(A, b, rtol=HELM_RTOL, maxiter=20)          # warm-ups
+    pt.minres(A, b, rtol=HELM_RTOL, itnlim=20)
+    pt.symmlq(A, b, rtol=HELM_RTOL, matvec_max=20)
+
+    cg, cg_s, _ = _counted_solve(
+        tag, "CG alone (check_curvature)",
+        lambda: pt.cg(A, b, rtol=HELM_RTOL, check_curvature=True),
+        "dia_spmv")
+    if int(cg.istop) != 2:
+        raise AssertionError("CG did not meet nonpositive curvature: %r"
+                             % (cg,))
+    cg_mv = int(cg.n_matvec)
+    res, secs, counts = _counted_solve(
+        tag, "solve (CG, then MINRES)",
+        lambda: pt.solve(A, b, rtol=HELM_RTOL), "dia_spmv",
+        expect=lambda r: cg_mv)
+    if not (bool(res.converged) and "Acond" in res.info):
+        raise AssertionError("the MINRES fallback did not converge: %r"
+                             % (res,))
+    true_rel = _true_rel(b, ax64, res.x)
+    mr_it = int(res.n_iter)
+    log("[%s] fallback: CG %d iterations to the trip (%.3f s), MINRES %d "
+        "iterations (istop %d, about %.4f ms per iteration); true relative "
+        "residual (f64) %.3e" % (tag, int(cg.n_iter), cg_s, mr_it,
+                                 int(res.istop),
+                                 1e3 * (secs - cg_s) / max(mr_it, 1),
+                                 true_rel))
+    if not true_rel <= 1e-4:
+        raise AssertionError("true relative residual %.3e > 1e-4" % true_rel)
+    prof = _profile_solve(pt, tag, A, b, secs, n=int(cg.n_iter) + mr_it,
+                          rtol=HELM_RTOL)
+    out = {"cg_iter": int(cg.n_iter), "cg_s": cg_s, "minres_iter": mr_it,
+           "solve_s": secs, "true_rel": true_rel, "profile": prof,
+           "launches": {"fallback": counts}}
+
+    r32, s32, _ = _counted_solve(
+        tag, "MINRES on the f32 b (the f32 recurrence)",
+        lambda: pt.minres(A, b.float(), rtol=HELM_RTOL), "dia_spmv")
+    out["f32_true_rel"] = _true_rel(b.float(), ax64, r32.x)
+    log("[%s] the f32 recurrence: istop %d after %d iterations, true "
+        "relative residual (f64) %.3e" % (tag, int(r32.istop),
+                                          int(r32.n_iter),
+                                          out["f32_true_rel"]))
+
+    sres, ssecs, scounts = _counted_solve(
+        tag, "solve(method='symmlq')",
+        lambda: pt.solve(A, b, method="symmlq", rtol=HELM_RTOL), "dia_spmv")
+    strue = _true_rel(b, ax64, sres.x)
+    log("[%s] SYMMLQ: true relative residual (f64) %.3e" % (tag, strue))
+    if not (bool(sres.converged) and strue <= 1e-4):
+        raise AssertionError("SYMMLQ: %r, true relative residual %.3e"
+                             % (sres, strue))
+    out.update(symmlq_iter=int(sres.n_iter), symmlq_s=ssecs,
+               symmlq_true_rel=strue,
+               symmlq_profile=_profile_solve(pt, tag + " symmlq", A, b,
+                                             ssecs, method="symmlq",
+                                             rtol=HELM_RTOL))
+    out["launches"]["symmlq"] = scounts
+    del A, data
+    return out
+
+
+def phase_minres_golden(pt, A, coo):
+    """8b: MINRES's golden (1138bus with Jacobi, BASELINE config #2) on
+    the card, over the tiled operator of phase 5 (BELL, f32 storage) with
+    M = 1/max(|d|, 1) in f64, so every product goes through the SELL
+    kernel's f32f64 entry.  b = A 1 / sqrt(TILES): MINRES's Anorm estimate
+    takes in beta1, which grows as sqrt(TILES) with b = A 1; scaled so,
+    beta1 and every stop test are the single matrix's, whose counts are
+    412 iterations at rtol 1e-6 and 583-584 at 1e-8."""
+    from pykrylov_tpu_torch.io.datasets import load_bundled
+    from pykrylov_tpu_torch.ops import DiagonalOperator
+
+    tag = "8b MINRES golden"
+    bv, br, bc, bshape = load_bundled("1138bus")
+    d = np.zeros(bshape[0])
+    np.add.at(d, br[br == bc], bv[br == bc])
+    M = DiagonalOperator(torch.from_numpy(np.tile(
+        1.0 / np.maximum(np.abs(d), 1.0), TILES)), device=DEVICE)
+    m = A.shape[0]
+    b = A * torch.full((m,), TILES ** -0.5, device=DEVICE)
+    rows = torch.from_numpy(coo[1]).to(DEVICE)
+    cols = torch.from_numpy(coo[2]).to(DEVICE)
+    vals = torch.from_numpy(coo[0]).to(DEVICE, torch.float64)
+
+    def ax64(x):
+        out = torch.zeros(m, dtype=torch.float64, device=DEVICE)
+        return out.index_add_(0, rows, vals * x[cols])
+
+    pt.minres(A, b, M=M, rtol=1e-6, itnlim=20)       # warm-up
+    out = {}
+    for rtol, golden, code in ((1e-6, (412,), 1), (1e-8, (583, 584), 10)):
+        res, secs, counts = _counted_solve(
+            tag, "minres rtol %.0e" % rtol,
+            lambda: pt.minres(A, b, M=M, rtol=rtol, itnlim=8000),
+            "sell_spmv")
+        true_rel = _true_rel(b, ax64, res.x)
+        n_iter = int(res.n_iter)
+        log("[%s] rtol %.0e: %d iterations (golden %s), istop %d, x %s, "
+            "true relative residual (f64) %.3e"
+            % (tag, rtol, n_iter, "-".join(map(str, golden)),
+               int(res.istop), str(res.x.dtype)[6:], true_rel))
+        if (res.x.dtype != torch.float64 or int(res.istop) != code
+                or min(abs(n_iter - g) for g in golden) > 1):
+            raise AssertionError("%s rtol %.0e: %r against %s"
+                                 % (tag, rtol, res, golden))
+        out["%.0e" % rtol] = {"n_iter": n_iter, "solve_s": secs,
+                              "true_rel": true_rel, "launches": counts}
+    del rows, cols, vals
+    return out
+
+
+def phase_nonsym(pt):
+    """9: 2-D convection-diffusion at n = CD_N, |w| h = 1 and 0.5, f32
+    storage on the DIA kernel, b = A x_true in f64 (the f32 recurrences
+    stall above rtol 1e-6 on this system; the f32 BiCGSTAB below shows
+    it): ``solve`` routes to BiCGSTAB; then CGS, TFQMR, and BiCGSTAB with
+    an f64 Jacobi preconditioner."""
+    from pykrylov_tpu_torch.gallery import convdiff2d_coo
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import (jacobi_preconditioner,
+                                           operator_from_coo)
+
+    tag = "9 nonsymmetric"
+    t0 = time.perf_counter()
+    coo = convdiff2d_coo(CD_N, wx=CD_N + 1.0, wy=(CD_N + 1) / 2.0,
+                         dtype=np.float32)
+    A = operator_from_coo(*coo, device=DEVICE)
+    torch.cuda.synchronize()
+    m = A.shape[0]
+    log("[%s] A = convdiff2d(%d, wx=%.1f, wy=%.1f): %d rows, %d nonzeros, "
+        "fmt=%s, %s, built in %.1f s" % (tag, CD_N, CD_N + 1.0,
+                                        (CD_N + 1) / 2.0, m, len(coo[0]),
+                                        A.fmt, str(A.dtype)[6:],
+                                        time.perf_counter() - t0))
+    if A.fmt != "cuda-dia" or A.symmetric:
+        raise AssertionError("auto policy picked %r" % A.fmt)
+    data, offsets = A.container.data, A.container.offsets
+    x_true = torch.from_numpy(np.random.default_rng(0).standard_normal(m)).to(
+        DEVICE)
+    b = A * x_true
+    torch.cuda.synchronize()
+    _exact("%s: b = A x_true (f32 data, f64 x)" % tag, b,
+           K.dia_matvec_plain(data, offsets, x_true), tag=tag)
+    M = jacobi_preconditioner((coo[0].astype(np.float64),) + coo[1:],
+                              device=DEVICE)
+
+    def ax64(x):
+        return K.dia_matvec_plain(data.double(), offsets, x)
+
+    runs = (("solve (BiCGSTAB)", {}), ("cgs", {"method": "cgs"}),
+            ("tfqmr", {"method": "tfqmr"}),
+            ("bicgstab, f64 Jacobi M", {"method": "bicgstab", "M": M}))
+    for _, opts in runs:                                # warm-ups
+        pt.solve(A, b, rtol=1e-6, matvec_max=20, **opts)
+    out = {}
+    for label, opts in runs:
+        res, secs, counts = _counted_solve(
+            tag, label, lambda: pt.solve(A, b, rtol=1e-6, **opts),
+            "dia_spmv")
+        true_rel = _true_rel(b, ax64, res.x)
+        log("[%s] %s: true relative residual (f64) %.3e" % (tag, label,
+                                                           true_rel))
+        if int(res.istop) != 0 or not true_rel <= 1e-4:
+            raise AssertionError("%s %s: %r, true relative residual %.3e"
+                                 % (tag, label, res, true_rel))
+        out[label] = {"n_iter": int(res.n_iter),
+                      "n_matvec": int(res.n_matvec), "solve_s": secs,
+                      "true_rel": true_rel, "launches": counts}
+    bicg = out["solve (BiCGSTAB)"]
+    out["profile"] = _profile_solve(pt, tag, A, b, bicg["solve_s"],
+                                    rtol=1e-6)
+    r32, _, _ = _counted_solve(
+        tag, "BiCGSTAB on the f32 b, capped at 4000 matvecs",
+        lambda: pt.bicgstab(A, b.float(), rtol=1e-6, matvec_max=4000),
+        "dia_spmv")
+    out["f32"] = {"istop": int(r32.istop), "n_matvec": int(r32.n_matvec),
+                  "true_rel": _true_rel(b.float(), ax64, r32.x)}
+    log("[%s] the f32 recurrence: istop %d after %d matvecs, true "
+        "relative residual (f64) %.3e" % (tag, out["f32"]["istop"],
+                                          out["f32"]["n_matvec"],
+                                          out["f32"]["true_rel"]))
+    del A, data, coo
+    return out
+
+
+def phase_bmark(pt):
+    """9b: the reference's bmark (examples/bmark.py) on jpwh_991 tiled
+    BMARK_TILES times, f64 storage, unsymmetric, through ``fmt="auto"``
+    (``fmt="bell"`` if the policy refuses BELL): CGS, TFQMR and BiCGSTAB
+    from x0 = tile(1 + arange(991)) to rtol 1e-8 with the per-tile cap
+    matvec_max = 2 * 991, plain and with Jacobi floor=1.  The tiles are
+    independent and equal, and every stop test of these solvers scales
+    with them, so the counts are the single matrix's."""
+    from pykrylov_tpu_torch.gallery import tiled_general_coo
+    from pykrylov_tpu_torch.sparse import (jacobi_preconditioner,
+                                           operator_from_coo)
+
+    tag = "9b bmark"
+    t0 = time.perf_counter()
+    coo = tiled_general_coo("jpwh_991", tiles=BMARK_TILES, coupling=0,
+                            dtype=np.float64)
+    A = operator_from_coo(*coo, symmetric=False, device=DEVICE)
+    torch.cuda.synchronize()
+    auto = A.fmt
+    if A.fmt != "bell":
+        A = operator_from_coo(*coo, symmetric=False, fmt="bell",
+                              device=DEVICE)
+        torch.cuda.synchronize()
+    m = A.shape[0]
+    log("[%s] A = jpwh_991 tiled %d times: %d rows, %d nonzeros, f64; "
+        "fmt='auto' gave %r%s; built in %.1f s"
+        % (tag, BMARK_TILES, m, len(coo[0]), auto,
+           "" if auto == "bell" else " (_try_bell refused), so fmt='bell'",
+           time.perf_counter() - t0))
+    b = A * torch.ones(m, dtype=torch.float64, device=DEVICE)
+    x0 = torch.arange(1, 992, dtype=torch.float64,
+                      device=DEVICE).repeat(BMARK_TILES)
+    M = jacobi_preconditioner(coo, floor=1.0, device=DEVICE)
+    out = {"auto_fmt": auto}
+    for name, refs in BMARK.items():
+        fn = getattr(pt, name)
+        for jac, ref in zip((False, True), refs):
+            # CGS and TFQMR do not count the guess matvec; it launches
+            res, secs, counts = _counted_solve(
+                tag, "%s%s" % (name, ", Jacobi" if jac else ""),
+                lambda: fn(A, b, x0=x0, M=M if jac else None, rtol=1e-8,
+                           matvec_max=2 * 991),
+                "sell_spmv", expect=lambda r: int(name != "bicgstab"))
+            if not bool(res.converged) or abs(int(res.n_matvec) - ref) > 4:
+                raise AssertionError("%s %s: %r against %d matvecs"
+                                     % (tag, name, res, ref))
+            out["%s%s" % (name, "_jacobi" if jac else "")] = {
+                "n_matvec": int(res.n_matvec), "ref": ref, "solve_s": secs,
+                "launches": counts}
+    del A, coo
+    return out
+
+
+# --------------------------------------------------------------------------
 # 6. timing
 # --------------------------------------------------------------------------
 
@@ -1136,13 +1603,14 @@ def _csr_bytes(nnz, m, n):
     return nnz * 8 + (m + 1) * 4 + n * 4 + m * 4
 
 
-def _bound(nbytes, flops, rates):
+def _bound(nbytes, flops, rates, ops="f32"):
     """The least time for work that must move ``nbytes`` and do ``flops``
-    float32 operations: the larger of the bytes at the card's published
-    memory rate and the operations at its float32 rate; beside it, as
-    ``achievable_ms``, the bytes at the copy rate measured in phase 2."""
+    operations of type ``ops`` ("f32" or "f64"): the larger of the bytes at
+    the card's published memory rate and the operations at its rate for
+    that type; beside it, as ``achievable_ms``, the bytes at the copy rate
+    measured in phase 2."""
     t_bytes = nbytes / rates["bytes"] * 1e3
-    t_ops = flops / rates["f32"] * 1e3
+    t_ops = flops / rates[ops] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "achievable_ms": nbytes / rates["copy"] * 1e3}
@@ -1172,21 +1640,26 @@ def phase_dia_timing(A, coo, rates):
                 chain("kernel bf16", lambda x: K.dia_matvec(d16, offsets, x)),
                 chain("plain bf16",
                       lambda x: K.dia_matvec_plain(d16, offsets, x)),
+                # the mixed pair: f32 storage with an f64 x (f32f64 entry)
+                chain("kernel f32/f64",
+                      lambda x: K.dia_matvec(d32, offsets, x)),
+                chain("plain f32/f64",
+                      lambda x: K.dia_matvec_plain(d32, offsets, x)),
                 chain("torch CSR f32", lambda x: csr @ x)]
     g = torch.Generator(device=DEVICE).manual_seed(1000)
     x0 = torch.randn(m, device=DEVICE, generator=g)
     for label, _ in variants:
-        state[label] = x0.clone()
+        state[label] = x0.double() if "/f64" in label else x0.clone()
     best = _best_ms(variants, 100)
     for label, x in state.items():
         if not torch.isfinite(x).all():
             raise AssertionError("%s: timing chain went non-finite" % label)
     nnz = len(coo[0])
-    own = {"f32": (ndiag * 4 + 2 * 4) * m, "bf16": (ndiag * 2 + 2 * 4) * m}
+    own = {"f32": (ndiag * 4 + 2 * 4) * m, "bf16": (ndiag * 2 + 2 * 4) * m,
+           "f32/f64": (ndiag * 4 + 2 * 8) * m}
     csr_b = _csr_bytes(nnz, m, m)
     for label, _ in variants:
-        nbytes = own["bf16" if "bf16" in label else "f32"] \
-            if "CSR" not in label else csr_b
+        nbytes = csr_b if "CSR" in label else own[label.split()[-1]]
         log("[6 timing] DIA n=%d %-13s %.4f ms per matvec, %.1f GB/s of "
             "its own %d bytes" % (N, label, best[label],
                                   nbytes / (best[label] * 1e-3) / 1e9,
@@ -1196,6 +1669,17 @@ def phase_dia_timing(A, coo, rates):
         "bytes; kernel at %.1f%% of it; achievable %.4f ms at the copy rate"
         % (N, b["bound_ms"], b["bound_by"], own["f32"], csr_b,
            100 * b["bound_ms"] / best["kernel f32"], b["achievable_ms"]))
+    # the mixed pair's bound: f32 data (or f32 CSR values) with f64 x and
+    # y, 2 nnz operations at the f64 rate
+    bm = _bound(min(own["f32/f64"], csr_b + 4 * 2 * m), 2 * nnz, rates,
+                "f64")
+    log("[6 timing] DIA n=%d f32 storage with f64 x: kernel %.4f ms, plain "
+        "%.4f; bound %.4f ms (%s), kernel at %.1f%% of it; achievable "
+        "%.4f ms" % (N, best["kernel f32/f64"], best["plain f32/f64"],
+                     bm["bound_ms"], bm["bound_by"],
+                     100 * bm["bound_ms"] / best["kernel f32/f64"],
+                     bm["achievable_ms"]))
+    b["mixed"] = bm
     del csr, d32, d16, state
     return best, b
 
@@ -1224,13 +1708,21 @@ def phase_bell_timing(A, coo, classes, rates):
         variants = [("kernel sigma %d" % sg,
                      (lambda c: lambda: S.sell_matvec(c, x))(c))
                     for sg, c in sorted(cards.items())]
+        if name == "tiled_1138bus":
+            # the mixed pair: f32 values with an f64 x (f32f64 entry)
+            x64 = x.double()
+            variants += [
+                ("kernel f32/f64", lambda: S.sell_matvec(cards[S.SIGMA],
+                                                         x64)),
+                ("plain f32/f64",
+                 lambda: S.sell_matvec_plain(cards[S.SIGMA], x64))]
         variants += [
             ("plain", lambda: S.sell_matvec_plain(cards[S.SIGMA], x)),
             ("BELL plain", lambda: B.bell_levels_matvec(levels, x, rows_out)),
             ("operator", lambda: op * x),
             ("plain ELL", lambda: ell * x),
             ("torch CSR", lambda: csr @ x)]
-        best = _best_ms(variants, 50, host_waits=("plain",))
+        best = _best_ms(variants, 50, host_waits=("plain", "plain f32/f64"))
         best["kernel"] = best["kernel sigma %d" % S.SIGMA]
         # a call's time with its host work: back-to-back calls timed with
         # events, which the host's enqueue rate bounds for a kernel this short
@@ -1249,6 +1741,8 @@ def phase_bell_timing(A, coo, classes, rates):
         b = _bound(min(own[S.SIGMA], csr_b), 2 * nnz, rates)
         for label, _ in variants:
             ms = best[label]
+            if label.endswith("f32/f64"):
+                continue
             mine = (own[int(label.split()[-1])] if label.startswith("kernel")
                     else bell_b if label == "BELL plain" else own[S.SIGMA])
             log("[6 timing] BELL %-18s %-16s %.4f ms per matvec: %.1f GB/s "
@@ -1261,6 +1755,18 @@ def phase_bell_timing(A, coo, classes, rates):
             % (name, b["bound_ms"], b["bound_by"], own[S.SIGMA], csr_b,
                bell_b, 100 * b["bound_ms"] / best["kernel"],
                best["kernel"] / best["torch CSR"], b["achievable_ms"]))
+        if name == "tiled_1138bus":
+            # f32 values and f64 x and y; CSR with f64 x and y likewise
+            bm = _bound(min(own[S.SIGMA] + io, csr_b + 4 * (n + rows_out)),
+                        2 * nnz, rates, "f64")
+            log("[6 timing] BELL %-18s f32 values with f64 x: kernel %.4f "
+                "ms, plain %.4f; bound %.4f ms (%s), kernel at %.1f%% of "
+                "it; achievable %.4f ms"
+                % (name, best["kernel f32/f64"], best["plain f32/f64"],
+                   bm["bound_ms"], bm["bound_by"],
+                   100 * bm["bound_ms"] / best["kernel f32/f64"],
+                   bm["achievable_ms"]))
+            b["mixed"] = bm
         out[name] = (best, b)
         del csr, ell, cards
     return out
@@ -1337,11 +1843,20 @@ def main():
     dia_cases = phase_dia_kernel(pt)
     classes, bell_cases = phase_bell_kernel(pt)
     phase_spmm_kernels(dia_cases, bell_cases, classes)
+    phase_mixed_pairs(dia_cases, bell_cases)
     del dia_cases, bell_cases
     A_dia, coo_dia, dia = phase_dia_path(pt)
     dia_mm = phase_dia_block(pt, A_dia, dia)
     A_bell, coo_bell, bell = phase_bell_path(pt)
     bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
+    new_s = {}
+    for key, run in (("8", lambda: phase_indefinite(pt, coo_dia)),
+                     ("8b", lambda: phase_minres_golden(pt, A_bell,
+                                                        coo_bell)),
+                     ("9", lambda: phase_nonsym(pt)),
+                     ("9b", lambda: phase_bmark(pt))):
+        t0 = time.perf_counter()
+        new_s[key] = (run(), time.perf_counter() - t0)
     dia_best, dia_b = phase_dia_timing(A_dia, coo_dia, rates)
 
     from pykrylov_tpu_torch.sparse import kernels as K
@@ -1432,6 +1947,28 @@ def main():
             "solve_ms_per_block_iter": path["ms_per_iter"],
         })
     kernels[2].update(plan=dia_curve[KB]["plan"], registers=regs["dia_spmm"])
+    # each kernel's launches in the runs of phases 8-9b, counted from 0
+    runs = {"8": new_s["8"][0]["launches"],
+            "8b": {k: v["launches"] for k, v in new_s["8b"][0].items()},
+            "9": {k: v["launches"] for k, v in new_s["9"][0].items()
+                  if isinstance(v, dict) and "launches" in v},
+            "9b": {k: v["launches"] for k, v in new_s["9b"][0].items()
+                   if isinstance(v, dict)}}
+    for entry in kernels:
+        entry["launches_by_phase"] = {
+            phase: {run: counts[entry["name"]]
+                    for run, counts in by_run.items()}
+            for phase, by_run in runs.items()}
+    kernels[0].update(
+        mixed_ms=dia_best["kernel f32/f64"],
+        mixed_plain_ms=dia_best["plain f32/f64"],
+        mixed_bound_ms=dia_b["mixed"]["bound_ms"],
+        mixed_bound_by=dia_b["mixed"]["bound_by"])
+    kernels[1].update(
+        mixed_ms=bt["kernel f32/f64"], mixed_plain_ms=bt["plain f32/f64"],
+        mixed_bound_ms=bell_b["mixed"]["bound_ms"],
+        mixed_bound_by=bell_b["mixed"]["bound_by"])
+    ind, gold, nonsym, bmark = (new_s[k][0] for k in ("8", "8b", "9", "9b"))
     log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s, K=%d "
         "block %d in %.3f s; BELL tiled 1138bus: %d iterations in %.3f s, "
         "K=%d block %d in %.3f s; smoke took %.1f s"
@@ -1439,6 +1976,22 @@ def main():
            dia_mm["solve_s"], bell["n_iter"], bell["solve_s"], KB,
            bell_mm["n_iter"], bell_mm["solve_s"],
            time.perf_counter() - t_start))
+    log("[7 result] phase 8 (%.1f s): CG %d + MINRES %d iterations in "
+        "%.3f s, idle %.1f%%; SYMMLQ %d in %.3f s, idle %.1f%%; phase 8b "
+        "(%.1f s): MINRES %d and %d iterations; phase 9 (%.1f s): %s, "
+        "BiCGSTAB idle %.1f%%; phase 9b (%.1f s, fmt=auto gave %r): %s"
+        % (new_s["8"][1], ind["cg_iter"], ind["minres_iter"],
+           ind["solve_s"], 100 * ind["profile"]["idle"],
+           ind["symmlq_iter"], ind["symmlq_s"],
+           100 * ind["symmlq_profile"]["idle"], new_s["8b"][1],
+           gold["1e-06"]["n_iter"], gold["1e-08"]["n_iter"], new_s["9"][1],
+           ", ".join("%s %d it. in %.3f s" % (k, v["n_iter"], v["solve_s"])
+                     for k, v in nonsym.items()
+                     if isinstance(v, dict) and "n_iter" in v),
+           100 * nonsym["profile"]["idle"], new_s["9b"][1],
+           bmark["auto_fmt"],
+           ", ".join("%s %d (ref %d)" % (k, v["n_matvec"], v["ref"])
+                     for k, v in bmark.items() if isinstance(v, dict))))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,7 +54,10 @@
 // (kernels.dia_matmat_plain).
 //
 // Types: f32 data with f32 X; bf16 data with f32 X (converted with
-// __bfloat162float, f32 compute); f64 data with f64 X.
+// __bfloat162float, f32 compute); f64 data with f64 X; f32 or bf16 data
+// with f64 X (each stored value widened to double, exactly, and f64
+// compute; V = 2 then gives 16-byte loads of X beside 4- or 2-byte loads of
+// the diagonals).
 //
 // Each entry point launches on the given stream, does not synchronise, and
 // returns a CUDA error code as an int (0 on success).
@@ -141,7 +144,7 @@ __device__ __forceinline__ void row_product(const Offsets& o,
       }
       live[u] = ok;
       if (ok) {
-        val[u] = to_compute(load_value(dr + u * m));
+        val[u] = static_cast<TC>(to_compute(load_value(dr + u * m)));
         xv[u] = *reinterpret_cast<const P*>(xr + o.xoff[d]);
       }
     }
@@ -256,5 +259,7 @@ extern "C" {
 DIA_SPMM_ENTRY(dia_spmm_f32, float, float, 4)
 DIA_SPMM_ENTRY(dia_spmm_bf16, __nv_bfloat16, float, 4)
 DIA_SPMM_ENTRY(dia_spmm_f64, double, double, 2)
+DIA_SPMM_ENTRY(dia_spmm_f32f64, float, double, 2)
+DIA_SPMM_ENTRY(dia_spmm_bf16f64, __nv_bfloat16, double, 2)
 
 }  // extern "C"

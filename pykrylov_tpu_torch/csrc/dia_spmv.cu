@@ -30,7 +30,9 @@
 // (formats.dia_matvec) computes: the two agree bit for bit.
 //
 // Types: f32 data with f32 x; bf16 data with f32 x (converted with
-// __bfloat162float, f32 compute); f64 data with f64 x.
+// __bfloat162float, f32 compute); f64 data with f64 x; f32 or bf16 data
+// with f64 x (each stored value widened to double, which is exact, and f64
+// compute: the plain version's .to(float64) promotion).
 //
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() as an int (0 on success).
@@ -84,7 +86,9 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t j = i + offsets.v[k];
       if (j >= 0 && j < n) {
         // 64-bit slot index: ndiag * m passes 2^31 at 64 x 34M rows
-        acc = add_rn(acc, mul_rn(to_compute(data[k * m + i]), x[j]));
+        acc = add_rn(acc, mul_rn(static_cast<TC>(to_compute(
+                                       data[k * m + i])),
+                                   x[j]));
       }
     }
     y[i] = acc;
@@ -154,6 +158,19 @@ int dia_spmv_f64(const void* data, const void* offsets, int64_t ndiag,
                  const void* x, void* y, int64_t m, int64_t n,
                  void* stream) {
   return launch<double, double>(data, offsets, ndiag, x, y, m, n, stream);
+}
+
+int dia_spmv_f32f64(const void* data, const void* offsets, int64_t ndiag,
+                    const void* x, void* y, int64_t m, int64_t n,
+                    void* stream) {
+  return launch<float, double>(data, offsets, ndiag, x, y, m, n, stream);
+}
+
+int dia_spmv_bf16f64(const void* data, const void* offsets, int64_t ndiag,
+                     const void* x, void* y, int64_t m, int64_t n,
+                     void* stream) {
+  return launch<__nv_bfloat16, double>(data, offsets, ndiag, x, y, m, n,
+                                       stream);
 }
 
 }  // extern "C"

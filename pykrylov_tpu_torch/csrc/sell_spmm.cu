@@ -38,7 +38,8 @@
 // is skipped.
 //
 // Types: f32 values with f32 X; bf16 values with f32 X (f32 compute); f64
-// values with f64 X.
+// values with f64 X; f32 or bf16 values with f64 X (each value widened to
+// double, exactly, and f64 compute).
 //
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() as an int (0 on success).
@@ -105,7 +106,9 @@ __device__ __forceinline__ void spmm_rows(const TV* __restrict__ vals,
     for (int w = 0; w < kUnroll; ++w) {
       const bool live = j + w < len;
       cj[w] = live ? __ldg(c + (j + w) * kSlice) : -1;  // -1: skipped
-      vj[w] = live ? to_compute(__ldg(v + (j + w) * kSlice)) : TC(0);
+      vj[w] = live ? static_cast<TC>(
+                         to_compute(__ldg(v + (j + w) * kSlice)))
+                   : TC(0);
     }
 #pragma unroll
     for (int w = 0; w < kUnroll; ++w) {
@@ -233,5 +236,7 @@ extern "C" {
 SELL_ENTRY(sell_spmm_f32, float, float)
 SELL_ENTRY(sell_spmm_bf16, __nv_bfloat16, float)
 SELL_ENTRY(sell_spmm_f64, double, double)
+SELL_ENTRY(sell_spmm_f32f64, float, double)
+SELL_ENTRY(sell_spmm_bf16f64, __nv_bfloat16, double)
 
 }  // extern "C"

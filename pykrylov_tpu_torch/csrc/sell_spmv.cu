@@ -54,7 +54,8 @@
 // computes: the two agree bit for bit.
 //
 // Types: f32 values with f32 x; bf16 values with f32 x (converted exactly,
-// f32 compute); f64 values with f64 x.
+// f32 compute); f64 values with f64 x; f32 or bf16 values with f64 x (each
+// value widened to double, exactly, and f64 compute).
 //
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() as an int (0 on success).
@@ -139,7 +140,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < kUnroll; ++u) {
       const bool live = j + u < len;
       cj[u] = live ? ld_stream(c + (j + u) * kSlice) : -1;  // -1: skipped
-      vj[u] = live ? to_compute(ld_stream(v + (j + u) * kSlice)) : TC(0);
+      vj[u] = live ? static_cast<TC>(
+                         to_compute(ld_stream(v + (j + u) * kSlice)))
+                   : TC(0);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -185,5 +188,7 @@ extern "C" {
 SELL_ENTRY(sell_spmv_f32, float, float)
 SELL_ENTRY(sell_spmv_bf16, __nv_bfloat16, float)
 SELL_ENTRY(sell_spmv_f64, double, double)
+SELL_ENTRY(sell_spmv_f32f64, float, double)
+SELL_ENTRY(sell_spmv_bf16f64, __nv_bfloat16, double)
 
 }  // extern "C"

@@ -3,9 +3,15 @@
 Counterpart of ``pykrylov_tpu/solve.py``.  The method follows the
 operator's shape and declared symmetry.  For a 1-D right-hand side:
 
-  * square + symmetric/hermitian → CG with the curvature check;
-  * square, general              → BiCGSTAB (not ported yet);
+  * square + symmetric/hermitian → CG with the curvature check, falling
+    back to MINRES when CG meets nonpositive curvature (``istop 2``);
+  * square, general              → BiCGSTAB, falling back to TFQMR with the
+    same options when its recurrence breaks down (``istop 3``);
   * rectangular                  → LSMR (not ported yet).
+
+Both fallbacks dispatch on the first solver's stop code, read on the host;
+the JAX package's traced variants (a ``lax.cond`` under ``jit``) have no
+counterpart in an eager loop.
 
 For an (n, K) block of right-hand sides (``_solve_block``), a square
 symmetric or hermitian operator, or ``method="cg"``, goes to
@@ -15,8 +21,7 @@ batched solvers (square general → ``bicgstab_batched``, rectangular →
 ``lsqr_batched``, each ``method=``'s own) are not ported yet.
 
 Each branch whose solver is not ported yet raises ``NotImplementedError``
-naming its ROADMAP.md item, as do the CG→MINRES fallback on an indefinite
-operator and ``verified=True``.
+naming its ROADMAP.md item, as does ``verified=True``.
 
 An operator that carries ``solve_permutation`` (an RCM-reordered BELL
 operator, ``A = P^T A' P``) is solved in the permuted space: ``A' x' = P b``
@@ -33,8 +38,13 @@ import torch
 
 from .ops.base import DiagonalOperator, LinearOperator
 from .solvers.batched import cg_batched
+from .solvers.bicgstab import bicgstab
 from .solvers.cg import cg
-from .solvers.common import apply_op, as_operator
+from .solvers.cgs import cgs
+from .solvers.common import apply_op, as_operator, promote_rhs
+from .solvers.minres import minres
+from .solvers.symmlq import symmlq
+from .solvers.tfqmr import tfqmr
 from .utils.types import to_tensor
 
 __all__ = ["solve"]
@@ -42,9 +52,11 @@ __all__ = ["solve"]
 _METHODS = ("cg", "cg_pipelined", "minres", "symmlq", "bicgstab", "cgs",
             "tfqmr", "lsqr", "lsmr", "craig", "craigmr")
 
-# method -> ROADMAP.md queue 1 item that ports it
-_ITEM = {"cg_pipelined": 16, "minres": 11, "symmlq": 11, "bicgstab": 10,
-         "cgs": 10, "tfqmr": 10, "lsqr": 12, "lsmr": 12, "craig": 12,
+# method -> its solver, where ported
+_SOLVERS = {"cg": cg, "minres": minres, "symmlq": symmlq,
+            "bicgstab": bicgstab, "cgs": cgs, "tfqmr": tfqmr}
+# method -> ROADMAP.md queue 1 item that ports it, where not
+_ITEM = {"cg_pipelined": 16, "lsqr": 12, "lsmr": 12, "craig": 12,
          "craigmr": 12}
 
 
@@ -116,7 +128,8 @@ def solve(A, b, method=None, verified=False, **opts):
     """Solve ``A x = b`` for a 1-D ``b``, or ``A X = B`` for an (n, K)
     block ``B``; returns a :class:`~pykrylov_tpu_torch.solvers.SolveResult`
     (per-column fields for a block).  ``opts`` pass through to the chosen
-    solver; ``method="cg"`` picks CG explicitly."""
+    solver; ``method=`` picks one explicitly (``"cg"``, ``"minres"``,
+    ``"symmlq"``, ``"bicgstab"``, ``"cgs"`` or ``"tfqmr"``)."""
     A = as_operator(A)
     if getattr(A, "solve_permutation", None) is not None:
         return _solve_permuted(A, b, method, verified, opts)
@@ -126,19 +139,59 @@ def solve(A, b, method=None, verified=False, **opts):
         raise _not_ported("solve(verified=True)", 15)
     if method is not None:
         _check_method(method)
-        if method != "cg":
+        if method not in _SOLVERS:
             raise _not_ported("method=%r" % method, _ITEM[method])
-        return cg(A, b, **opts)
+        return _SOLVERS[method](A, b, **opts)
 
     m, n = A.shape
     if m != n:
         raise _not_ported("solve() on a rectangular operator (LSMR)", 12)
     if A.symmetric or A.hermitian:
         res = cg(A, b, check_curvature=True, **opts)
-        if int(res.istop) == 2:
-            raise _not_ported("the CG→MINRES fallback of solve() on an "
-                              "indefinite operator (CG stopped on "
-                              "nonpositive curvature)", 11)
+        if int(res.istop) == 2:     # indefinite: MINRES handles it
+            return _minres_fallback(A, b, res, opts)
         return res
-    raise _not_ported("solve() on a square unsymmetric operator "
-                      "(BiCGSTAB with its TFQMR fallback)", 10)
+    res = bicgstab(A, b, **opts)
+    if int(res.istop) == 3:         # breakdown: another recurrence
+        # BiCGSTAB and TFQMR share their whole keyword surface, so every
+        # option (x0, M, rtol, atol, matvec_max, store_history,
+        # verify_final) carries over
+        return tfqmr(A, b, **opts)
+    return res
+
+
+# the square-solver options MINRES takes as they are
+_MINRES_OPTS = ("M", "rtol", "etol", "window", "store_history")
+
+
+def _minres_fallback(A, b, cg_res, opts):
+    """Re-solve an indefinite system with MINRES, keeping the square-solver
+    options CG accepted (JAX ``solve.py:383-412``).
+
+    MINRES has no ``x0`` or ``atol`` (reference ``minres.py:115-130``), so
+    ``x0`` is honoured by solving the residual system ``A d = b - A x0``
+    and returning ``x0 + d`` (one more counted matvec), and ``atol`` is
+    folded into MINRES's relative tolerance through the initial residual
+    norm that the CG attempt measured.  ``maxiter``, or else
+    ``matvec_max``, becomes MINRES's ``itnlim``.
+    """
+    mopts = {k: v for k, v in opts.items() if k in _MINRES_OPTS}
+    if "maxiter" in opts:
+        mopts["itnlim"] = opts["maxiter"]
+    elif "matvec_max" in opts:
+        mopts["itnlim"] = opts["matvec_max"]
+    atol = opts.get("atol")
+    if atol is not None:
+        resid0 = float(cg_res.resid_norm0)
+        if resid0 > 0:
+            mopts["rtol"] = max(float(mopts.get("rtol", 1e-12)),
+                                float(atol) / resid0)
+    x0 = opts.get("x0")
+    if x0 is None:
+        return minres(A, b, **mopts)
+    M = opts.get("M")
+    b = promote_rhs(b, A, as_operator(M) if M is not None else None)
+    x0 = to_tensor(x0, device=b.device).to(b.dtype)
+    res = minres(A, b - apply_op(A, x0), **mopts)
+    return dataclasses.replace(res, x=res.x + x0.to(res.x.dtype),
+                               n_matvec=res.n_matvec + 1)

@@ -1,12 +1,33 @@
 """Krylov solvers — plain functions on tensors returning ``SolveResult``.
 
-CG and its block-batched twin ``cg_batched`` (with ``solve_columns``, one
-solve per column) are ported; the other solvers of
-``pykrylov_tpu.solvers`` follow in the order of ROADMAP.md queue 1.
+CG with its block-batched twin ``cg_batched`` (and ``solve_columns``, one
+solve per column), MINRES and SYMMLQ for symmetric indefinite systems, and
+BiCGSTAB, CGS and TFQMR for square unsymmetric ones are ported; the other
+solvers of ``pykrylov_tpu.solvers`` follow in the order of ROADMAP.md
+queue 1.  Each solver's module keeps its ``ISTOP_MSG`` table;
+``ISTOP_MSGS`` gathers them by solver name.
+
+The submodules are imported before the function names are bound, so each
+name below is the solver, not the module of the same name.
 """
 
 from .result import SolveResult
+from . import (cg as _m_cg, minres as _m_minres, symmlq as _m_symmlq,
+               bicgstab as _m_bicgstab, cgs as _m_cgs,
+               tfqmr as _m_tfqmr)  # noqa: F401
 from .cg import cg
+from .minres import minres
+from .symmlq import symmlq
+from .bicgstab import bicgstab
+from .cgs import cgs
+from .tfqmr import tfqmr
 from .batched import ISTOP_MSG, cg_batched, solve_columns
 
-__all__ = ["SolveResult", "cg", "cg_batched", "solve_columns", "ISTOP_MSG"]
+ISTOP_MSGS = {"cg": _m_cg.ISTOP_MSG, "cg_batched": ISTOP_MSG,
+              "minres": _m_minres.ISTOP_MSG, "symmlq": _m_symmlq.ISTOP_MSG,
+              "bicgstab": _m_bicgstab.ISTOP_MSG, "cgs": _m_cgs.ISTOP_MSG,
+              "tfqmr": _m_tfqmr.ISTOP_MSG}
+
+__all__ = ["SolveResult", "cg", "minres", "symmlq", "bicgstab", "cgs",
+           "tfqmr", "cg_batched", "solve_columns", "ISTOP_MSG",
+           "ISTOP_MSGS"]

@@ -25,7 +25,7 @@ import torch
 
 from .common import (apply_op, as_operator, attach_true_residual,
                      default_maxiter, history_init, history_push,
-                     promote_rhs, require_square, threshold_of)
+                     promote_rhs, require_square, threshold_of, vdot_real)
 from .result import SolveResult
 from ..utils.types import to_tensor
 
@@ -36,10 +36,6 @@ ISTOP_MSG = {
     1: "matvec budget exhausted before convergence",
     2: "operator appears indefinite: nonpositive curvature encountered",
 }
-
-
-def _dot(a, b):
-    return torch.vdot(a, b).real
 
 
 def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
@@ -95,7 +91,7 @@ def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
         extra_matvec = 1
 
     y = apply_op(M, r) if M is not None else r
-    ry = _dot(r, y)
+    ry = vdot_real(r, y)
     resid0 = torch.sqrt(ry)
     rdtype = resid0.dtype
     thresh = threshold_of(resid0, rtol, atol)
@@ -115,14 +111,14 @@ def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
     resid_h, thresh_h = torch.stack([resid0, thresh]).tolist()
     while resid_h > thresh_h and k < maxiter:
         Ap = apply_op(A, p)
-        pAp = _dot(p, Ap)
+        pAp = vdot_real(p, Ap)
         # The step is taken before the curvature test so that both scalars
         # reach the host in one synchronisation; an aborted step is dropped.
         alpha = (ry / pAp).to(dtype)
         x2 = torch.addcmul(x, alpha, p)
         r2 = torch.addcmul(r, alpha, Ap, value=-1)
         y2 = apply_op(M, r2) if M is not None else r2
-        ry2 = _dot(r2, y2)
+        ry2 = vdot_real(r2, y2)
         p2 = torch.addcmul(y2, (ry2 / ry).to(dtype), p)
         resid2 = torch.sqrt(ry2)
         if check_curvature:

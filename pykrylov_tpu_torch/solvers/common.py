@@ -8,6 +8,8 @@ reltol * residNorm0)`` (``cg/cg.py:102``) with a matvec cap defaulting to
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -15,8 +17,9 @@ from ..ops.base import BaseLinearOperator, LinearOperator, MatrixOperator
 from ..utils.types import result_type, to_tensor
 
 __all__ = ["as_operator", "apply_op", "apply_op_T", "apply_op_H",
-           "promote_rhs", "threshold_of", "default_maxiter", "history_init",
-           "history_push", "require_square", "attach_true_residual"]
+           "vdot_real", "dotu", "fdiv", "finite", "real_dtype", "promote_rhs",
+           "threshold_of", "default_maxiter", "history_init", "history_push",
+           "history_from", "require_square", "attach_true_residual"]
 
 
 def as_operator(A) -> LinearOperator:
@@ -43,6 +46,42 @@ def apply_op_T(op, x):
 
 def apply_op_H(op, x):
     return op._hmv(x)
+
+
+def vdot_real(a, b):
+    """Real part of the conjugated dot ``a^H b`` (CG's and the Lanczos
+    solvers' inner products), a 0-d tensor on the vectors' device."""
+    return torch.vdot(a, b).real
+
+
+def dotu(a, b):
+    """Unconjugated vector dot, the reference's ``np.dot`` semantics
+    (``bicgstab.py:103``, ``cgs.py:83``): for complex operands this is
+    sum(a*b), not the inner product.  A 0-d tensor on the vectors' device.
+    """
+    return torch.dot(a, b)
+
+
+def fdiv(a, b):
+    """``a / b`` on host floats with IEEE semantics: inf or nan where ``b``
+    is zero, as the JAX package's device scalars divide (Python raises)."""
+    if b:
+        return a / b
+    if isinstance(a, complex) or isinstance(b, complex):
+        return complex(math.nan, math.nan)
+    if a == 0 or math.isnan(a):
+        return math.nan
+    return math.copysign(math.inf, a) * math.copysign(1.0, b)
+
+
+def finite(v):
+    """``math.isfinite`` for a host float or complex."""
+    return math.isfinite(abs(v))
+
+
+def real_dtype(dtype):
+    """The real dtype of ``dtype`` (itself when real)."""
+    return dtype.to_real() if dtype.is_complex else dtype
 
 
 def promote_rhs(b, *ops):
@@ -82,6 +121,17 @@ def history_push(hist, k, value):
     """Write row ``k`` on the device (no host synchronisation)."""
     if hist is not None:
         hist[k] = value
+    return hist
+
+
+def history_from(store, maxiter, values, dtype, device):
+    """A NaN-filled (maxiter+1,) buffer holding the host floats ``values``
+    in rows 0.. (rows past ``maxiter`` are dropped, as the JAX package's
+    out-of-range ``.at[k].set`` drops them); None when not storing."""
+    hist = history_init(store, maxiter, dtype, device)
+    if hist is not None and values:
+        keep = values[:maxiter + 1]
+        hist[:len(keep)] = torch.tensor(keep, dtype=dtype)
     return hist
 
 

@@ -42,11 +42,14 @@ DIA_MM_LAUNCHES = 0
 
 MAX_DIAGS = 64  # size of the kernel's by-value offsets argument
 
-# (storage dtype, compute dtype) -> C entry point
+# (storage dtype, compute dtype) -> C entry point; an f64 x or X with f32 or
+# bf16 storage computes in f64, as the plain versions' promotion does
 _ENTRY = {
     (torch.float32, torch.float32): "dia_spmv_f32",
     (torch.bfloat16, torch.float32): "dia_spmv_bf16",
     (torch.float64, torch.float64): "dia_spmv_f64",
+    (torch.float32, torch.float64): "dia_spmv_f32f64",
+    (torch.bfloat16, torch.float64): "dia_spmv_bf16f64",
 }
 _MM_ENTRY = {key: name.replace("spmv", "spmm")
              for key, name in _ENTRY.items()}
@@ -119,8 +122,9 @@ def _compute_dtype(data, x):
     pair they do not take."""
     ct = torch.promote_types(data.dtype, x.dtype)
     if (data.dtype, ct) not in _ENTRY:
-        raise TypeError("the DIA kernels take f32, bf16 or f64 data with "
-                        "an f32 or f64 product, not %s data with %s x"
+        raise TypeError("the DIA kernels take f32 or bf16 data with an f32 "
+                        "or f64 product and f64 data with an f64 product, "
+                        "not %s data with %s x"
                         % (data.dtype, x.dtype))
     return ct
 

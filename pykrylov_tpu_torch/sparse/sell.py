@@ -214,11 +214,14 @@ def sell_matmat_plain(card: SELL, X):
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
-# (value dtype, compute dtype) -> C entry point
+# (value dtype, compute dtype) -> C entry point; an f64 x or X with f32 or
+# bf16 values computes in f64, as the plain versions' promotion does
 _ENTRY = {
     (torch.float32, torch.float32): "sell_spmv_f32",
     (torch.bfloat16, torch.float32): "sell_spmv_bf16",
     (torch.float64, torch.float64): "sell_spmv_f64",
+    (torch.float32, torch.float64): "sell_spmv_f32f64",
+    (torch.bfloat16, torch.float64): "sell_spmv_bf16f64",
 }
 _MM_ENTRY = {key: name.replace("spmv", "spmm")
              for key, name in _ENTRY.items()}
@@ -274,8 +277,9 @@ def _launch(card, x):
     ct = torch.promote_types(card.vals.dtype, x.dtype)
     name = (_MM_ENTRY if block else _ENTRY).get((card.vals.dtype, ct))
     if name is None:
-        raise TypeError("the SELL kernels take f32, bf16 or f64 values with "
-                        "an f32 or f64 product, not %s values with %s x"
+        raise TypeError("the SELL kernels take f32 or bf16 values with an "
+                        "f32 or f64 product and f64 values with an f64 "
+                        "product, not %s values with %s x"
                         % (card.vals.dtype, x.dtype))
     x = x.to(ct).contiguous()           # the SpMM kernel reads X row-major
     arrays = (card.vals, card.cols, card.slice_ptr, card.row_len,

@@ -117,3 +117,54 @@ def test_kernel_writes_every_row_once(card, sigma):
     assert torch.equal(y, S.sell_matvec_plain(sell, x))
     assert torch.equal(y, S.sell_matvec(S.sell_from_levels((b,), m), x))
     assert bool((y[3::7] == 0).all()) and bool((y[0::7] != 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,idx_fmt", [(1, "packed"), (1, "int8"),
+                                            (2, "packed")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_pair_matches_plain(card, dtype, window, idx_fmt):
+    # f32 or bf16 values with an f64 x: the f32f64 and bf16f64 entries
+    # compute in f64, bit for bit the plain version (the widened values'
+    # f64 products)
+    b, sell = card_form(card, window, idx_fmt, dtype)
+    m, n = b.shape
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(n)).to(
+        card)
+    before = S.SELL_LAUNCHES
+    y = S.sell_matvec(sell, x)
+    torch.cuda.synchronize()
+    assert S.SELL_LAUNCHES == before + 1
+    assert y.shape == (m,) and y.dtype == torch.float64
+    assert torch.equal(y, S.sell_matvec_plain(sell, x))
+    assert torch.equal(y, S.sell_matvec_plain(
+        sell._replace(vals=sell.vals.double()), x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "minres"])
+def test_jacobi_preconditioned_f32_solve_on_bell(card, solver):
+    """An f32 BELL operator (1138bus tiled 8 times) with an f64 Jacobi
+    preconditioner: every product goes through the SELL kernel's f32f64
+    entry, one launch a matvec; this raised before the mixed entries."""
+    from pykrylov_tpu_torch import solvers
+    from pykrylov_tpu_torch.gallery import tiled_general_coo
+    from pykrylov_tpu_torch.sparse import (jacobi_preconditioner,
+                                           operator_from_coo)
+    vals, rows, cols, shape = tiled_general_coo("1138bus", tiles=8,
+                                                coupling=0)
+    A = operator_from_coo(vals, rows, cols, shape, symmetric=True,
+                          fmt="bell", device=card)
+    assert A.dtype == torch.float32
+    M = jacobi_preconditioner((vals.astype(np.float64), rows, cols, shape),
+                              floor=1.0, device=card)
+    b = A * torch.full((shape[0],), 8 ** -0.5, device=card)
+    before = S.SELL_LAUNCHES
+    res = getattr(solvers, solver)(A, b, M=M, rtol=1e-6)
+    torch.cuda.synchronize()
+    assert bool(res.converged) and res.x.dtype == torch.float64
+    assert S.SELL_LAUNCHES - before == int(res.n_matvec)
+    if solver == "minres":
+        # the single matrix's count (BASELINE config #2), b scaled by
+        # 1/sqrt(tiles) so MINRES's beta1 is the single matrix's
+        assert abs(int(res.n_iter) - 412) <= 1

@@ -155,3 +155,37 @@ def test_tile_walk_emulation_equals_plain(monkeypatch, case):
     plan = K.dia_mm_plan(offsets, k, 8, True)
     assert plan.kc == (k if kc is None else kc)
     assert torch.equal(emulate(data, offsets, X, plan), ref)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,v", [(8, 2), (64, 2), (3, 1), (1, 1)])
+def test_mixed_pair_plans_on_the_f64_block(storage, k, v):
+    # f32 or bf16 data with an f64 block computes in f64: V is 16 bytes of
+    # f64 columns (2) beside 4- or 2-byte diagonal loads, 1 for odd K; the
+    # panel width follows the f64 block's 8-byte items
+    m = 1000
+    data = torch.ones((3, m), dtype=storage)
+    X = torch.zeros((m, k), dtype=torch.float64)
+    assert X.data_ptr() % 16 == 0
+    plan = K.dia_matmat_plan(data, (-1, 0, 1), X)
+    assert plan == K.dia_mm_plan((-1, 0, 1), k, 8, True)
+    assert (plan.v, plan.rows, plan.kc) == (v, K.MM_ROWS, k)
+    # Poisson n=240 at K=64 in f64: 2 n^2 Kc 8 B fits 16 MB at Kc = 16
+    assert K.dia_matmat_plan(torch.ones((7, 8), dtype=storage), POISSON240,
+                             torch.zeros((8, 64), dtype=torch.float64)).kc \
+        == 16
+
+
+def test_mixed_pair_tile_walk_equals_plain():
+    # the V = 2 tile walk on f32 data and an f64 block, against the plain
+    # product of the widened data, bit for bit
+    offsets = (-144, -12, -1, 0, 1, 12, 144)
+    rng = np.random.default_rng(12)
+    data = torch.from_numpy(rng.standard_normal((7, 1728)).astype(np.float32))
+    X = torch.from_numpy(rng.standard_normal((1728, 8)))
+    plan = K.dia_matmat_plan(data, offsets, X)
+    assert plan.v == 2
+    ref = K.dia_matmat_plain(data, offsets, X)
+    assert ref.dtype == torch.float64
+    assert torch.equal(emulate(data, offsets, X, plan), ref)
+    assert torch.equal(ref, K.dia_matmat_plain(data.double(), offsets, X))

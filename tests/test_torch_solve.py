@@ -1,6 +1,8 @@
 """The slice end to end: ``solve(operator_from_coo(...), b)`` in the port
 against the JAX package, the automatic format policy, and the branches
-that are not ported yet.
+that are not ported yet; the CG→MINRES and BiCGSTAB→TFQMR fallbacks, as
+``tests/test_solve_frontdoor.py`` holds the JAX package's, and ``method=``
+routing to each ported solver against the JAX package's ``solve``.
 
 At ``poisson3d_coo(16)`` both packages pick DIA on the CPU and run CG in
 float64 with the same stored matrix; only summation order differs, so the
@@ -15,6 +17,7 @@ import jax.numpy as jnp
 
 import pykrylov_tpu
 from pykrylov_tpu.gallery import poisson3d_coo
+from pykrylov_tpu.ops import MatrixOperator as JMatrix
 from pykrylov_tpu.sparse import operator_from_coo as jax_operator_from_coo
 
 import pykrylov_tpu_torch as pt
@@ -94,16 +97,9 @@ def test_auto_on_cpu_keeps_plain_dia_for_large_stencils():
     assert A.fmt == "dia" and A.device.type == "cpu"
 
 
-def _indefinite():
-    return DiagonalOperator(torch.tensor([2.0, -1.0, 3.0],
-                                         dtype=torch.float64), device=DEV)
-
-
 @pytest.mark.parametrize("case,item", [
-    ("block_rhs", 14), ("verified", 15), ("minres", 11), ("symmlq", 11),
-    ("bicgstab", 10), ("tfqmr", 10), ("lsqr", 12), ("craigmr", 12),
-    ("cg_pipelined", 16), ("rectangular", 12), ("unsymmetric", 10),
-    ("indefinite_fallback", 11), ("replace_every", 15),
+    ("block_rhs", 14), ("verified", 15), ("lsqr", 12), ("craigmr", 12),
+    ("cg_pipelined", 16), ("rectangular", 12), ("replace_every", 15),
 ])
 def test_not_ported_branches_name_their_roadmap_item(case, item):
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
@@ -119,10 +115,6 @@ def test_not_ported_branches_name_their_roadmap_item(case, item):
         "rectangular": lambda: pt.solve(
             MatrixOperator(torch.ones(4, 3, dtype=torch.float64),
                            device=DEV), b),
-        "unsymmetric": lambda: pt.solve(
-            MatrixOperator(torch.eye(3, dtype=torch.float64),
-                           device=DEV), b),
-        "indefinite_fallback": lambda: pt.solve(_indefinite(), b),
         "replace_every": lambda: cg(spd, b, replace_every=50),
     }
     call = calls.get(case, lambda: pt.solve(spd, b, method=case))
@@ -151,3 +143,155 @@ def test_unknown_method():
         pt.solve(MatrixOperator(torch.eye(2, dtype=torch.float64),
                                 device=DEV),
                  torch.ones(2, dtype=torch.float64), method="gmres")
+
+
+def _indefinite_system(n=24, seed=3):
+    """``tests/test_solve_frontdoor.py:17``'s system: a strongly indefinite
+    spectrum, so CG's curvature check trips early."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    eigs = np.linspace(-5.0, 5.0, n)
+    eigs[np.abs(eigs) < 0.4] = 0.5
+    A = (Q * eigs) @ Q.T
+    A = 0.5 * (A + A.T)
+    x_true = rng.standard_normal(n)
+    return A, x_true, A @ x_true
+
+
+def _sym_op(A):
+    return MatrixOperator(torch.from_numpy(A), symmetric=True, device=DEV)
+
+
+def test_minres_fallback_triggers_and_solves():
+    A, x_true, b = _indefinite_system()
+    cgr = cg(_sym_op(A), torch.from_numpy(b), rtol=1e-10,
+             check_curvature=True)
+    assert int(cgr.istop) == 2
+    res = pt.solve(_sym_op(A), torch.from_numpy(b), rtol=1e-10)
+    jres = pykrylov_tpu.solve(JMatrix(jnp.asarray(A), symmetric=True),
+                              jnp.asarray(b), rtol=1e-10)
+    assert bool(res.converged) and "Acond" in res.info    # MINRES's result
+    np.testing.assert_allclose(res.x.numpy(), x_true, rtol=1e-6)
+    assert int(res.istop) == int(jres.istop)
+    assert int(res.n_iter) == int(jres.n_iter)
+    assert int(res.n_matvec) == int(jres.n_matvec)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x),
+                               rtol=1e-9)
+
+
+def test_minres_fallback_honors_x0():
+    A, x_true, b = _indefinite_system()
+    # a guess close to the solution: with atol met at x0, the fallback
+    # stops at once; a dropped x0 would restart from zero
+    x0 = x_true + 1e-9
+    res = pt.solve(_sym_op(A), torch.from_numpy(b), x0=torch.from_numpy(x0),
+                   rtol=1e-14, atol=1e-6)
+    assert int(res.n_iter) <= 2
+    np.testing.assert_allclose(res.x.numpy(), x_true, rtol=1e-6)
+    # a far guess: CG trips, MINRES solves the residual system and adds x0
+    # back, one more counted matvec
+    x0 = np.full_like(x_true, 3.0)
+    res = pt.solve(_sym_op(A), torch.from_numpy(b), x0=torch.from_numpy(x0),
+                   rtol=1e-10)
+    jres = pykrylov_tpu.solve(JMatrix(jnp.asarray(A), symmetric=True),
+                              jnp.asarray(b), x0=jnp.asarray(x0),
+                              rtol=1e-10)
+    assert bool(res.converged)
+    assert int(res.n_matvec) == int(res.n_iter) + 1
+    assert int(res.n_matvec) == int(jres.n_matvec)
+    np.testing.assert_allclose(res.x.numpy(), x_true, rtol=1e-5, atol=1e-7)
+
+
+def test_minres_fallback_honors_atol():
+    A, _, b = _indefinite_system()
+    loose = pt.solve(_sym_op(A), torch.from_numpy(b), rtol=1e-14,
+                     atol=1e-2 * float(np.linalg.norm(b)))
+    tight = pt.solve(_sym_op(A), torch.from_numpy(b), rtol=1e-14, atol=0.0)
+    assert int(loose.n_iter) < int(tight.n_iter)
+
+
+@pytest.mark.parametrize("cap", [{"matvec_max": 5}, {"maxiter": 4}])
+def test_minres_fallback_respects_the_cap(cap):
+    A, _, b = _indefinite_system()
+    res = pt.solve(_sym_op(A), torch.from_numpy(b), rtol=1e-14, atol=0.0,
+                   **cap)
+    assert int(res.n_iter) <= list(cap.values())[0]
+    assert int(res.istop) == 6                 # MINRES's iteration limit
+
+
+def test_bicgstab_breakdown_falls_back_to_tfqmr_with_every_option():
+    """A quarter-turn rotation with b = e_1 breaks BiCGSTAB down at once
+    (``r0' A r0 = 0``, istop 3); ``solve`` reruns TFQMR with the same
+    options, so the result is TFQMR's, x0, M, rtol, atol, matvec_max,
+    store_history and verify_final included."""
+    n = 12
+    R = np.eye(n)
+    R[:2, :2] = [[0.0, -1.0], [1.0, 0.0]]
+    b = np.zeros(n)
+    b[0] = 1.0
+    op = MatrixOperator(torch.from_numpy(R), device=DEV)
+    M = DiagonalOperator(torch.full((n,), 2.0, dtype=torch.float64),
+                         device=DEV)
+    opts = dict(x0=torch.zeros(n, dtype=torch.float64), M=M, rtol=1e-9,
+                atol=1e-12, matvec_max=4 * n, store_history=True,
+                verify_final=True)
+    first = pt.bicgstab(op, torch.from_numpy(b), **opts)
+    assert int(first.istop) == 3
+    res = pt.solve(op, torch.from_numpy(b), **opts)
+    alone = pt.tfqmr(op, torch.from_numpy(b), **opts)
+    assert "quasi_residual" in res.info and "true_resid_norm" in res.info
+    assert int(res.n_matvec) == int(alone.n_matvec)
+    assert torch.equal(res.x, alone.x)
+    assert res.resid_history.shape == alone.resid_history.shape
+    jres = pykrylov_tpu.solve(JMatrix(jnp.asarray(R)), jnp.asarray(b),
+                              rtol=1e-9, atol=1e-12, matvec_max=4 * n)
+    tres = pt.solve(op, torch.from_numpy(b), rtol=1e-9, atol=1e-12,
+                    matvec_max=4 * n)
+    # TFQMR's shadow product r0' A r0 vanishes too: both packages end in
+    # its breakdown with a finite x
+    assert int(tres.istop) == int(jres.istop) == 3
+    assert int(tres.n_matvec) == int(jres.n_matvec)
+    assert torch.isfinite(tres.x).all()
+
+
+def test_unsymmetric_routes_to_bicgstab():
+    from pykrylov_tpu.gallery import convdiff2d_coo
+    coo = convdiff2d_coo(12, wx=30.0, wy=15.0)
+    A = operator_from_coo(*coo, device=DEV)
+    jA = jax_operator_from_coo(*coo)
+    b = np.random.default_rng(2).standard_normal(A.shape[0])
+    res = pt.solve(A, torch.from_numpy(b), rtol=1e-10)
+    alone = pt.bicgstab(A, torch.from_numpy(b), rtol=1e-10)
+    jres = pykrylov_tpu.solve(jA, jnp.asarray(b), rtol=1e-10)
+    assert int(res.istop) == 0 and torch.equal(res.x, alone.x)
+    assert int(res.n_matvec) == int(jres.n_matvec)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("method", ["cg", "minres", "symmlq", "bicgstab",
+                                    "cgs", "tfqmr"])
+def test_method_routes_to_each_solver(method):
+    spd = method in ("cg",)
+    if spd:
+        vals, rows, cols, shape = poisson3d_coo(6)
+        A = operator_from_coo(vals, rows, cols, shape, symmetric=True,
+                              device=DEV)
+        jA = jax_operator_from_coo(vals, rows, cols, shape, symmetric=True)
+        b = np.random.default_rng(1).standard_normal(shape[0])
+    elif method in ("minres", "symmlq"):
+        Ad, _, b = _indefinite_system()
+        A, jA = _sym_op(Ad), JMatrix(jnp.asarray(Ad), symmetric=True)
+    else:
+        from pykrylov_tpu.gallery import convdiff2d_coo
+        coo = convdiff2d_coo(10, wx=30.0, wy=15.0)
+        A, jA = operator_from_coo(*coo, device=DEV), \
+            jax_operator_from_coo(*coo)
+        b = np.random.default_rng(1).standard_normal(A.shape[0])
+    res = pt.solve(A, torch.from_numpy(b), method=method, rtol=1e-8)
+    jres = pykrylov_tpu.solve(jA, jnp.asarray(b), method=method, rtol=1e-8)
+    assert int(res.istop) == int(jres.istop)
+    assert int(res.n_iter) == int(jres.n_iter)
+    assert int(res.n_matvec) == int(jres.n_matvec)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x),
+                               rtol=1e-8, atol=1e-12)

@@ -255,3 +255,82 @@ def test_cg_batched_runs_every_block_product_through_the_kernel(card):
     assert K.DIA_MM_LAUNCHES == int(res.n_matvec) > 0
     assert bool(res.converged.all())
     assert relerr(res.x, X) <= 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_pairs_dia(card, dtype, ncols):
+    """f32 or bf16 diagonals with an f64 vector or block: the f32f64 and
+    bf16f64 entries compute in f64 and equal the plain versions (the
+    widened data's f64 products) bit for bit; each block column equals the
+    mixed SpMV on it."""
+    rng = np.random.default_rng(100 + ncols)
+    m = 20011
+    offsets = (-9000, -130, -1, 0, 3, 129)
+    data = torch.from_numpy(rng.standard_normal((len(offsets), m))).to(
+        card, dtype)
+    X = torch.from_numpy(rng.standard_normal((m, ncols))).to(card)
+    Y = hold_dia_spmm(data, offsets, X)
+    assert Y.dtype == torch.float64
+    assert torch.equal(Y, K.dia_matmat_plain(data.double(), offsets, X))
+    before = K.DIA_LAUNCHES
+    y = K.dia_matvec(data, offsets, X[:, 0].contiguous())
+    torch.cuda.synchronize()
+    assert K.DIA_LAUNCHES == before + 1 and y.dtype == torch.float64
+    assert torch.equal(y, K.dia_matvec_plain(data, offsets,
+                                             X[:, 0].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols", [1, 3, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_pairs_sell(card, dtype, ncols):
+    b, sell = card_form(card, 1, "packed", dtype)
+    m, n = b.shape
+    X = torch.from_numpy(np.random.default_rng(200 + ncols).standard_normal(
+        (n, ncols))).to(card)
+    before = (S.SELL_LAUNCHES, S.SELL_MM_LAUNCHES)
+    Y = S.sell_matmat(sell, X)
+    y = S.sell_matvec(sell, X[:, 0].contiguous())
+    torch.cuda.synchronize()
+    assert (S.SELL_LAUNCHES, S.SELL_MM_LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert Y.dtype == y.dtype == torch.float64
+    assert torch.equal(Y, S.sell_matmat_plain(sell, X))
+    assert torch.equal(y, S.sell_matvec_plain(sell, X[:, 0].contiguous()))
+    for k in range(ncols):
+        assert torch.equal(Y[:, k], S.sell_matvec(sell, X[:, k].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "minres"])
+def test_jacobi_preconditioned_f32_solve_on_cuda_dia(card, solver):
+    """The solve that raised before the mixed entries: an f32 ``cuda-dia``
+    operator with an f64 Jacobi preconditioner, so b and every product
+    are f64 (f32 data times f64 vectors)."""
+    from pykrylov_tpu_torch import solvers
+    from pykrylov_tpu_torch.sparse import (cuda_dia_sparse_operator,
+                                           jacobi_preconditioner)
+    vals, rows, cols, shape = poisson3d_coo(24)
+    rng = np.random.default_rng(9)
+    d = rng.uniform(1.0, 3.0, shape[0])
+    vals = (vals * d[rows] * d[cols]).astype(np.float32)
+    A = cuda_dia_sparse_operator(
+        F.coo_from_arrays(vals, rows, cols, shape, device=None),
+        symmetric=True, device=card)
+    assert A.dtype == torch.float32
+    M = jacobi_preconditioner((vals.astype(np.float64), rows, cols, shape),
+                              device=card)
+    assert M.dtype == torch.float64
+    b = torch.from_numpy(rng.standard_normal(shape[0])).to(card,
+                                                           torch.float32)
+    before = K.DIA_LAUNCHES
+    res = getattr(solvers, solver)(A, b, M=M, rtol=1e-8)
+    torch.cuda.synchronize()
+    assert bool(res.converged) and res.x.dtype == torch.float64
+    assert K.DIA_LAUNCHES - before == int(res.n_matvec)
+    dense = np.zeros(shape)
+    np.add.at(dense, (rows, cols), vals.astype(np.float64))
+    r = dense @ res.x.cpu().numpy() - b.double().cpu().numpy()
+    assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(b.cpu().numpy())
