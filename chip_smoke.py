@@ -22,7 +22,12 @@ and, with one right-hand side, the indefinite and nonsymmetric paths:
 the CG→MINRES fallback and SYMMLQ on a Helmholtz-shifted Poisson matrix
 at n = 240 (DIA), MINRES's Jacobi golden on tiled 1138bus (SELL),
 BiCGSTAB, CGS and TFQMR on a 4.2M-row convection-diffusion matrix (DIA),
-and the reference's bmark on jpwh_991 tiled 1024 times (SELL, f64).
+and the reference's bmark on jpwh_991 tiled 1024 times (SELL, f64); and
+the least-squares path, whose solvers apply A and A^T: LSMR (``solve``'s
+rectangular branch) and LSQR on a 2.67M x 1.17M power-system
+state-estimation matrix (SELL in both directions), and LSQR, LSMR, CRAIG
+and CRAIG-MR on the convection-diffusion matrix (DIA in both
+directions).
 
 Phases, in order:
 
@@ -88,6 +93,25 @@ Phases, in order:
      2 * 991: CGS, TFQMR and BiCGSTAB within 4 of 82, 84 and 84 matvecs
      (70, 70 and 64 with Jacobi floor=1), one SELL launch a matvec (CGS
      and TFQMR launch one more, for the guess they do not count);
+  10. the rectangular path: :func:`se_coo`, the DC state-estimation
+     measurement matrix of 1024 areas of the 1138bus grid (2,670,592 x
+     1,165,312, 7,149,568 nonzeros, f32): ``fmt="auto"`` must give SELL
+     card forms of A and of A^T (no ELL transpose, split or permutation),
+     each kernel bit for bit its plain version (f32 and f64 x); b = A
+     x_true + 1% noise in f64; ``solve`` (LSMR) and ``lsqr`` at atol =
+     btol = 1e-6, etol = 0, each istop 1 or 2, SELL launches = matvecs + 1
+     (the uncounted A'u of the start), ``||A'r|| / (||A||_F ||r||)`` in
+     f64 through the plain products at most 1e-5, the first 1000
+     iterations of each profiled; LSQR capped at 200 iterations through
+     the kernels and through the plain products on the same card forms:
+     istop 7 both, x bit for bit; each direction's SpMV timed (f32 and
+     f64 x, plain, torch CSR) against its bound;
+  10b. the square unsymmetric path on phase 9's operator (DIA, A^T through
+     ``dia_transpose``): LSQR and LSMR with damp 0.1, CRAIG and CRAIG-MR,
+     each within 5% of the JAX package's count, DIA launches = matvecs + 1,
+     the damped optimality certificate at most 1e-5 and CRAIG's and
+     CRAIG-MR's SQD certificates at most 1e-8 in f64, one profiled run
+     each; both directions' SpMV timed;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -109,14 +133,16 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-9b,
+     (each with its launches in every run of phases 8-10b,
      ``launches_by_phase``; the SpMV kernels with their mixed-pair times
-     and bounds; the DIA SpMM's with its host plan, V columns a thread, T
+     and bounds and both directions of the least-squares path,
+     ``lls_directions``; the SpMM kernels with their mixed-pair times at
+     K = 8; the DIA SpMM's with its host plan, V columns a thread, T
      rows a tile, Kc columns a panel, at each K, and each template
      instance's registers and spill bytes), then the result line
      ``{"ok": true, "device": {...}}``.
 
-Phases 8-9b run after 5b and before 6; each resets every launch count
+Phases 8-10b run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -439,6 +465,39 @@ def gen_permuted_blockdiag(n=CLASS_ROWS, blk=192, seed=2):
 CLASSES = {"power_law": gen_power_law,
            "stencil_scatter": gen_stencil_scatter,
            "permuted_blockdiag": gen_permuted_blockdiag}
+
+
+SE_TILES = 1024     # areas of the state-estimation matrix (phase 10)
+SE_PMU_EVERY = 100  # an angle (PMU) measurement at every 100th bus
+
+
+def se_coo(tiles=SE_TILES, dtype=np.float32):
+    """COO triples of the DC power-system state-estimation measurement
+    matrix (Abur & Exposito, *Power System State Estimation*, 2004, ch.
+    2-3) on ``tiles`` areas of the 1138bus grid.  Each area contributes,
+    in this order: one injection row per bus (the bus's row of 1138bus),
+    one flow row per branch, ``b_ij (theta_i - theta_j)`` with
+    ``b_ij = -a_ij`` over the 1458 off-diagonal pairs i < j, and one angle
+    row at every ``SE_PMU_EVERY``-th bus: 2608 rows by 1138 columns and
+    6982 nonzeros an area.  The areas are stacked block-diagonally with
+    their rows grouped, so every row of A^T stays inside its area."""
+    from pykrylov_tpu_torch.io.datasets import load_bundled
+
+    vals, rows, cols, (n, _) = load_bundled("1138bus")
+    rows, cols = rows.astype(np.int64), cols.astype(np.int64)
+    up = rows < cols
+    order = np.lexsort((cols[up], rows[up]))
+    bi, bj, bv = rows[up][order], cols[up][order], -vals[up][order]
+    nb = len(bi)
+    pmu = np.arange(0, n, SE_PMU_EVERY, dtype=np.int64)
+    m = n + nb + len(pmu)
+    flow = n + np.arange(nb, dtype=np.int64)
+    r = np.concatenate([rows, flow, flow, n + nb + np.arange(len(pmu))])
+    c = np.concatenate([cols, bi, bj, pmu])
+    v = np.concatenate([vals, bv, -bv, np.ones(len(pmu))])
+    area = np.arange(tiles, dtype=np.int64)[:, None]
+    return (np.tile(v, tiles).astype(dtype), (r + area * m).reshape(-1),
+            (c + area * n).reshape(-1), (tiles * m, tiles * n))
 
 
 def _banded(m, nnz_per_row, bw, seed, dtype):
@@ -1406,7 +1465,8 @@ def phase_nonsym(pt):
     storage on the DIA kernel, b = A x_true in f64 (the f32 recurrences
     stall above rtol 1e-6 on this system; the f32 BiCGSTAB below shows
     it): ``solve`` routes to BiCGSTAB; then CGS, TFQMR, and BiCGSTAB with
-    an f64 Jacobi preconditioner."""
+    an f64 Jacobi preconditioner.  Returns the phase's numbers, the
+    operator and its triples (phase 10b solves with them)."""
     from pykrylov_tpu_torch.gallery import convdiff2d_coo
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import (jacobi_preconditioner,
@@ -1471,8 +1531,7 @@ def phase_nonsym(pt):
         "relative residual (f64) %.3e" % (tag, out["f32"]["istop"],
                                           out["f32"]["n_matvec"],
                                           out["f32"]["true_rel"]))
-    del A, data, coo
-    return out
+    return out, A, coo
 
 
 def phase_bmark(pt):
@@ -1525,6 +1584,318 @@ def phase_bmark(pt):
                 "n_matvec": int(res.n_matvec), "ref": ref, "solve_s": secs,
                 "launches": counts}
     del A, coo
+    return out
+
+
+# --------------------------------------------------------------------------
+# 10. least squares: the SELL and DIA kernels in both directions
+# --------------------------------------------------------------------------
+
+LLS_TOL = 1e-6      # atol and btol of the least-squares solves (10, 10b)
+CERT_BOUND = 1e-5   # bound on the f64 optimality certificates
+SQD_BOUND = 1e-8    # bound on CRAIG's and CRAIG-MR's f64 certificates
+LLS_PLAIN_ITERS = 200   # LSQR over the plain products against the kernels
+# iterations of phase 10's profiled solves: the first LLS_PROFILE_ITERS
+# of each, against the same share of its unprofiled wall (the profiler's
+# cost grows with the events it keeps, ~25 kernels an iteration)
+LLS_PROFILE_ITERS = 1000
+# phase 10b's counts: the JAX package's LSQR, LSMR (damp 0.1), CRAIG and
+# CRAIG-MR on this matrix in f64 (n = 128 and 256; size-independent)
+LLS_COUNTS = {"lsqr": 367, "lsmr": 190, "craig": 129, "craigmr": 120}
+LLS_COUNT_RTOL = 0.05
+
+
+def _initial_launch(res):
+    """The launches a least-squares solve makes besides its counted
+    matvecs: ``gk_init``'s transpose product A'u, which ``n_matvec = 2
+    n_iter`` leaves out (``solvers/lls_common.py``), as the reference
+    does."""
+    return 1
+
+
+def _lls_solve(pt, tag, label, fn, kernel, out, check, codes=None):
+    """One counted least-squares solve, ``check(res)`` giving its
+    certificates (name -> (value, bound)); every certificate within its
+    bound and the stop code in ``codes`` (where given), or the phase
+    fails.  Records the run in ``out[label]``."""
+    res, secs, counts = _counted_solve(tag, label, fn, kernel,
+                                       expect=_initial_launch)
+    certs = check(res)
+    n_iter = int(res.n_iter)
+    log("[%s] %s: %d iterations, istop %d, %.3f s, %.4f ms per iteration; "
+        "%s" % (tag, label, n_iter, int(res.istop), secs,
+                1e3 * secs / max(n_iter, 1),
+                ", ".join("%s %.3e (bound %.0e)" % (k, v, bnd)
+                          for k, (v, bnd) in certs.items())))
+    bad = {k: v for k, (v, bnd) in certs.items() if not v <= bnd}
+    if (bad or res.x.dtype != torch.float64
+            or (codes is not None and int(res.istop) not in codes)):
+        raise AssertionError("%s %s: %r, certificates %s" % (tag, label, res,
+                                                             certs))
+    out[label] = {"n_iter": n_iter, "istop": int(res.istop),
+                  "n_matvec": int(res.n_matvec), "solve_s": secs,
+                  "ms_per_iter": 1e3 * secs / max(n_iter, 1),
+                  "launches": counts,
+                  "certificates": {k: v for k, (v, _) in certs.items()}}
+    return res
+
+
+def _direction_timing(tag, directions, rates):
+    """Device ms of one SpMV kernel in each direction the least-squares
+    path runs: ``directions`` maps a label ("A", "A^T") to (kernel, plain,
+    torch CSR tensor, coo-free sizes (rows out, columns in, nnz), matrix
+    bytes as the kernel stores it).  Each direction is timed with f32 x
+    (kernel and torch CSR, whose matvec is the library's call) and with
+    f64 x (the f32f64 entry the solves run, and its plain version: no
+    library call multiplies f32 values by an f64 x), against its bounds:
+    the smaller of the kernel's and CSR's matrix bytes plus x and y, at
+    the published memory rate, or 2 nnz operations at the f32 (f64) rate
+    if longer."""
+    out = {}
+    g = torch.Generator(device=DEVICE).manual_seed(4000)
+    for label, (kern, plain, csr, (rows, cols, nnz), own) in \
+            directions.items():
+        x = torch.randn(cols, device=DEVICE, generator=g)
+        x64 = x.double()
+        variants = [("kernel f32", lambda: kern(x)),
+                    ("kernel f32/f64", lambda: kern(x64)),
+                    ("plain f32/f64", lambda: plain(x64)),
+                    ("torch CSR f32", lambda: csr @ x)]
+        best = _best_ms(variants, 50, host_waits=("plain f32/f64",))
+        csr_matrix = nnz * 8 + (rows + 1) * 4
+        b32 = _bound(min(own, csr_matrix) + 4 * (rows + cols), 2 * nnz,
+                     rates)
+        b64 = _bound(min(own, csr_matrix) + 8 * (rows + cols), 2 * nnz,
+                     rates, "f64")
+        log("[%s] %-4s SpMV: kernel %.4f ms (f32 x), %.4f (f64 x); plain "
+            "%.4f (f64 x); torch CSR %.4f (f32); bound %.4f ms (%s) f32, "
+            "%.4f (%s) f64 x: kernel at %.1f%% and %.1f%% of them"
+            % (tag, label, best["kernel f32"], best["kernel f32/f64"],
+               best["plain f32/f64"], best["torch CSR f32"], b32["bound_ms"],
+               b32["bound_by"], b64["bound_ms"], b64["bound_by"],
+               100 * b32["bound_ms"] / best["kernel f32"],
+               100 * b64["bound_ms"] / best["kernel f32/f64"]))
+        out[label] = {"ms": best["kernel f32"],
+                      "mixed_ms": best["kernel f32/f64"],
+                      "mixed_plain_ms": best["plain f32/f64"],
+                      "library_ms": best["torch CSR f32"],
+                      "bound_ms": b32["bound_ms"],
+                      "bound_by": b32["bound_by"],
+                      "mixed_bound_ms": b64["bound_ms"],
+                      "mixed_bound_by": b64["bound_by"]}
+        del x, x64, variants
+    return out
+
+
+def phase_lls_sell(pt, rates):
+    """10: the DC state-estimation matrix (:func:`se_coo`, SE_TILES areas,
+    f32 storage), rectangular and of general sparsity: ``fmt="auto"`` must
+    give a ``BellOperator`` with SELL card forms of A and of A^T (no ELL
+    transpose, no row split, no permutation); both kernels bit for bit
+    their plain versions on one x, f32 and f64; ``solve`` (LSMR) and
+    ``lsqr`` at atol = btol = LLS_TOL with etol = 0 on b = A x_true + 1%
+    noise in f64, each istop 1 or 2 with SELL launches = matvecs + 1 and
+    the optimality certificate ``||A'r|| / (||A||_F ||r||)`` in f64
+    through the plain products at most CERT_BOUND; a profiled run of the
+    first LLS_PROFILE_ITERS iterations of each;
+    then LSQR capped at LLS_PLAIN_ITERS over an operator whose products are
+    the plain versions on the same card forms, which must give the kernel
+    run's istop 7 and its x bit for bit."""
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "10 least squares, SELL"
+    t0 = time.perf_counter()
+    coo = se_coo(SE_TILES)
+    A = operator_from_coo(*coo, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m, n = A.shape
+    log("[%s] A = state estimation on 1138bus, %d areas: %d x %d, %d "
+        "nonzeros, f32; fmt=%s, built in %.1f s"
+        % (tag, SE_TILES, m, n, len(coo[0]), A.fmt, build_s))
+    if (not isinstance(A, B.BellOperator) or A.cards is None
+            or set(A.cards) != {"fwd", "bwd"}
+            or A._args["bwd_ell"] is not None or A.split_rows
+            or A.solve_permutation is not None):
+        raise AssertionError("%s: fmt='auto' gave %r, not SELL card forms "
+                             "of A and A^T" % (tag, A))
+    fwd, bwd = A.cards["fwd"], A.cards["bwd"]
+    log("[%s] card forms: A %d bytes, A^T %d bytes" % (
+        tag, S.sell_bytes(fwd), S.sell_bytes(bwd)))
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    for name, card, width in (("A", fwd, n), ("A^T", bwd, m)):
+        x = torch.randn(width, device=DEVICE, generator=g)
+        for xx in (x, x.double()):
+            _exact("%s x, %s x" % (name, str(xx.dtype)[6:]),
+                   S.sell_matvec(card, xx), S.sell_matvec_plain(card, xx),
+                   tag=tag)
+
+    rng = np.random.default_rng(0)
+    x_true = torch.from_numpy(rng.standard_normal(n)).to(DEVICE)
+    ax = S.sell_matvec_plain(fwd, x_true)
+    b = ax + 0.01 * ax.abs().mean() * torch.from_numpy(
+        rng.standard_normal(m)).to(DEVICE)
+    fro = float(np.sqrt((coo[0].astype(np.float64) ** 2).sum()))
+
+    def certificate(res):
+        r = b - S.sell_matvec_plain(fwd, res.x)
+        return {"||A'r||/(||A||_F ||r||)": (
+            (torch.linalg.vector_norm(S.sell_matvec_plain(bwd, r))
+             / (fro * torch.linalg.vector_norm(r))).item(), CERT_BOUND)}
+
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0}
+    runs = (("solve (LSMR)", {}), ("lsqr", {"method": "lsqr"}))
+    for _, extra in runs:                               # warm-ups
+        pt.solve(A, b, itnlim=20, **opts, **extra)
+    out = {"build_s": build_s, "shape": [m, n],
+           "card_bytes": [S.sell_bytes(fwd), S.sell_bytes(bwd)]}
+    for label, extra in runs:
+        _lls_solve(pt, tag, label,
+                   lambda: pt.solve(A, b, **opts, **extra), "sell_spmv",
+                   out, certificate, codes=(1, 2))
+        n_iter = out[label]["n_iter"]
+        cap = min(LLS_PROFILE_ITERS, n_iter)
+        out[label]["profile"] = _profile_solve(
+            pt, "%s, %s" % (tag, label), A, b,
+            out[label]["solve_s"] * cap / n_iter, itnlim=cap, **opts,
+            **extra)
+
+    # the same LSQR over the plain products on the same card forms
+    plain = pt.LinearOperator(n, m,
+                              matvec=lambda x: S.sell_matvec_plain(fwd, x),
+                              matvec_transp=lambda x: S.sell_matvec_plain(
+                                  bwd, x),
+                              dtype=A.dtype, device=A.device)
+    capped = dict(opts, itnlim=LLS_PLAIN_ITERS)
+    label = "lsqr, itnlim=%d" % LLS_PLAIN_ITERS
+    kern, _, counts = _counted_solve(tag, label,
+                                     lambda: pt.lsqr(A, b, **capped),
+                                     "sell_spmv", expect=_initial_launch)
+    out[label] = {"launches": counts}
+    _reset_counts()
+    ref = pt.lsqr(plain, b, **capped)
+    torch.cuda.synchronize()
+    if any(_counts().values()):
+        raise AssertionError("%s: the plain products launched %s"
+                             % (tag, _counts()))
+    same = torch.equal(kern.x, ref.x)
+    log("[%s] lsqr over the plain products, itnlim=%d: istop %d and %d, x "
+        "bit for bit the kernels' run: %s" % (tag, LLS_PLAIN_ITERS,
+                                             int(kern.istop),
+                                             int(ref.istop), same))
+    if not (int(kern.istop) == int(ref.istop) == 7 and same):
+        raise AssertionError("%s: the kernels' LSQR differs from the plain "
+                             "products' (%r, %r)" % (tag, kern, ref))
+    vals, rows, cols, _ = coo
+    out["timing"] = _direction_timing(tag, {
+        "A": (lambda x: S.sell_matvec(fwd, x),
+              lambda x: S.sell_matvec_plain(fwd, x),
+              _torch_csr((vals, rows, cols, (m, n)), DEVICE),
+              (m, n, len(vals)), S.sell_bytes(fwd)),
+        "A^T": (lambda x: S.sell_matvec(bwd, x),
+                lambda x: S.sell_matvec_plain(bwd, x),
+                _torch_csr((vals, cols, rows, (n, m)), DEVICE),
+                (n, m, len(vals)), S.sell_bytes(bwd))}, rates)
+    del coo, vals, rows, cols, A, plain, b
+    return out
+
+
+def phase_lls_dia(pt, A, coo, rates):
+    """10b: phase 9's convection-diffusion operator (``cuda-dia``, f32
+    storage; its transpose is the DIA kernel on ``dia_transpose``), b = A
+    x_true in f64: LSQR and LSMR with damp = 0.1 at atol = btol = LLS_TOL,
+    CRAIG at btol 1e-8 and etol 1e-10, CRAIG-MR at etol 1e-10.  Each
+    within LLS_COUNT_RTOL of the JAX package's count (LLS_COUNTS), with DIA
+    launches = matvecs + 1 and its certificates in f64 through the plain
+    products: damped LSQR and LSMR ``||A'r - damp^2 x|| / (||A||_F
+    ||[r; damp x]||)`` at most CERT_BOUND; CRAIG ``||b - Ax - r||/||b||``
+    and ``||A'r - x||/||x||``, CRAIG-MR ``||(AA' + I) y - b||/||b||``, at
+    most SQD_BOUND.  A profiled run of each."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    tag = "10b least squares, DIA"
+    if A.fmt != "cuda-dia" or A.symmetric:
+        raise AssertionError("%s: operator is %r" % (tag, A.fmt))
+    data, offsets = A.container.data, A.container.offsets
+    t = K.dia_transpose(A.container)
+    m = A.shape[0]
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    x = torch.randn(m, device=DEVICE, generator=g)
+    for xx in (x, x.double()):
+        _exact("A^T x, %s x" % str(xx.dtype)[6:], A.T * xx,
+               K.dia_matvec_plain(t.data, t.offsets, xx), tag=tag)
+
+    def ax(v):
+        return K.dia_matvec_plain(data, offsets, v)
+
+    def atx(v):
+        return K.dia_matvec_plain(t.data, t.offsets, v)
+
+    x_true = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        m)).to(DEVICE)
+    b = ax(x_true)
+    fro = float(np.sqrt((coo[0].astype(np.float64) ** 2).sum()))
+    bn = torch.linalg.vector_norm(b).item()
+    damp = 0.1
+
+    def damped(res):
+        r = b - ax(res.x)
+        num = atx(r) - damp * damp * res.x
+        den = fro * torch.sqrt(torch.linalg.vector_norm(r) ** 2
+                               + (damp * torch.linalg.vector_norm(res.x))
+                               ** 2)
+        return {"||A'r - damp^2 x||/(||A||_F ||[r; damp x]||)": (
+            (torch.linalg.vector_norm(num) / den).item(), CERT_BOUND)}
+
+    def sqd(res):
+        r = res.info["r"]
+        return {"||b - Ax - r||/||b||": (
+                    torch.linalg.vector_norm(b - ax(res.x) - r).item() / bn,
+                    SQD_BOUND),
+                "||A'r - x||/||x||": (
+                    (torch.linalg.vector_norm(atx(r) - res.x)
+                     / torch.linalg.vector_norm(res.x)).item(), SQD_BOUND)}
+
+    def dual(res):
+        y = res.x
+        return {"||(AA' + I)y - b||/||b||": (
+            torch.linalg.vector_norm(ax(atx(y)) + y - b).item() / bn,
+            SQD_BOUND)}
+
+    runs = (("lsqr", {"damp": damp, "atol": LLS_TOL, "btol": LLS_TOL},
+             damped),
+            ("lsmr", {"damp": damp, "atol": LLS_TOL, "btol": LLS_TOL},
+             damped),
+            ("craig", {"btol": 1e-8, "etol": 1e-10}, sqd),
+            ("craigmr", {"etol": 1e-10}, dual))
+    for method, opts, _ in runs:                        # warm-ups
+        pt.solve(A, b, method=method, itnlim=20, **opts)
+    out = {}
+    for method, opts, check in runs:
+        res = _lls_solve(pt, tag, method,
+                         lambda: pt.solve(A, b, method=method, **opts),
+                         "dia_spmv", out, check)
+        ref = LLS_COUNTS[method]
+        if abs(int(res.n_iter) - ref) > LLS_COUNT_RTOL * ref:
+            raise AssertionError("%s %s: %d iterations against the JAX "
+                                 "package's %d" % (tag, method,
+                                                   int(res.n_iter), ref))
+        out[method]["ref"] = ref
+        out[method]["profile"] = _profile_solve(
+            pt, "%s, %s" % (tag, method), A, b, out[method]["solve_s"],
+            method=method, **opts)
+    vals, rows, cols, _ = coo
+    own = len(offsets) * m * 4
+    out["timing"] = _direction_timing(tag, {
+        "A": (lambda x: K.dia_matvec(data, offsets, x),
+              lambda x: K.dia_matvec_plain(data, offsets, x),
+              _torch_csr(coo, DEVICE), (m, m, len(vals)), own),
+        "A^T": (lambda x: K.dia_matvec(t.data, t.offsets, x),
+                lambda x: K.dia_matvec_plain(t.data, t.offsets, x),
+                _torch_csr((vals, cols, rows, (m, m)), DEVICE),
+                (m, m, len(vals)), own)}, rates)
     return out
 
 
@@ -1680,6 +2051,13 @@ def phase_dia_timing(A, coo, rates):
                      100 * bm["bound_ms"] / best["kernel f32/f64"],
                      bm["achievable_ms"]))
     b["mixed"] = bm
+    # bf16 storage: its own bytes (2 a stored value), f32 x and y
+    b["bf16"] = _bound(min(own["bf16"], csr_b), 2 * nnz, rates)
+    log("[6 timing] DIA n=%d bf16 storage: kernel %.4f ms; bound %.4f ms "
+        "(%s), kernel at %.1f%% of it" % (
+            N, best["kernel bf16"], b["bf16"]["bound_ms"],
+            b["bf16"]["bound_by"],
+            100 * b["bf16"]["bound_ms"] / best["kernel bf16"]))
     del csr, d32, d16, state
     return best, b
 
@@ -1792,7 +2170,14 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rates,
                     ("torch CSR SpMM", lambda: torch.sparse.mm(csr, X))]
         variants += [(label, (lambda f: lambda: f(X))(f))
                      for label, f in extra]
-        best = _best_ms(variants, iters, host_waits)
+        if kb == KB:
+            # the f32f64 entry: f32 storage with an f64 block, which the
+            # mixed solves run (no library call takes that pair)
+            X64 = X.double()
+            variants += [("kernel f32/f64", lambda: mm(X64)),
+                         ("plain f32/f64", lambda: plain_mm(X64))]
+        best = _best_ms(variants, iters, tuple(host_waits) + tuple(
+            label + " f32/f64" for label in host_waits))
         # the matrix once (the smaller of its own and its CSR bytes) plus
         # K columns of X read and of Y written, f32
         b = _bound(min(own_matrix, csr_matrix) + kb * (n + m) * 4,
@@ -1801,6 +2186,21 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rates,
                  "spmv_x_k_ms": spmv_ms * kb, "plain_ms": best["plain"],
                  **b, "library_ms": best["torch CSR SpMM"]}
         point.update((label + "_ms", best[label]) for label, _ in extra)
+        if kb == KB:
+            bm = _bound(min(own_matrix, csr_matrix) + kb * (n + m) * 8,
+                        2 * nnz * kb, rates, "f64")
+            point.update(mixed_ms=best["kernel f32/f64"],
+                         mixed_plain_ms=best["plain f32/f64"],
+                         mixed_bound_ms=bm["bound_ms"],
+                         mixed_bound_by=bm["bound_by"])
+            log("[6b K-curve] %s K=%2d, f32 storage with an f64 block: "
+                "kernel %.4f ms, plain %.4f; bound %.4f ms (%s), kernel at "
+                "%.1f%% of it" % (name, kb, best["kernel f32/f64"],
+                                  best["plain f32/f64"], bm["bound_ms"],
+                                  bm["bound_by"],
+                                  100 * bm["bound_ms"]
+                                  / best["kernel f32/f64"]))
+            del X64
         if plan is not None:
             point["plan"] = plan(X)
         curve[kb] = point
@@ -1850,13 +2250,23 @@ def main():
     A_bell, coo_bell, bell = phase_bell_path(pt)
     bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
     new_s = {}
+    cd = {}
+
+    def nonsym():
+        out, cd["A"], cd["coo"] = phase_nonsym(pt)
+        return out
+
     for key, run in (("8", lambda: phase_indefinite(pt, coo_dia)),
                      ("8b", lambda: phase_minres_golden(pt, A_bell,
                                                         coo_bell)),
-                     ("9", lambda: phase_nonsym(pt)),
-                     ("9b", lambda: phase_bmark(pt))):
+                     ("9", nonsym),
+                     ("9b", lambda: phase_bmark(pt)),
+                     ("10", lambda: phase_lls_sell(pt, rates)),
+                     ("10b", lambda: phase_lls_dia(pt, cd["A"], cd["coo"],
+                                                   rates))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
+    cd.clear()
     dia_best, dia_b = phase_dia_timing(A_dia, coo_dia, rates)
 
     from pykrylov_tpu_torch.sparse import kernels as K
@@ -1947,13 +2357,12 @@ def main():
             "solve_ms_per_block_iter": path["ms_per_iter"],
         })
     kernels[2].update(plan=dia_curve[KB]["plan"], registers=regs["dia_spmm"])
-    # each kernel's launches in the runs of phases 8-9b, counted from 0
+    # each kernel's launches in the runs of phases 8-10b, counted from 0
     runs = {"8": new_s["8"][0]["launches"],
             "8b": {k: v["launches"] for k, v in new_s["8b"][0].items()},
-            "9": {k: v["launches"] for k, v in new_s["9"][0].items()
-                  if isinstance(v, dict) and "launches" in v},
-            "9b": {k: v["launches"] for k, v in new_s["9b"][0].items()
-                   if isinstance(v, dict)}}
+            **{key: {k: v["launches"] for k, v in new_s[key][0].items()
+                     if isinstance(v, dict) and "launches" in v}
+               for key in ("9", "9b", "10", "10b")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -1963,12 +2372,19 @@ def main():
         mixed_ms=dia_best["kernel f32/f64"],
         mixed_plain_ms=dia_best["plain f32/f64"],
         mixed_bound_ms=dia_b["mixed"]["bound_ms"],
-        mixed_bound_by=dia_b["mixed"]["bound_by"])
+        mixed_bound_by=dia_b["mixed"]["bound_by"],
+        bf16_bound_ms=dia_b["bf16"]["bound_ms"])
     kernels[1].update(
         mixed_ms=bt["kernel f32/f64"], mixed_plain_ms=bt["plain f32/f64"],
         mixed_bound_ms=bell_b["mixed"]["bound_ms"],
         mixed_bound_by=bell_b["mixed"]["bound_by"])
-    ind, gold, nonsym, bmark = (new_s[k][0] for k in ("8", "8b", "9", "9b"))
+    ind, gold, nonsym, bmark, se, lls = (
+        new_s[k][0] for k in ("8", "8b", "9", "9b", "10", "10b"))
+    # both directions of the least-squares path: state estimation A and
+    # A^T through the SELL kernel (10), convection-diffusion A and A^T
+    # through the DIA kernel (10b); 2 launches an iteration, one each
+    kernels[0]["lls_directions"] = lls["timing"]
+    kernels[1]["lls_directions"] = se["timing"]
     log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s, K=%d "
         "block %d in %.3f s; BELL tiled 1138bus: %d iterations in %.3f s, "
         "K=%d block %d in %.3f s; smoke took %.1f s"
@@ -1992,6 +2408,18 @@ def main():
            bmark["auto_fmt"],
            ", ".join("%s %d (ref %d)" % (k, v["n_matvec"], v["ref"])
                      for k, v in bmark.items() if isinstance(v, dict))))
+    log("[7 result] phase 10 (%.1f s, %d x %d built in %.1f s): %s; phase "
+        "10b (%.1f s): %s"
+        % (new_s["10"][1], se["shape"][0], se["shape"][1], se["build_s"],
+           ", ".join("%s %d it. in %.3f s, idle %.1f%%"
+                     % (k, se[k]["n_iter"], se[k]["solve_s"],
+                        100 * se[k]["profile"]["idle"])
+                     for k in ("solve (LSMR)", "lsqr")),
+           new_s["10b"][1],
+           ", ".join("%s %d it. (ref %d) in %.3f s, idle %.1f%%"
+                     % (k, v["n_iter"], v["ref"], v["solve_s"],
+                        100 * v["profile"]["idle"])
+                     for k, v in lls.items() if "ref" in v)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

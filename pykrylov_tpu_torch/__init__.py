@@ -7,14 +7,17 @@ for Hopper, compiled from ``csrc/`` at first use.  This package imports
 torch and NumPy, never JAX.
 
 Ported so far: the operator layer with native block products, CG and
-block-batched CG, MINRES, SYMMLQ, BiCGSTAB, CGS and TFQMR, the numerics
-utilities, the sparse containers with their plain products, the CUDA DIA
-and BELL SpMV and SpMM kernels, automatic format choice, MatrixMarket
-reading, the bundled matrices, the Poisson, tiled and convection-diffusion
-galleries, and ``solve`` for square systems: CG for symmetric positive
-definite ones (one right-hand side or an (n, K) block of them), falling
-back to MINRES on an indefinite operator, and BiCGSTAB, falling back to
-TFQMR on a breakdown, for unsymmetric ones.
+block-batched CG, MINRES, SYMMLQ, BiCGSTAB, CGS, TFQMR, LSQR, LSMR, CRAIG
+and CRAIG-MR with the reference's ``show`` tables, the reference-style
+class API (``compat``) and its import paths (``cg``, ``minres``, ...,
+``lls``, ``linop``, ``generic``, ``tools``), the numerics utilities, the
+sparse containers with their plain products, the CUDA DIA and BELL SpMV
+and SpMM kernels, automatic format choice, MatrixMarket reading, the
+bundled matrices, the Poisson, tiled and convection-diffusion galleries,
+and ``solve``: CG for symmetric positive definite systems (one right-hand
+side or an (n, K) block of them), falling back to MINRES on an indefinite
+operator; BiCGSTAB, falling back to TFQMR on a breakdown, for unsymmetric
+ones; and LSMR for rectangular ones.
 """
 
 from .version import __version__
@@ -26,15 +29,23 @@ from . import sparse
 from . import io
 from . import gallery
 from . import convert
+from . import compat
+# the import-path modules named like solvers load before the solver
+# functions are bound below, so the package's ``cg`` is the function (a
+# later import of ``pykrylov_tpu_torch.cg`` finds the module loaded and
+# leaves the name alone)
+from . import (cg, minres, symmlq, bicgstab, cgs, tfqmr, lls, linop, generic,
+               tools)  # noqa: F401
 from .ops import LinearOperator
 from .solvers import (SolveResult, ISTOP_MSGS, cg, minres, symmlq, bicgstab,
-                      cgs, tfqmr)
+                      cgs, tfqmr, lsqr, lsmr, craig, craigmr)
 from .utils import (machine_epsilon, roots_quadratic, check_symmetric,
                     check_positive_definite)
 from .solve import solve
 
 __all__ = ["__version__", "solve", "LinearOperator", "SolveResult",
            "ISTOP_MSGS", "cg", "minres", "symmlq", "bicgstab", "cgs",
-           "tfqmr", "machine_epsilon", "roots_quadratic", "check_symmetric",
-           "check_positive_definite", "utils", "ops", "solvers", "sparse",
-           "io", "gallery", "convert"]
+           "tfqmr", "lsqr", "lsmr", "craig", "craigmr", "machine_epsilon",
+           "roots_quadratic", "check_symmetric", "check_positive_definite",
+           "utils", "ops", "solvers", "sparse", "io", "gallery", "convert",
+           "compat"]

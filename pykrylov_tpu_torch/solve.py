@@ -7,7 +7,8 @@ operator's shape and declared symmetry.  For a 1-D right-hand side:
     back to MINRES when CG meets nonpositive curvature (``istop 2``);
   * square, general              → BiCGSTAB, falling back to TFQMR with the
     same options when its recurrence breaks down (``istop 3``);
-  * rectangular                  → LSMR (not ported yet).
+  * rectangular                  → LSMR (monotone ``||A'r||``, safe
+    early stops).
 
 Both fallbacks dispatch on the first solver's stop code, read on the host;
 the JAX package's traced variants (a ``lax.cond`` under ``jit``) have no
@@ -21,7 +22,8 @@ batched solvers (square general → ``bicgstab_batched``, rectangular →
 ``lsqr_batched``, each ``method=``'s own) are not ported yet.
 
 Each branch whose solver is not ported yet raises ``NotImplementedError``
-naming its ROADMAP.md item, as does ``verified=True``.
+naming its ROADMAP.md item, as do ``verified=True`` (any shape) and
+``method="cg_pipelined"``.
 
 An operator that carries ``solve_permutation`` (an RCM-reordered BELL
 operator, ``A = P^T A' P``) is solved in the permuted space: ``A' x' = P b``
@@ -42,6 +44,10 @@ from .solvers.bicgstab import bicgstab
 from .solvers.cg import cg
 from .solvers.cgs import cgs
 from .solvers.common import apply_op, as_operator, promote_rhs
+from .solvers.craig import craig
+from .solvers.craigmr import craigmr
+from .solvers.lsmr import lsmr
+from .solvers.lsqr import lsqr
 from .solvers.minres import minres
 from .solvers.symmlq import symmlq
 from .solvers.tfqmr import tfqmr
@@ -54,10 +60,10 @@ _METHODS = ("cg", "cg_pipelined", "minres", "symmlq", "bicgstab", "cgs",
 
 # method -> its solver, where ported
 _SOLVERS = {"cg": cg, "minres": minres, "symmlq": symmlq,
-            "bicgstab": bicgstab, "cgs": cgs, "tfqmr": tfqmr}
+            "bicgstab": bicgstab, "cgs": cgs, "tfqmr": tfqmr, "lsqr": lsqr,
+            "lsmr": lsmr, "craig": craig, "craigmr": craigmr}
 # method -> ROADMAP.md queue 1 item that ports it, where not
-_ITEM = {"cg_pipelined": 16, "lsqr": 12, "lsmr": 12, "craig": 12,
-         "craigmr": 12}
+_ITEM = {"cg_pipelined": 16}
 
 
 def _not_ported(what, item):
@@ -129,7 +135,9 @@ def solve(A, b, method=None, verified=False, **opts):
     block ``B``; returns a :class:`~pykrylov_tpu_torch.solvers.SolveResult`
     (per-column fields for a block).  ``opts`` pass through to the chosen
     solver; ``method=`` picks one explicitly (``"cg"``, ``"minres"``,
-    ``"symmlq"``, ``"bicgstab"``, ``"cgs"`` or ``"tfqmr"``)."""
+    ``"symmlq"``, ``"bicgstab"``, ``"cgs"``, ``"tfqmr"``, ``"lsqr"``,
+    ``"lsmr"``, ``"craig"`` or ``"craigmr"``).  A rectangular operator goes
+    to LSMR, ``min ||Ax - b||``."""
     A = as_operator(A)
     if getattr(A, "solve_permutation", None) is not None:
         return _solve_permuted(A, b, method, verified, opts)
@@ -145,7 +153,7 @@ def solve(A, b, method=None, verified=False, **opts):
 
     m, n = A.shape
     if m != n:
-        raise _not_ported("solve() on a rectangular operator (LSMR)", 12)
+        return lsmr(A, b, **opts)
     if A.symmetric or A.hermitian:
         res = cg(A, b, check_curvature=True, **opts)
         if int(res.istop) == 2:     # indefinite: MINRES handles it

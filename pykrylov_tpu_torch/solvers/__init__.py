@@ -1,11 +1,13 @@
 """Krylov solvers — plain functions on tensors returning ``SolveResult``.
 
 CG with its block-batched twin ``cg_batched`` (and ``solve_columns``, one
-solve per column), MINRES and SYMMLQ for symmetric indefinite systems, and
-BiCGSTAB, CGS and TFQMR for square unsymmetric ones are ported; the other
-solvers of ``pykrylov_tpu.solvers`` follow in the order of ROADMAP.md
-queue 1.  Each solver's module keeps its ``ISTOP_MSG`` table;
-``ISTOP_MSGS`` gathers them by solver name.
+solve per column), MINRES and SYMMLQ for symmetric indefinite systems,
+BiCGSTAB, CGS and TFQMR for square unsymmetric ones, and LSQR, LSMR, CRAIG
+and CRAIG-MR for rectangular and regularized ones are ported; the other
+solvers of ``pykrylov_tpu.solvers`` (the batched, verified, pipelined and
+differentiable variants) follow in the order of ROADMAP.md queue 1.
+Each solver's module keeps its ``ISTOP_MSG`` table; ``ISTOP_MSGS`` gathers
+them by solver name.
 
 The submodules are imported before the function names are bound, so each
 name below is the solver, not the module of the same name.
@@ -13,21 +15,28 @@ name below is the solver, not the module of the same name.
 
 from .result import SolveResult
 from . import (cg as _m_cg, minres as _m_minres, symmlq as _m_symmlq,
-               bicgstab as _m_bicgstab, cgs as _m_cgs,
-               tfqmr as _m_tfqmr)  # noqa: F401
+               bicgstab as _m_bicgstab, cgs as _m_cgs, tfqmr as _m_tfqmr,
+               lsqr as _m_lsqr, lsmr as _m_lsmr, craig as _m_craig,
+               craigmr as _m_craigmr)  # noqa: F401
 from .cg import cg
 from .minres import minres
 from .symmlq import symmlq
 from .bicgstab import bicgstab
 from .cgs import cgs
 from .tfqmr import tfqmr
+from .lsqr import lsqr
+from .lsmr import lsmr
+from .craig import craig
+from .craigmr import craigmr
 from .batched import ISTOP_MSG, cg_batched, solve_columns
 
 ISTOP_MSGS = {"cg": _m_cg.ISTOP_MSG, "cg_batched": ISTOP_MSG,
               "minres": _m_minres.ISTOP_MSG, "symmlq": _m_symmlq.ISTOP_MSG,
               "bicgstab": _m_bicgstab.ISTOP_MSG, "cgs": _m_cgs.ISTOP_MSG,
-              "tfqmr": _m_tfqmr.ISTOP_MSG}
+              "tfqmr": _m_tfqmr.ISTOP_MSG, "lsqr": _m_lsqr.ISTOP_MSG,
+              "lsmr": _m_lsmr.ISTOP_MSG, "craig": _m_craig.ISTOP_MSG,
+              "craigmr": _m_craigmr.ISTOP_MSG}
 
 __all__ = ["SolveResult", "cg", "minres", "symmlq", "bicgstab", "cgs",
-           "tfqmr", "cg_batched", "solve_columns", "ISTOP_MSG",
-           "ISTOP_MSGS"]
+           "tfqmr", "lsqr", "lsmr", "craig", "craigmr", "cg_batched",
+           "solve_columns", "ISTOP_MSG", "ISTOP_MSGS"]

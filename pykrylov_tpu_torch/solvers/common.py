@@ -19,7 +19,9 @@ from ..utils.types import result_type, to_tensor
 __all__ = ["as_operator", "apply_op", "apply_op_T", "apply_op_H",
            "vdot_real", "dotu", "fdiv", "finite", "real_dtype", "promote_rhs",
            "threshold_of", "default_maxiter", "history_init", "history_push",
-           "history_from", "require_square", "attach_true_residual"]
+           "history_from", "table_init", "table_push", "table_tensor",
+           "require_square", "attach_true_residual",
+           "attach_true_lls_residual"]
 
 
 def as_operator(A) -> LinearOperator:
@@ -135,6 +137,39 @@ def history_from(store, maxiter, values, dtype, device):
     return hist
 
 
+def table_init(store: bool, maxiter: int, dtype, device):
+    """Per-iteration telemetry for the ``show`` tables, or None.
+
+    The JAX package records the table's columns in a device buffer inside
+    its fused loop and renders it after the solve
+    (:mod:`~.show`).  Here the scalar columns are host floats already, so a
+    row of them goes to a host list; only the first column, ``x[0]``,
+    lives on the device, written into a buffer without a synchronisation.
+    """
+    if not store:
+        return None
+    return {"x0": history_init(True, maxiter, dtype, device), "rows": {}}
+
+
+def table_push(tab, k, x0, *cols):
+    """Record row ``k``: ``x0`` (a 0-d tensor or a float) and host floats."""
+    if tab is not None:
+        history_push(tab["x0"], k, x0)
+        tab["rows"][k] = cols
+    return tab
+
+
+def table_tensor(tab):
+    """The table as the JAX package keeps it: a (maxiter+1, 1+ncols)
+    tensor on the device, NaN in the rows past the last iteration."""
+    x0, rows = tab["x0"], tab["rows"]
+    ncols = len(next(iter(rows.values()))) if rows else 6
+    host = torch.full((x0.shape[0], ncols), math.nan, dtype=x0.dtype)
+    if rows:
+        host[list(rows)] = torch.tensor(list(rows.values()), dtype=x0.dtype)
+    return torch.cat([x0[:, None], host.to(x0.device)], dim=1)
+
+
 def attach_true_residual(A, b, res, shift=0.0):
     """Post-solve verification: the 2-norm of the true residual ``b - (A -
     shift I) x`` as ``info["true_resid_norm"]``.  One diagnostic matvec,
@@ -156,3 +191,21 @@ def require_square(A, b, solver_name):
     if b.ndim != 1 or b.shape[0] != n:
         raise ValueError("%s: rhs has shape %s, expected (%d,)"
                          % (solver_name, (tuple(b.shape),), n))
+
+
+def attach_true_lls_residual(A, b, res, damp=0.0):
+    """Post-solve verification for the least-squares family: the true
+    residual ``rt = b - A x`` and the least-squares optimality residual
+    ``A' rt - damp^2 x``, the quantity LSQR's ``Arnorm`` and LSMR's
+    ``normar`` estimate by recurrence.  Both norms are Euclidean (M and N
+    are not folded in: this is the certificate a user would compute), in
+    the promoted dtype of the solve; recorded as
+    ``info["true_resid_norm"]`` and ``info["true_normar"]``.  Two
+    diagnostic matvecs, not counted in ``n_matvec``."""
+    rt = b - apply_op(A, res.x)
+    ar = apply_op_T(A, rt)
+    if damp:
+        ar = ar - (damp * damp) * res.x
+    res.info["true_resid_norm"] = torch.linalg.vector_norm(rt)
+    res.info["true_normar"] = torch.linalg.vector_norm(ar)
+    return res

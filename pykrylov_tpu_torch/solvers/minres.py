@@ -41,7 +41,8 @@ import torch
 
 from .common import (apply_op, as_operator, attach_true_residual, fdiv,
                      history_from, history_init, history_push, promote_rhs,
-                     real_dtype, require_square, vdot_real)
+                     real_dtype, require_square, table_init, table_push,
+                     table_tensor, vdot_real)
 from .result import SolveResult
 from ..utils.utils import check_symmetric
 
@@ -90,7 +91,7 @@ def _tests(istop, itn, itnlim, test1, test2, epsx, beta1, acond, eps, rtol):
 
 
 def _minres(A, b, M, shift, rtol, etol, itnlim, window, store_history,
-            store_iterates):
+            store_iterates, store_table=False):
     dtype, dev, n = b.dtype, b.device, b.shape[0]
     rdtype = real_dtype(dtype)
     eps = float(torch.finfo(rdtype).eps)
@@ -107,6 +108,8 @@ def _minres(A, b, M, shift, rtol, etol, itnlim, window, store_history,
     derrs = [math.nan]
     iters = history_push(history_init(store_iterates, itnlim, dtype, dev, n),
                          0, x)
+    # show-table columns: x[0], test1, test2, Anorm, Acond, gbar, ynorm
+    tab = table_init(store_table, itnlim, rdtype, dev)
     w = w2 = torch.zeros_like(b)
     oldb, beta, dbar, epsln = 0.0, beta1, 0.0, 0.0
     phibar, rhs1, rhs2 = beta1, beta1, 0.0
@@ -190,6 +193,8 @@ def _minres(A, b, M, shift, rtol, etol, itnlim, window, store_history,
         istop = _tests(istop, itn, itnlim, test1, test2, anorm * ynorm * eps,
                        beta1, acond, eps, rtol)
         hist.append(rnorm)
+        table_push(tab, itn, x[0].real, test1, test2, anorm, acond, gbar,
+                   ynorm)
         done = istop != 0
 
     info = {key: torch.tensor(val, dtype=rdtype, device=dev)
@@ -200,6 +205,8 @@ def _minres(A, b, M, shift, rtol, etol, itnlim, window, store_history,
     if store_history:
         info["dir_errors_window"] = history_from(True, itnlim, derrs, rdtype,
                                                  dev)
+    if tab is not None:
+        info["show_table"] = table_tensor(tab)
     converged = zero_b or istop in _CONVERGED_CODES
     return SolveResult(
         x=torch.zeros_like(b) if zero_b else x,
@@ -260,8 +267,9 @@ def minres(A, b, *, M=None, shift=0.0, rtol=1.0e-12, etol=1.0e-6,
         (NaN until the window fills).
     store_iterates : keep every iterate in an (itnlim+1, n) buffer,
         ``info["iterates"]`` (NaN rows beyond ``n_iter``).
-    show : the reference's iteration table; not ported yet, so True
-        raises.
+    show : print the reference's iteration table after the solve
+        (``minres.py:375-393``), rendered from the rows recorded as the
+        loop ran (:mod:`~.show`); implies ``store_history``.
     verify_final : record the true residual norm ``||b - (A - shift I) x||``
         as ``info["true_resid_norm"]`` (one uncounted matvec).
     replace_every : verified arithmetic; not ported yet, so a nonzero value
@@ -274,10 +282,6 @@ def minres(A, b, *, M=None, shift=0.0, rtol=1.0e-12, etol=1.0e-6,
         raise NotImplementedError(
             "minres(replace_every=...) is the verified-arithmetic path, not "
             "ported yet: ROADMAP.md queue 1 item 15")
-    if show:
-        raise NotImplementedError(
-            "minres(show=True), the iteration table, is not ported yet: "
-            "ROADMAP.md queue 1 item 13")
     A = as_operator(A)
     M = as_operator(M) if M is not None else None
     b = promote_rhs(b, A, M)
@@ -290,8 +294,12 @@ def minres(A, b, *, M=None, shift=0.0, rtol=1.0e-12, etol=1.0e-6,
         if M is not None and not check_symmetric(M):
             return _check_failed(8, b, store_history, store_iterates)
     res = _minres(A, b, M, float(shift), float(rtol), float(etol),
-                  int(itnlim), int(window), bool(store_history),
-                  bool(store_iterates))
+                  int(itnlim), int(window), bool(store_history) or bool(show),
+                  bool(store_iterates), bool(show))
+    if show:
+        from .show import print_minres
+        print_minres(res, n=b.shape[0], itnlim=int(itnlim), rtol=float(rtol),
+                     eps=float(torch.finfo(real_dtype(b.dtype)).eps))
     if verify_final:
         res = attach_true_residual(A, b, res, float(shift))
     return res

@@ -1313,7 +1313,9 @@ class BellOperator(LinearOperator):
 
     ``card`` is the forward product's card form (None for :meth:`plain`)
     and ``card_bytes`` the bytes a matvec reads from it, beside the
-    containers' ``stream_bytes``.
+    containers' ``stream_bytes``; ``cards`` maps each product the operator
+    runs (``"fwd"``, and ``"bwd"`` for the transpose, or ``"bwd_l"`` and
+    ``"bwd_a"`` for a row split's) to its card form.
     """
 
     fmt = "bell"
@@ -1403,6 +1405,7 @@ class BellOperator(LinearOperator):
                          matmat=mm, matmat_transp=rmm)
         nnz_tot = sum(b.nnz for b in fwd)
         self.levels = fwd
+        self.cards = cards
         self.card = None if cards is None else cards["fwd"]
         self.card_bytes = None if cards is None else sell_bytes(self.card)
         self.fill = bell_fill(fwd[0])

@@ -229,8 +229,6 @@ def test_not_ported_options_raise():
     op = MatrixOperator(torch.from_numpy(A), symmetric=True, device=DEV)
     with pytest.raises(NotImplementedError, match="queue 1 item 15$"):
         minres(op, torch.from_numpy(b), replace_every=10)
-    with pytest.raises(NotImplementedError, match="queue 1 item 13$"):
-        minres(op, torch.from_numpy(b), show=True)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,8 @@ from pykrylov_tpu_torch.sparse import kernels as K
 from pykrylov_tpu_torch.sparse import operator_from_coo
 from pykrylov_tpu_torch.sparse.linop import auto_format
 
+from test_torch_lls import rect
+
 DEV = "cpu"  # the port's entry points default to the card
 
 
@@ -98,13 +100,15 @@ def test_auto_on_cpu_keeps_plain_dia_for_large_stencils():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("block_rhs", 14), ("verified", 15), ("lsqr", 12), ("craigmr", 12),
-    ("cg_pipelined", 16), ("rectangular", 12), ("replace_every", 15),
+    ("block_rhs", 14), ("verified", 15), ("cg_pipelined", 16),
+    ("replace_every", 15), ("rectangular_verified", 15),
+    ("rectangular_block", 14),
 ])
 def test_not_ported_branches_name_their_roadmap_item(case, item):
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                          symmetric=True, device=DEV)
     b = torch.ones(3, dtype=torch.float64)
+    rect = MatrixOperator(torch.ones(4, 3, dtype=torch.float64), device=DEV)
     calls = {
         # an (n, K) block on a square unsymmetric operator: its batched
         # solver (bicgstab_batched) is not ported; CG blocks are
@@ -112,15 +116,46 @@ def test_not_ported_branches_name_their_roadmap_item(case, item):
             MatrixOperator(torch.eye(3, dtype=torch.float64), device=DEV),
             torch.ones(3, 2, dtype=torch.float64)),
         "verified": lambda: pt.solve(spd, b, verified=True),
-        "rectangular": lambda: pt.solve(
-            MatrixOperator(torch.ones(4, 3, dtype=torch.float64),
-                           device=DEV), b),
         "replace_every": lambda: cg(spd, b, replace_every=50),
+        # the rectangular branch's verified stop (refined_lls) and its
+        # block solver (lsqr_batched)
+        "rectangular_verified": lambda: pt.solve(
+            rect, torch.ones(4, dtype=torch.float64), verified=True),
+        "rectangular_block": lambda: pt.solve(
+            rect, torch.ones(4, 2, dtype=torch.float64)),
     }
     call = calls.get(case, lambda: pt.solve(spd, b, method=case))
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1 item %d$" % item):
         call()
+
+
+@pytest.mark.parametrize("case", ["rectangular", "lsqr", "lsmr", "craig",
+                                  "craigmr"])
+def test_least_squares_routes_match_jax(case):
+    # solve() on a rectangular operator goes to LSMR, and method= to each
+    # least-squares solver, in both packages: equal counts and stop codes,
+    # x within 1e-10 relative
+    A = rect(90, 40, seed=7)
+    rng = np.random.default_rng(8)
+    b = A @ rng.standard_normal(40) + 0.01 * rng.standard_normal(90)
+    method = None if case == "rectangular" else case
+    opts = {"etol": 1e-12} if case.startswith("craig") else {
+        "atol": 1e-12, "btol": 1e-12, "etol": 0.0}
+    res = pt.solve(MatrixOperator(torch.from_numpy(A), device=DEV),
+                   torch.from_numpy(b), method=method, **opts)
+    jres = pykrylov_tpu.solve(JMatrix(jnp.asarray(A)), jnp.asarray(b),
+                              method=method, **opts)
+    assert int(res.n_iter) == int(jres.n_iter) > 0
+    assert int(res.istop) == int(jres.istop)
+    assert int(res.n_matvec) == int(jres.n_matvec) == 2 * int(res.n_iter)
+    xj = np.asarray(jres.x)
+    assert np.abs(res.x.numpy() - xj).max() <= 1e-10 * np.abs(xj).max()
+    assert res.x.shape == ((90,) if case == "craigmr" else (40,))
+    if case == "rectangular":
+        assert "normar" in res.info and int(res.istop) == 2
+        x_ls, *_ = np.linalg.lstsq(A, b, rcond=None)
+        np.testing.assert_allclose(res.x.numpy(), x_ls, atol=1e-10)
 
 
 @pytest.mark.parametrize("fmt", ["bell", "bell-rcm"])
