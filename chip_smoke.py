@@ -27,7 +27,8 @@ the least-squares path, whose solvers apply A and A^T: LSMR (``solve``'s
 rectangular branch) and LSQR on a 2.67M x 1.17M power-system
 state-estimation matrix (SELL in both directions), and LSQR, LSMR, CRAIG
 and CRAIG-MR on the convection-diffusion matrix (DIA in both
-directions).
+directions); and, with a block of K = 8, the nine batched solvers on the
+same operators, through the SpMM kernels on A and A^T.
 
 Phases, in order:
 
@@ -112,6 +113,27 @@ Phases, in order:
      the damped optimality certificate at most 1e-5 and CRAIG's and
      CRAIG-MR's SQD certificates at most 1e-8 in f64, one profiled run
      each; both directions' SpMV timed;
+  11. unsymmetric blocks: phase 9's operator with an (n, 8) f64 block
+     whose column 0 is phase 9's b and the other seven standard normal
+     from seed 0: ``solve(A, B)`` (``bicgstab_batched``), CGS and TFQMR,
+     every block product through the DIA SpMM (launches = the solver's
+     block products, no SpMV launch), every column's true relative
+     residual in f64 at most 1e-4, column 0's count within 10% of phase
+     9's (25% for CGS and TFQMR), a profile of the first 200 block
+     iterations of each, and BiCGSTAB capped at 100 block iterations
+     through the plain products: x bit for bit;
+  12. indefinite blocks: phase 8's operator and b, the same way:
+     ``solve(A, B, method="minres")`` (etol 0, so the rtol test decides)
+     and SYMMLQ at HELM_RTOL, MINRES capped through the plain products;
+  13. least-squares blocks: phase 10's state-estimation operator and b,
+     ``solve(A, B)`` (``lsqr_batched``) and LSMR through the SELL SpMM on
+     ``cards["fwd"]`` and ``cards["bwd"]``, every column's ``||A'r|| /
+     (||A||_F ||r||)`` at most 1e-5, LSQR capped through the plain
+     products; phase 9's operator and b, CRAIG and CRAIG-MR through the
+     DIA SpMM on A and ``dia_transpose(A)``, every column's SQD residuals
+     at most 1e-8, CRAIG capped through the plain products; each SpMM on
+     A^T timed at K = 8 (f32 and f64 block, plain, torch's CSR SpMM)
+     against its bound;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -133,16 +155,18 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-10b,
+     (each with its launches in every run of phases 8-13,
      ``launches_by_phase``; the SpMV kernels with their mixed-pair times
      and bounds and both directions of the least-squares path,
      ``lls_directions``; the SpMM kernels with their mixed-pair times at
-     K = 8; the DIA SpMM's with its host plan, V columns a thread, T
-     rows a tile, Kc columns a panel, at each K, and each template
-     instance's registers and spill bytes), then the result line
-     ``{"ok": true, "device": {...}}``.
+     K = 8, their A^T times (``transpose``) and the block solves of
+     phases 11-13 that ran through them (``block_solves``); the DIA
+     SpMM's with its host plan, V columns a thread, T rows a tile, Kc
+     columns a panel, at each K, and each template instance's registers
+     and spill bytes), then the result line ``{"ok": true, "device":
+     {...}}``.
 
-Phases 8-10b run after 5b and before 6; each resets every launch count
+Phases 8-13 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -1308,7 +1332,8 @@ def phase_indefinite(pt, coo):
     meets nonpositive curvature, then MINRES; then SYMMLQ.  b is standard
     normal (its part along the negative eigenvector is far above rtol) in
     f64, so the recurrences run in f64 through the f32f64 entry; the same
-    MINRES on the f32 b shows why (its true residual is logged)."""
+    MINRES on the f32 b shows why (its true residual is logged).  Returns
+    the phase's numbers and (A, b), which phase 12 solves with."""
     from pykrylov_tpu_torch.gallery import poisson_eigenvalue_bounds
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import operator_from_coo
@@ -1400,14 +1425,14 @@ def phase_indefinite(pt, coo):
     if not (bool(sres.converged) and strue <= 1e-4):
         raise AssertionError("SYMMLQ: %r, true relative residual %.3e"
                              % (sres, strue))
-    out.update(symmlq_iter=int(sres.n_iter), symmlq_s=ssecs,
+    out.update(symmlq_iter=int(sres.n_iter),
+               symmlq_matvec=int(sres.n_matvec), symmlq_s=ssecs,
                symmlq_true_rel=strue,
                symmlq_profile=_profile_solve(pt, tag + " symmlq", A, b,
                                              ssecs, method="symmlq",
                                              rtol=HELM_RTOL))
     out["launches"]["symmlq"] = scounts
-    del A, data
-    return out
+    return out, (A, b)
 
 
 def phase_minres_golden(pt, A, coo):
@@ -1465,8 +1490,8 @@ def phase_nonsym(pt):
     storage on the DIA kernel, b = A x_true in f64 (the f32 recurrences
     stall above rtol 1e-6 on this system; the f32 BiCGSTAB below shows
     it): ``solve`` routes to BiCGSTAB; then CGS, TFQMR, and BiCGSTAB with
-    an f64 Jacobi preconditioner.  Returns the phase's numbers, the
-    operator and its triples (phase 10b solves with them)."""
+    an f64 Jacobi preconditioner.  Returns the phase's numbers and (the
+    operator, its triples, b), which phases 10b, 11 and 13 solve with."""
     from pykrylov_tpu_torch.gallery import convdiff2d_coo
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import (jacobi_preconditioner,
@@ -1531,7 +1556,7 @@ def phase_nonsym(pt):
         "relative residual (f64) %.3e" % (tag, out["f32"]["istop"],
                                           out["f32"]["n_matvec"],
                                           out["f32"]["true_rel"]))
-    return out, A, coo
+    return out, (A, coo, b)
 
 
 def phase_bmark(pt):
@@ -1700,7 +1725,8 @@ def phase_lls_sell(pt, rates):
     first LLS_PROFILE_ITERS iterations of each;
     then LSQR capped at LLS_PLAIN_ITERS over an operator whose products are
     the plain versions on the same card forms, which must give the kernel
-    run's istop 7 and its x bit for bit."""
+    run's istop 7 and its x bit for bit.  Returns the phase's numbers and
+    (A, its triples, b), which phase 13 solves with."""
     from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import operator_from_coo
     from pykrylov_tpu_torch.sparse import sell as S
@@ -1798,8 +1824,8 @@ def phase_lls_sell(pt, rates):
                 lambda x: S.sell_matvec_plain(bwd, x),
                 _torch_csr((vals, cols, rows, (n, m)), DEVICE),
                 (n, m, len(vals)), S.sell_bytes(bwd))}, rates)
-    del coo, vals, rows, cols, A, plain, b
-    return out
+    del plain
+    return out, (A, coo, b)
 
 
 def phase_lls_dia(pt, A, coo, rates):
@@ -1896,6 +1922,376 @@ def phase_lls_dia(pt, A, coo, rates):
                 lambda x: K.dia_matvec_plain(t.data, t.offsets, x),
                 _torch_csr((vals, cols, rows, (m, m)), DEVICE),
                 (m, m, len(vals)), own)}, rates)
+    return out
+
+
+# --------------------------------------------------------------------------
+# 11-13. blocks of right-hand sides through the batched solvers
+# --------------------------------------------------------------------------
+
+BLOCK_PLAIN_ITERS = 100     # block iterations of the plain-product runs
+# profiled block iterations a solve (the profiler's cost grows with the
+# events it keeps, ~40-100 kernels a block iteration)
+BLOCK_PROFILE_ITERS = 200
+# block products a batched solve makes in k block iterations
+# (solvers/batched.py): the SpMM launches it must count, A and A^T
+BLOCK_PRODUCTS = {"bicgstab": lambda k: 2 * k, "cgs": lambda k: 2 * k,
+                  "tfqmr": lambda k: 2 * k + 1, "minres": lambda k: k,
+                  "symmlq": lambda k: k + 2, "lsqr": lambda k: 2 * k + 1,
+                  "lsmr": lambda k: 2 * k + 1, "craig": lambda k: 2 * k + 1,
+                  "craigmr": lambda k: 2 * k + 1}
+# column 0 against the single solve of the same b: CGS's and TFQMR's
+# counts swing with the rounding order (phase 9's CGS takes 46% of the JAX
+# package's count on this system), the others within ITER_RTOL
+COL0_RTOL = {"cgs": 0.25, "tfqmr": 0.25}
+# the per-column cap that stands for a block-iteration cap
+CAP_OPTION = {"bicgstab": "maxiter", "cgs": "maxiter", "tfqmr": "maxiter",
+              "minres": "itnlim", "symmlq": "matvec_max", "lsqr": "itnlim",
+              "lsmr": "itnlim", "craig": "itnlim", "craigmr": "itnlim"}
+
+
+def _block_of(b):
+    """The (n, KB) f64 block of a block phase: column 0 is the single
+    phase's b, the other KB - 1 columns standard normal from seed 0
+    (torch's generator on the device)."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    rest = torch.randn((b.shape[0], KB - 1), generator=g, device=DEVICE,
+                       dtype=torch.float64)
+    return torch.cat([b.double()[:, None], rest], dim=1)
+
+
+def _plain_block_op(pt, A):
+    """``A`` with the plain versions of its kernels as its products, on the
+    same DIA containers (A and ``dia_transpose``) or SELL card forms
+    (``cards["fwd"]`` and ``cards["bwd"]``)."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
+    if getattr(A, "cards", None) is not None:
+        fwd, bwd = A.cards["fwd"], A.cards["bwd"]
+        rules = (lambda x: S.sell_matvec_plain(fwd, x),
+                 lambda x: S.sell_matvec_plain(bwd, x),
+                 lambda X: S.sell_matmat_plain(fwd, X),
+                 lambda X: S.sell_matmat_plain(bwd, X))
+    else:
+        c = A.container
+        t = c if A.symmetric else K.dia_transpose(c)
+        rules = (lambda x: K.dia_matvec_plain(c.data, c.offsets, x),
+                 lambda x: K.dia_matvec_plain(t.data, t.offsets, x),
+                 lambda X: K.dia_matmat_plain(c.data, c.offsets, X),
+                 lambda X: K.dia_matmat_plain(t.data, t.offsets, X))
+    return pt.LinearOperator(A.shape[1], A.shape[0], matvec=rules[0],
+                             matvec_transp=rules[1], symmetric=A.symmetric,
+                             dtype=A.dtype, device=A.device,
+                             matmat=rules[2], matmat_transp=rules[3])
+
+
+def _col_rel(num, den):
+    """Per-column ``||num|| / ||den||`` of two (n, K) blocks, host floats."""
+    return (torch.linalg.vector_norm(num, dim=0)
+            / torch.linalg.vector_norm(den, dim=0)).tolist()
+
+
+def _block_solve(pt, tag, label, name, A, Bm, opts, kernel, single, check,
+                 out):
+    """One batched solve, ``solve(A, Bm, **opts)`` (``opts`` names the
+    method but for the default route), with every launch count set to 0
+    just before and read just after: ``kernel``'s launches must be the
+    solver's block products (``BLOCK_PRODUCTS``), no other kernel may
+    launch; every column converged, its certificates (``check(res)``:
+    name -> (per-column values, bound)) within their bound, and column 0's
+    count within COL0_RTOL of ``single`` = (count, ms per iteration), the
+    earlier phase's single solve of the same b.  Then a profiled run of the
+    first BLOCK_PROFILE_ITERS block iterations.  Records ``out[label]``."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pt.solve(A, Bm, **opts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    k = int(res.n_iter)
+    want = BLOCK_PRODUCTS[name](k)
+    key = ("n_iter_columns" if "n_iter_columns" in res.info
+           else "n_matvec_columns")
+    cols = res.info[key].tolist()
+    ms = 1e3 * secs / max(k, 1)
+    s_count, s_ms = single
+    log("[%s] %s: %d block iterations, istop %s, %s %s (single solve of "
+        "column 0: %d); %d %s launches for %d block products; %.3f s, %.4f "
+        "ms per block iteration, %.4f ms per column-iteration (single "
+        "solve %.4f ms per iteration)"
+        % (tag, label, k, res.istop.tolist(), key, cols, s_count,
+           counts[kernel], kernel, want, secs, ms, ms / KB, s_ms))
+    if counts[kernel] != want or want == 0:
+        raise AssertionError("%s %s: %d %s launches for %d block products"
+                             % (tag, label, counts[kernel], kernel, want))
+    if any(v for kk, v in counts.items() if kk != kernel):
+        raise AssertionError("%s %s: other kernels launched: %s"
+                             % (tag, label, counts))
+    if (res.x.dtype != torch.float64 or res.x.shape[1] != KB
+            or not torch.isfinite(res.x).all()):
+        raise AssertionError("%s %s: bad solution %s %s" % (
+            tag, label, tuple(res.x.shape), res.x.dtype))
+    certs = check(res)
+    for cname, (vals, bound) in certs.items():
+        log("[%s] %s: %s per column (bound %.0e): %s" % (
+            tag, label, cname, bound, " ".join("%.3e" % v for v in vals)))
+    bad = [c for c, (vals, bound) in certs.items()
+           if not max(vals) <= bound]
+    rtol = COL0_RTOL.get(name, ITER_RTOL)
+    if bad or not bool(res.converged.all()):
+        raise AssertionError("%s %s: %r, certificates over their bound: %s"
+                             % (tag, label, res, bad))
+    if abs(cols[0] - s_count) > rtol * s_count:
+        raise AssertionError("%s %s: column 0 took %d, the single solve %d "
+                             "(more than %.0f%% apart)"
+                             % (tag, label, cols[0], s_count, 100 * rtol))
+    cap = min(BLOCK_PROFILE_ITERS, k)
+    popts = dict(opts)
+    popts[CAP_OPTION[name]] = (cap if name != "symmlq"
+                               else cap + 1)     # its init spends one
+    prof = _profile_solve(pt, "%s, %s" % (tag, label), A, Bm,
+                          secs * cap / max(k, 1), **popts)
+    out[label] = {"kernel": kernel, "n_iter": k, "columns": cols,
+                  "single": s_count,
+                  "single_ms_per_iter": s_ms, "solve_s": secs,
+                  "ms_per_iter": ms, "ms_per_column_iter": ms / KB,
+                  "launches": counts, "profile": prof,
+                  "istop": res.istop.tolist(),
+                  "certificates": {c: max(v) for c, (v, _) in certs.items()}}
+    return res
+
+
+def _plain_equal(pt, tag, name, A, Bm, opts, out):
+    """The batched solver ``name`` capped at BLOCK_PLAIN_ITERS block
+    iterations through the kernels and through their plain versions on
+    the same containers (:func:`_plain_block_op`): x bit for bit."""
+    from pykrylov_tpu_torch import solvers as PS
+    solver = getattr(PS, name + "_batched")
+    capped = dict(opts, **{CAP_OPTION[name]: BLOCK_PLAIN_ITERS})
+    kern = solver(A, Bm, **capped)
+    plain = _plain_block_op(pt, A)
+    _reset_counts()
+    ref = solver(plain, Bm, **capped)
+    torch.cuda.synchronize()
+    if any(_counts().values()):
+        raise AssertionError("%s: the plain products launched %s"
+                             % (tag, _counts()))
+    same = (torch.equal(kern.x, ref.x) and torch.equal(kern.istop, ref.istop)
+            and int(kern.n_iter) == int(ref.n_iter))
+    log("[%s] %s_batched capped at %d block iterations, kernels and plain "
+        "products: %d and %d block iterations, x bit for bit: %s"
+        % (tag, name, BLOCK_PLAIN_ITERS, int(kern.n_iter), int(ref.n_iter),
+           same))
+    if not same:
+        raise AssertionError("%s: the kernels' %s_batched differs from the "
+                             "plain products'" % (tag, name))
+    out["plain_%s" % name] = {"n_iter": int(kern.n_iter), "equal": same}
+
+
+def phase_block_nonsym(pt, A, coo, b, single):
+    """11: phase 9's convection-diffusion operator (DIA, f32 storage) with
+    a K = KB f64 block whose column 0 is phase 9's b: ``solve(A, B)`` (the
+    default route, ``bicgstab_batched``), CGS and TFQMR at rtol 1e-6,
+    every block product through the DIA SpMM kernel; each column's true
+    relative residual in f64 at most 1e-4, column 0's matvecs against
+    phase 9's; BiCGSTAB capped through the plain products."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    tag = "11 unsymmetric blocks"
+    data, offsets = A.container.data, A.container.offsets
+    Bm = _block_of(b)
+
+    def true_rel(res):
+        r = Bm - K.dia_matmat_plain(data.double(), offsets, res.x)
+        return {"||b - Ax||/||b||": (_col_rel(r, Bm), 1e-4)}
+
+    runs = (("solve (bicgstab_batched)", "bicgstab", {}, "solve (BiCGSTAB)"),
+            ("cgs_batched", "cgs", {"method": "cgs"}, "cgs"),
+            ("tfqmr_batched", "tfqmr", {"method": "tfqmr"}, "tfqmr"))
+    for _, name, opts, _ in runs:                       # warm-ups
+        pt.solve(A, Bm, rtol=1e-6, maxiter=10, **opts)
+    out = {}
+    for label, name, opts, ref in runs:
+        s = single[ref]
+        _block_solve(pt, tag, label, name, A, Bm, dict(opts, rtol=1e-6),
+                     "dia_spmm",
+                     (s["n_matvec"], 1e3 * s["solve_s"] / s["n_iter"]),
+                     true_rel, out)
+    _plain_equal(pt, tag, "bicgstab", A, Bm, {"rtol": 1e-6}, out)
+    return out
+
+
+def phase_block_indefinite(pt, A, b, single):
+    """12: phase 8's Helmholtz-shifted Poisson operator (DIA, f32 storage,
+    one negative eigenvalue) with a K = KB f64 block whose column 0 is
+    phase 8's b: ``solve(A, B, method="minres")`` and SYMMLQ at
+    HELM_RTOL through the DIA SpMM kernel; each column's true relative
+    residual in f64 at most 1e-4, column 0's count against phase 8's
+    MINRES (after CG's trip) and SYMMLQ; MINRES capped through the plain
+    products.  MINRES runs with etol = 0: its direct-error window (istop
+    10, a convergence code) stops some standard-normal columns of this
+    system at half the iterations, above the 1e-4 bound, while phase 8's
+    b stops on rtol (istop 1) either way."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    tag = "12 indefinite blocks"
+    data, offsets = A.container.data, A.container.offsets
+    Bm = _block_of(b)
+
+    def true_rel(res):
+        r = Bm - K.dia_matmat_plain(data.double(), offsets, res.x)
+        return {"||b - Ax||/||b||": (_col_rel(r, Bm), 1e-4)}
+
+    opts = {"minres": {"rtol": HELM_RTOL, "etol": 0.0},
+            "symmlq": {"rtol": HELM_RTOL}}
+    for name in ("minres", "symmlq"):                   # warm-ups
+        pt.solve(A, Bm, method=name, **opts[name],
+                 **{CAP_OPTION[name]: 10})
+    out = {}
+    mr_s = single["solve_s"] - single["cg_s"]
+    for label, name, s_count, s_ms in (
+            ("solve(method='minres')", "minres", single["minres_iter"],
+             1e3 * mr_s / single["minres_iter"]),
+            ("symmlq_batched", "symmlq", single["symmlq_matvec"],
+             1e3 * single["symmlq_s"] / single["symmlq_iter"])):
+        _block_solve(pt, tag, label, name, A, Bm,
+                     dict(opts[name], method=name), "dia_spmm",
+                     (s_count, s_ms), true_rel, out)
+    _plain_equal(pt, tag, "minres", A, Bm, opts["minres"], out)
+    return out
+
+
+def _spmm_transpose_timing(tag, kern, plain, csr, sizes, own, rates):
+    """Device ms of one SpMM kernel on A^T at K = KB: with an f32 block
+    (kernel and torch's CSR SpMM, cuSPARSE, the library's call) and with an
+    f64 block (the f32f64 entry the block solves run, and its plain
+    version), against the bounds: the smaller of the kernel's and CSR's
+    matrix bytes plus K columns of X and Y, at the published memory rate,
+    or 2 nnz K operations at the f32 (f64) rate if longer."""
+    rows, cols, nnz = sizes
+    g = torch.Generator(device=DEVICE).manual_seed(5000)
+    X = torch.randn((cols, KB), device=DEVICE, generator=g)
+    X64 = X.double()
+    best = _best_ms([("kernel f32", lambda: kern(X)),
+                     ("kernel f32/f64", lambda: kern(X64)),
+                     ("plain f32/f64", lambda: plain(X64)),
+                     ("torch CSR SpMM f32", lambda: torch.sparse.mm(csr, X))],
+                    20, host_waits=("plain f32/f64",))
+    matrix = min(own, nnz * 8 + (rows + 1) * 4)
+    b32 = _bound(matrix + 4 * KB * (rows + cols), 2 * nnz * KB, rates)
+    b64 = _bound(matrix + 8 * KB * (rows + cols), 2 * nnz * KB, rates,
+                 "f64")
+    log("[%s] A^T SpMM, K=%d: kernel %.4f ms (f32 block), %.4f (f64 "
+        "block); plain %.4f (f64); torch CSR SpMM %.4f (f32); bound %.4f ms "
+        "(%s) f32, %.4f (%s) f64: kernel at %.1f%% and %.1f%% of them"
+        % (tag, KB, best["kernel f32"], best["kernel f32/f64"],
+           best["plain f32/f64"], best["torch CSR SpMM f32"],
+           b32["bound_ms"], b32["bound_by"], b64["bound_ms"],
+           b64["bound_by"], 100 * b32["bound_ms"] / best["kernel f32"],
+           100 * b64["bound_ms"] / best["kernel f32/f64"]))
+    return {"k": KB, "ms": best["kernel f32"],
+            "mixed_ms": best["kernel f32/f64"],
+            "mixed_plain_ms": best["plain f32/f64"],
+            "library_ms": best["torch CSR SpMM f32"],
+            "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+            "mixed_bound_ms": b64["bound_ms"],
+            "mixed_bound_by": b64["bound_by"]}
+
+
+def phase_block_lls(pt, se, cd, single_se, single_cd, rates):
+    """13: the least-squares blocks.  Phase 10's state-estimation operator
+    (SELL card forms of A and A^T) with a K = KB f64 block whose column 0
+    is phase 10's b: ``solve(A, B)`` (the rectangular default,
+    ``lsqr_batched``) and LSMR at atol = btol = LLS_TOL, etol = 0, every
+    product through the SELL SpMM kernel on ``cards["fwd"]`` and
+    ``cards["bwd"]``; each column's ``||A'r||/(||A||_F ||r||)`` in f64
+    at most CERT_BOUND; LSQR capped through the plain products.  Phase 9's
+    convection-diffusion operator with a block whose column 0 is phase
+    10b's b: CRAIG (btol 1e-8, etol 1e-10) and CRAIG-MR (etol 1e-10)
+    through the DIA SpMM kernel on A and on ``dia_transpose(A)``, each
+    column's SQD residuals at most SQD_BOUND; CRAIG capped through the
+    plain products.  Each column 0's count against phase 10's or 10b's,
+    and each SpMM timed on A^T at K = KB."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "13 least-squares blocks"
+    A, coo, b = se
+    m, n = A.shape
+    fwd, bwd = A.cards["fwd"], A.cards["bwd"]
+    Bm = _block_of(b)
+    fro = float(np.sqrt((coo[0].astype(np.float64) ** 2).sum()))
+
+    def certificate(res):
+        r = Bm - S.sell_matmat_plain(fwd, res.x)
+        ar = torch.linalg.vector_norm(S.sell_matmat_plain(bwd, r), dim=0)
+        return {"||A'r||/(||A||_F ||r||)": (
+            (ar / (fro * torch.linalg.vector_norm(r, dim=0))).tolist(),
+            CERT_BOUND)}
+
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0}
+    for method in (None, "lsmr"):                       # warm-ups
+        pt.solve(A, Bm, method=method, itnlim=10, **opts)
+    out = {}
+    for label, name, method, ref in (
+            ("solve (lsqr_batched)", "lsqr", None, "lsqr"),
+            ("lsmr_batched", "lsmr", "lsmr", "solve (LSMR)")):
+        s = single_se[ref]
+        _block_solve(pt, tag, label, name, A, Bm,
+                     dict(opts, method=method), "sell_spmm",
+                     (s["n_iter"], s["ms_per_iter"]), certificate, out)
+    _plain_equal(pt, tag, "lsqr", A, Bm, opts, out)
+    vals, rows, cols, _ = coo
+    out["sell_transpose"] = _spmm_transpose_timing(
+        tag + ", SELL", lambda X: S.sell_matmat(bwd, X),
+        lambda X: S.sell_matmat_plain(bwd, X),
+        _torch_csr((vals, cols, rows, (n, m)), DEVICE), (n, m, len(vals)),
+        S.sell_bytes(bwd), rates)
+    del Bm
+
+    A, coo, b = cd
+    m = A.shape[0]
+    data, offsets = A.container.data, A.container.offsets
+    t = K.dia_transpose(A.container)
+    Bm = _block_of(b)
+    bn = torch.linalg.vector_norm(Bm, dim=0)
+
+    def ax(X):
+        return K.dia_matmat_plain(data, offsets, X)
+
+    def atx(X):
+        return K.dia_matmat_plain(t.data, t.offsets, X)
+
+    def sqd(res):
+        r = res.info["r"]
+        return {"||b - Ax - r||/||b||": (
+                    (torch.linalg.vector_norm(Bm - ax(res.x) - r, dim=0)
+                     / bn).tolist(), SQD_BOUND),
+                "||A'r - x||/||x||": (_col_rel(atx(r) - res.x, res.x),
+                                      SQD_BOUND)}
+
+    def dual(res):
+        y = res.x
+        return {"||(AA' + I)y - b||/||b||": (
+            (torch.linalg.vector_norm(ax(atx(y)) + y - Bm, dim=0)
+             / bn).tolist(), SQD_BOUND)}
+
+    runs = (("craig_batched", "craig", {"btol": 1e-8, "etol": 1e-10}, sqd),
+            ("craigmr_batched", "craigmr", {"etol": 1e-10}, dual))
+    for _, name, o, _ in runs:                          # warm-ups
+        pt.solve(A, Bm, method=name, itnlim=10, **o)
+    for label, name, o, check in runs:
+        s = single_cd[name]
+        _block_solve(pt, tag, label, name, A, Bm, dict(o, method=name),
+                     "dia_spmm", (s["n_iter"], s["ms_per_iter"]), check, out)
+    _plain_equal(pt, tag, "craig", A, Bm, runs[0][2], out)
+    vals, rows, cols, _ = coo
+    out["dia_transpose"] = _spmm_transpose_timing(
+        tag + ", DIA", lambda X: K.dia_matmat(t.data, t.offsets, X),
+        lambda X: K.dia_matmat_plain(t.data, t.offsets, X),
+        _torch_csr((vals, cols, rows, (m, m)), DEVICE), (m, m, len(vals)),
+        len(t.offsets) * m * 4, rates)
     return out
 
 
@@ -2250,23 +2646,33 @@ def main():
     A_bell, coo_bell, bell = phase_bell_path(pt)
     bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
     new_s = {}
-    cd = {}
+    keep = {}      # operators and b of phases 8, 9 and 10 for 10b-13
 
-    def nonsym():
-        out, cd["A"], cd["coo"] = phase_nonsym(pt)
-        return out
+    def kept(name, phase):
+        def run():
+            out, keep[name] = phase()
+            return out
+        return run
 
-    for key, run in (("8", lambda: phase_indefinite(pt, coo_dia)),
+    for key, run in (("8", kept("helm", lambda: phase_indefinite(pt,
+                                                                 coo_dia))),
                      ("8b", lambda: phase_minres_golden(pt, A_bell,
                                                         coo_bell)),
-                     ("9", nonsym),
+                     ("9", kept("cd", lambda: phase_nonsym(pt))),
                      ("9b", lambda: phase_bmark(pt)),
-                     ("10", lambda: phase_lls_sell(pt, rates)),
-                     ("10b", lambda: phase_lls_dia(pt, cd["A"], cd["coo"],
-                                                   rates))):
+                     ("10", kept("se", lambda: phase_lls_sell(pt, rates))),
+                     ("10b", lambda: phase_lls_dia(pt, *keep["cd"][:2],
+                                                   rates)),
+                     ("11", lambda: phase_block_nonsym(
+                         pt, *keep["cd"], new_s["9"][0])),
+                     ("12", lambda: phase_block_indefinite(
+                         pt, *keep["helm"], new_s["8"][0])),
+                     ("13", lambda: phase_block_lls(
+                         pt, keep["se"], keep["cd"], new_s["10"][0],
+                         new_s["10b"][0], rates))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
-    cd.clear()
+    keep.clear()
     dia_best, dia_b = phase_dia_timing(A_dia, coo_dia, rates)
 
     from pykrylov_tpu_torch.sparse import kernels as K
@@ -2362,7 +2768,7 @@ def main():
             "8b": {k: v["launches"] for k, v in new_s["8b"][0].items()},
             **{key: {k: v["launches"] for k, v in new_s[key][0].items()
                      if isinstance(v, dict) and "launches" in v}
-               for key in ("9", "9b", "10", "10b")}}
+               for key in ("9", "9b", "10", "10b", "11", "12", "13")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -2378,13 +2784,28 @@ def main():
         mixed_ms=bt["kernel f32/f64"], mixed_plain_ms=bt["plain f32/f64"],
         mixed_bound_ms=bell_b["mixed"]["bound_ms"],
         mixed_bound_by=bell_b["mixed"]["bound_by"])
-    ind, gold, nonsym, bmark, se, lls = (
-        new_s[k][0] for k in ("8", "8b", "9", "9b", "10", "10b"))
+    ind, gold, nonsym, bmark, se, lls, blk11, blk12, blk13 = (
+        new_s[k][0] for k in ("8", "8b", "9", "9b", "10", "10b", "11", "12",
+                              "13"))
     # both directions of the least-squares path: state estimation A and
     # A^T through the SELL kernel (10), convection-diffusion A and A^T
     # through the DIA kernel (10b); 2 launches an iteration, one each
     kernels[0]["lls_directions"] = lls["timing"]
     kernels[1]["lls_directions"] = se["timing"]
+    # the SpMM kernels on A^T at K = KB (13), and the block solves of
+    # phases 11-13 through them
+    kernels[2]["transpose"] = blk13["dia_transpose"]
+    kernels[3]["transpose"] = blk13["sell_transpose"]
+    blocks = {"%s %s" % (key, label): {
+        k: v[k] for k in ("kernel", "n_iter", "ms_per_iter",
+                          "ms_per_column_iter", "single_ms_per_iter",
+                          "columns", "single")}
+        | {"idle": v["profile"]["idle"]}
+        for key, out in (("11", blk11), ("12", blk12), ("13", blk13))
+        for label, v in out.items() if isinstance(v, dict) and "profile" in v}
+    for entry in kernels[2:]:
+        entry["block_solves"] = {k: v for k, v in blocks.items()
+                                 if v["kernel"] == entry["name"]}
     log("[7 result] card: %s; DIA n=%d: %d iterations in %.3f s, K=%d "
         "block %d in %.3f s; BELL tiled 1138bus: %d iterations in %.3f s, "
         "K=%d block %d in %.3f s; smoke took %.1f s"
@@ -2420,6 +2841,14 @@ def main():
                      % (k, v["n_iter"], v["ref"], v["solve_s"],
                         100 * v["profile"]["idle"])
                      for k, v in lls.items() if "ref" in v)))
+    log("[7 result] phase 11 (%.1f s), 12 (%.1f s), 13 (%.1f s), K=%d: %s"
+        % (new_s["11"][1], new_s["12"][1], new_s["13"][1], KB,
+           "; ".join("%s: %d block it. (column 0 %d, single %d), %.4f ms per "
+                     "block it., %.4f per column-it. (single %.4f), idle "
+                     "%.1f%%" % (k, v["n_iter"], v["columns"][0], v["single"],
+                                 v["ms_per_iter"], v["ms_per_column_iter"],
+                                 v["single_ms_per_iter"], 100 * v["idle"])
+                     for k, v in blocks.items())))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,18 +6,19 @@ tensor code is PyTorch; each Pallas kernel becomes a CUDA kernel written
 for Hopper, compiled from ``csrc/`` at first use.  This package imports
 torch and NumPy, never JAX.
 
-Ported so far: the operator layer with native block products, CG and
-block-batched CG, MINRES, SYMMLQ, BiCGSTAB, CGS, TFQMR, LSQR, LSMR, CRAIG
-and CRAIG-MR with the reference's ``show`` tables, the reference-style
+Ported so far: the operator layer with native block products, CG, MINRES,
+SYMMLQ, BiCGSTAB, CGS, TFQMR, LSQR, LSMR, CRAIG and CRAIG-MR with the
+reference's ``show`` tables and each with its block-batched twin, the reference-style
 class API (``compat``) and its import paths (``cg``, ``minres``, ...,
 ``lls``, ``linop``, ``generic``, ``tools``), the numerics utilities, the
 sparse containers with their plain products, the CUDA DIA and BELL SpMV
 and SpMM kernels, automatic format choice, MatrixMarket reading, the
 bundled matrices, the Poisson, tiled and convection-diffusion galleries,
-and ``solve``: CG for symmetric positive definite systems (one right-hand
-side or an (n, K) block of them), falling back to MINRES on an indefinite
-operator; BiCGSTAB, falling back to TFQMR on a breakdown, for unsymmetric
-ones; and LSMR for rectangular ones.
+and ``solve``: CG for symmetric positive definite systems, falling back to
+MINRES on an indefinite operator; BiCGSTAB, falling back to TFQMR on a
+breakdown, for unsymmetric ones; and LSMR for rectangular ones.  An (n, K)
+block of right-hand sides goes to ``cg_batched``, ``bicgstab_batched`` or
+``lsqr_batched`` by the same shapes, or to ``method=``'s batched twin.
 """
 
 from .version import __version__

@@ -14,16 +14,17 @@ Both fallbacks dispatch on the first solver's stop code, read on the host;
 the JAX package's traced variants (a ``lax.cond`` under ``jit``) have no
 counterpart in an eager loop.
 
-For an (n, K) block of right-hand sides (``_solve_block``), a square
-symmetric or hermitian operator, or ``method="cg"``, goes to
-:func:`~pykrylov_tpu_torch.solvers.cg_batched`, which applies the operator
-to all K columns at once through its native block product; the other
-batched solvers (square general → ``bicgstab_batched``, rectangular →
-``lsqr_batched``, each ``method=``'s own) are not ported yet.
+For an (n, K) block of right-hand sides (``_solve_block``, after the JAX
+package's ``solve.py:204-288``) each method goes to its batched twin,
+which applies the operator (and A^T) to all K columns at once through its
+native block product; without ``method=``, a rectangular operator goes to
+``lsqr_batched``, a square symmetric or hermitian one to ``cg_batched``
+and any other square one to ``bicgstab_batched``.  A block has no
+fallback: the batched solvers report per-column stop codes.
 
 Each branch whose solver is not ported yet raises ``NotImplementedError``
-naming its ROADMAP.md item, as do ``verified=True`` (any shape) and
-``method="cg_pipelined"``.
+naming its ROADMAP.md item: ``verified=True`` (any shape) and
+``method="cg_pipelined"`` (either shape of right-hand side).
 
 An operator that carries ``solve_permutation`` (an RCM-reordered BELL
 operator, ``A = P^T A' P``) is solved in the permuted space: ``A' x' = P b``
@@ -39,7 +40,10 @@ import numpy as np
 import torch
 
 from .ops.base import DiagonalOperator, LinearOperator
-from .solvers.batched import cg_batched
+from .solvers.batched import (bicgstab_batched, cg_batched, cgs_batched,
+                              craig_batched, craigmr_batched, lsmr_batched,
+                              lsqr_batched, minres_batched, symmlq_batched,
+                              tfqmr_batched)
 from .solvers.bicgstab import bicgstab
 from .solvers.cg import cg
 from .solvers.cgs import cgs
@@ -62,6 +66,12 @@ _METHODS = ("cg", "cg_pipelined", "minres", "symmlq", "bicgstab", "cgs",
 _SOLVERS = {"cg": cg, "minres": minres, "symmlq": symmlq,
             "bicgstab": bicgstab, "cgs": cgs, "tfqmr": tfqmr, "lsqr": lsqr,
             "lsmr": lsmr, "craig": craig, "craigmr": craigmr}
+# method -> its batched twin, where ported (JAX solve.py:204-210)
+_BATCHED = {"cg": cg_batched, "bicgstab": bicgstab_batched,
+            "cgs": cgs_batched, "tfqmr": tfqmr_batched,
+            "minres": minres_batched, "symmlq": symmlq_batched,
+            "lsqr": lsqr_batched, "lsmr": lsmr_batched,
+            "craig": craig_batched, "craigmr": craigmr_batched}
 # method -> ROADMAP.md queue 1 item that ports it, where not
 _ITEM = {"cg_pipelined": 16}
 
@@ -110,24 +120,22 @@ def _check_method(method):
 
 
 def _solve_block(A, B, method, verified, opts):
-    """Multi-RHS dispatch: ``cg_batched`` for CG; every other batched
-    solver and the verified block paths raise naming their item."""
+    """Multi-RHS dispatch: each method's batched twin; by shape without
+    ``method=``.  The verified block paths raise naming their item."""
     if verified:
         raise _not_ported("solve(verified=True) with an (n, K) block", 15)
     if method is not None:
         _check_method(method)
-        if method != "cg":
+        if method not in _BATCHED:
             raise _not_ported("method=%r with an (n, K) block (%s_batched)"
-                              % (method, method), 14)
-        return cg_batched(A, B, **opts)
+                              % (method, method), _ITEM[method])
+        return _BATCHED[method](A, B, **opts)
     m, n = A.shape
     if m != n:
-        raise _not_ported("solve() on a rectangular operator with an "
-                          "(n, K) block (lsqr_batched)", 14)
+        return lsqr_batched(A, B, **opts)
     if A.symmetric or A.hermitian:
         return cg_batched(A, B, **opts)
-    raise _not_ported("solve() on a square unsymmetric operator with an "
-                      "(n, K) block (bicgstab_batched)", 14)
+    return bicgstab_batched(A, B, **opts)
 
 
 def solve(A, b, method=None, verified=False, **opts):

@@ -1,13 +1,14 @@
 """Krylov solvers — plain functions on tensors returning ``SolveResult``.
 
-CG with its block-batched twin ``cg_batched`` (and ``solve_columns``, one
-solve per column), MINRES and SYMMLQ for symmetric indefinite systems,
-BiCGSTAB, CGS and TFQMR for square unsymmetric ones, and LSQR, LSMR, CRAIG
-and CRAIG-MR for rectangular and regularized ones are ported; the other
-solvers of ``pykrylov_tpu.solvers`` (the batched, verified, pipelined and
+CG, MINRES and SYMMLQ for symmetric indefinite systems, BiCGSTAB, CGS and
+TFQMR for square unsymmetric ones, and LSQR, LSMR, CRAIG and CRAIG-MR for
+rectangular and regularized ones are ported, each with its block-batched
+twin for an (n, K) block of right-hand sides (``cg_batched`` ...
+``craigmr_batched``; ``solve_columns`` runs one solve per column); the
+other solvers of ``pykrylov_tpu.solvers`` (the verified, pipelined and
 differentiable variants) follow in the order of ROADMAP.md queue 1.
 Each solver's module keeps its ``ISTOP_MSG`` table; ``ISTOP_MSGS`` gathers
-them by solver name.
+them by solver name, the batched twins' included.
 
 The submodules are imported before the function names are bound, so each
 name below is the solver, not the module of the same name.
@@ -28,15 +29,29 @@ from .lsqr import lsqr
 from .lsmr import lsmr
 from .craig import craig
 from .craigmr import craigmr
-from .batched import ISTOP_MSG, cg_batched, solve_columns
+from .batched import (ISTOP_MSG, ISTOP_MSG_TF, cg_batched, bicgstab_batched,
+                      cgs_batched, tfqmr_batched, minres_batched,
+                      symmlq_batched, lsqr_batched, lsmr_batched,
+                      craig_batched, craigmr_batched, solve_columns)
 
 ISTOP_MSGS = {"cg": _m_cg.ISTOP_MSG, "cg_batched": ISTOP_MSG,
               "minres": _m_minres.ISTOP_MSG, "symmlq": _m_symmlq.ISTOP_MSG,
               "bicgstab": _m_bicgstab.ISTOP_MSG, "cgs": _m_cgs.ISTOP_MSG,
               "tfqmr": _m_tfqmr.ISTOP_MSG, "lsqr": _m_lsqr.ISTOP_MSG,
               "lsmr": _m_lsmr.ISTOP_MSG, "craig": _m_craig.ISTOP_MSG,
-              "craigmr": _m_craigmr.ISTOP_MSG}
+              "craigmr": _m_craigmr.ISTOP_MSG,
+              "bicgstab_batched": ISTOP_MSG_TF, "cgs_batched": ISTOP_MSG_TF,
+              "tfqmr_batched": ISTOP_MSG_TF,
+              "minres_batched": _m_minres.ISTOP_MSG,
+              "symmlq_batched": _m_symmlq.ISTOP_MSG,
+              "lsqr_batched": _m_lsqr.ISTOP_MSG,
+              "lsmr_batched": _m_lsmr.ISTOP_MSG,
+              "craig_batched": _m_craig.ISTOP_MSG,
+              "craigmr_batched": _m_craigmr.ISTOP_MSG}
 
 __all__ = ["SolveResult", "cg", "minres", "symmlq", "bicgstab", "cgs",
            "tfqmr", "lsqr", "lsmr", "craig", "craigmr", "cg_batched",
-           "solve_columns", "ISTOP_MSG", "ISTOP_MSGS"]
+           "bicgstab_batched", "cgs_batched", "tfqmr_batched",
+           "minres_batched", "symmlq_batched", "lsqr_batched",
+           "lsmr_batched", "craig_batched", "craigmr_batched",
+           "solve_columns", "ISTOP_MSG", "ISTOP_MSG_TF", "ISTOP_MSGS"]

@@ -17,7 +17,11 @@ the two packages and between a batched and a single solve, so:
 
 The sparse slice runs the port's operators on the CPU, where the DIA and
 BELL wrappers take their kernels' plain versions, against the JAX
-package's Pallas operators in interpret mode.
+package's Pallas operators in interpret mode.  The block routes of
+``solve(A, B)`` (``method=``'s twin, ``bicgstab_batched`` on a square
+unsymmetric operator, ``lsqr_batched`` on a rectangular one, through the
+RCM permuted space too) are held against the JAX package's ``solve`` at
+the tolerances of ``tests/test_torch_batched_nonsym.py``.
 """
 
 import dataclasses
@@ -42,8 +46,12 @@ from pykrylov_tpu_torch.ops import DiagonalOperator, MatrixOperator
 from pykrylov_tpu_torch.ops.base import ShapeError
 from pykrylov_tpu_torch.solvers import (ISTOP_MSG, cg, cg_batched,
                                         solve_columns)
+from pykrylov_tpu_torch import solvers as PS
 from pykrylov_tpu_torch.sparse import kernels as K
 from pykrylov_tpu_torch.sparse import operator_from_coo
+
+from test_torch_batched_nonsym import match_jax, unsym
+from test_torch_lls import rect
 
 DEV = "cpu"  # the port's entry points default to the card
 ITER_RTOL = 0.1
@@ -300,30 +308,89 @@ def test_solve_block_through_bell_matches_jax(fmt):
     assert rel(res.x.numpy(), np.linalg.solve(a, B)) <= 1e-8
 
 
+def _route_case(case):
+    """(port operator, JAX operator, block, method, the port's batched twin
+    that the JAX package's solve(A, B) picks) for a block route."""
+    rng = np.random.default_rng(40)
+    if case in ("lsqr", "rectangular"):
+        a = rect(90, 40, seed=41)
+        B = np.stack([a @ np.ones(40), rng.standard_normal(90)], axis=1)
+        sym, twin = False, PS.lsqr_batched
+    elif case == "minres":
+        a = spd(n=60, cond=1e2, seed=42)
+        B = rng.standard_normal((60, 3))
+        sym, twin = True, PS.minres_batched
+    else:
+        a = unsym(n=60, seed=43)
+        B = rng.standard_normal((60, 3))
+        sym, twin = False, PS.bicgstab_batched
+    method = None if case in ("unsymmetric", "rectangular") else case
+    return (MatrixOperator(a, symmetric=sym, device=DEV),
+            linop_from_ndarray(jnp.asarray(a), symmetric=sym), B, method,
+            twin)
+
+
 @pytest.mark.parametrize("case", ["minres", "bicgstab", "lsqr",
                                   "cg_pipelined", "unsymmetric",
                                   "rectangular", "verified"])
 def test_unported_block_branches_name_their_item(case):
+    # the block branches that ROADMAP item 14 ported route as the JAX
+    # package's solve(A, B) does: method= to its batched twin, a square
+    # unsymmetric operator to bicgstab_batched, a rectangular one to
+    # lsqr_batched, each result the JAX package's at the tolerances of
+    # tests/test_torch_batched_nonsym.py; the pipelined twin (item 16) and
+    # the verified block paths (item 15) still raise naming their item
     spd3 = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                           symmetric=True, device=DEV)
-    B = torch.ones(3, 2, dtype=torch.float64)
-    calls = {
-        "unsymmetric": lambda: pt.solve(
-            MatrixOperator(torch.eye(3, dtype=torch.float64), device=DEV),
-            B),
-        "rectangular": lambda: pt.solve(
-            MatrixOperator(torch.ones(4, 3, dtype=torch.float64),
-                           device=DEV), torch.ones(4, 2,
-                                                   dtype=torch.float64)),
-        "verified": lambda: pt.solve(spd3, B, verified=True),
-    }
-    item = 15 if case == "verified" else 14
-    call = calls.get(case, lambda: pt.solve(spd3, B, method=case))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item %d$" % item):
-        call()
+    B3 = torch.ones(3, 2, dtype=torch.float64)
+    if case in ("cg_pipelined", "verified"):
+        item = 15 if case == "verified" else 16
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item %d$" % item):
+            if case == "verified":
+                pt.solve(spd3, B3, verified=True)
+            else:
+                pt.solve(spd3, B3, method=case)
+    else:
+        A, jA, B, method, twin = _route_case(case)
+        opts = dict(atol=1e-10, btol=1e-10, etol=0.0) if twin is \
+            PS.lsqr_batched else dict(rtol=1e-10)
+        if twin is PS.minres_batched:
+            opts["etol"] = 0.0
+        res = pt.solve(A, torch.from_numpy(B), method=method, **opts)
+        jres = jax_solve(jA, jnp.asarray(B), method=method, **opts)
+        match_jax(res, jres)
+        assert bool(res.converged.all())
+        # the route is the twin's: the same call gives the same bits
+        assert torch.equal(res.x, twin(A, torch.from_numpy(B), **opts).x)
     with pytest.raises(ValueError, match="unknown method"):
-        pt.solve(spd3, B, method="gmres")
+        pt.solve(spd3, B3, method="gmres")
+
+
+def test_solve_block_through_an_unsymmetric_rcm_bell_operator():
+    # solve(A, B) on an RCM-reordered unsymmetric BellOperator: the block
+    # goes to bicgstab_batched in the permuted space (A' X' = P B), and X
+    # is un-permuted once; x against the JAX package's solve(A, B)
+    a, t = _sparse_spd(n=600, seed=44)
+    a = a + np.triu(a, 1) * 0.5                         # unsymmetric
+    rr, cc = np.nonzero(a)
+    t = (a[rr, cc], rr, cc, a.shape)
+    A = operator_from_coo(*t, fmt="bell-rcm", device=DEV)
+    assert A.solve_permutation is not None and not A.symmetric
+    B = np.random.default_rng(45).standard_normal((600, 3))
+    X0 = 0.1 * np.random.default_rng(46).standard_normal((600, 3))
+    res = pt.solve(A, torch.from_numpy(B), x0=torch.from_numpy(X0),
+                   rtol=1e-10)
+    jres = jax_solve(linop_from_ndarray(jnp.asarray(a)), jnp.asarray(B),
+                     x0=jnp.asarray(X0), rtol=1e-10)
+    match_jax(res, jres)
+    assert "n_matvec_columns" in res.info        # BiCGSTAB's
+    assert rel(res.x.numpy(), np.linalg.solve(a, B)) <= 1e-8
+    # the same solve on the unpermuted operator
+    plain = pt.solve(operator_from_coo(*t, fmt="bell", device=DEV),
+                     torch.from_numpy(B), x0=torch.from_numpy(X0),
+                     rtol=1e-10)
+    assert rel(res.x.numpy(), plain.x.numpy()) <= 1e-8
 
 
 def test_solve_block_with_method_cg_and_default_agree():

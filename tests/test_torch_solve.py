@@ -99,6 +99,13 @@ def test_auto_on_cpu_keeps_plain_dia_for_large_stencils():
     assert A.fmt == "dia" and A.device.type == "cpu"
 
 
+# the two block cases name item 14, which ported their batched solvers:
+# they are route tests now (the port's solve(A, B) against the JAX
+# package's, through the twin it picks)
+BLOCK_ROUTES = {"block_rhs": "bicgstab_batched",
+                "rectangular_block": "lsqr_batched"}
+
+
 @pytest.mark.parametrize("case,item", [
     ("block_rhs", 14), ("verified", 15), ("cg_pipelined", 16),
     ("replace_every", 15), ("rectangular_verified", 15),
@@ -108,21 +115,39 @@ def test_not_ported_branches_name_their_roadmap_item(case, item):
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                          symmetric=True, device=DEV)
     b = torch.ones(3, dtype=torch.float64)
-    rect = MatrixOperator(torch.ones(4, 3, dtype=torch.float64), device=DEV)
+    rop = MatrixOperator(torch.ones(4, 3, dtype=torch.float64), device=DEV)
+    if case in BLOCK_ROUTES:
+        # an (n, K) block on a square unsymmetric operator goes to
+        # bicgstab_batched, on a rectangular one to lsqr_batched, as in
+        # the JAX package
+        rng = np.random.default_rng(item)
+        if case == "block_rhs":
+            a = np.eye(50) + 0.3 * np.triu(rng.standard_normal((50, 50)),
+                                           1) / np.sqrt(50)
+            opts = dict(rtol=1e-10)
+        else:
+            a = rect(70, 30, seed=item)
+            opts = dict(atol=1e-10, btol=1e-10, etol=0.0)
+        B = rng.standard_normal((a.shape[0], 2))
+        A = MatrixOperator(a, device=DEV)
+        res = pt.solve(A, torch.from_numpy(B), **opts)
+        jres = pykrylov_tpu.solve(JMatrix(jnp.asarray(a)), jnp.asarray(B),
+                                  **opts)
+        twin = getattr(pt.solvers, BLOCK_ROUTES[case])
+        assert torch.equal(res.x, twin(A, torch.from_numpy(B), **opts).x)
+        assert set(res.info) == set(jres.info)
+        np.testing.assert_array_equal(res.istop.numpy(),
+                                      np.asarray(jres.istop))
+        np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x),
+                                   rtol=1e-8, atol=1e-12)
+        assert bool(res.converged.all())
+        return
     calls = {
-        # an (n, K) block on a square unsymmetric operator: its batched
-        # solver (bicgstab_batched) is not ported; CG blocks are
-        "block_rhs": lambda: pt.solve(
-            MatrixOperator(torch.eye(3, dtype=torch.float64), device=DEV),
-            torch.ones(3, 2, dtype=torch.float64)),
         "verified": lambda: pt.solve(spd, b, verified=True),
         "replace_every": lambda: cg(spd, b, replace_every=50),
-        # the rectangular branch's verified stop (refined_lls) and its
-        # block solver (lsqr_batched)
+        # the rectangular branch's verified stop (refined_lls)
         "rectangular_verified": lambda: pt.solve(
-            rect, torch.ones(4, dtype=torch.float64), verified=True),
-        "rectangular_block": lambda: pt.solve(
-            rect, torch.ones(4, 2, dtype=torch.float64)),
+            rop, torch.ones(4, dtype=torch.float64), verified=True),
     }
     call = calls.get(case, lambda: pt.solve(spd, b, method=case))
     with pytest.raises(NotImplementedError,
