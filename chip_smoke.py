@@ -28,7 +28,9 @@ rectangular branch) and LSQR on a 2.67M x 1.17M power-system
 state-estimation matrix (SELL in both directions), and LSQR, LSMR, CRAIG
 and CRAIG-MR on the convection-diffusion matrix (DIA in both
 directions); and, with a block of K = 8, the nine batched solvers on the
-same operators, through the SpMM kernels on A and A^T.
+same operators, through the SpMM kernels on A and A^T; and every
+verified route (``solve(verified=True)``, ff-CG, ff-MINRES and the
+verified block twins) on the same operators, with f32 storage.
 
 Phases, in order:
 
@@ -119,7 +121,7 @@ Phases, in order:
      every block product through the DIA SpMM (launches = the solver's
      block products, no SpMV launch), every column's true relative
      residual in f64 at most 1e-4, column 0's count within 10% of phase
-     9's (25% for CGS and TFQMR), a profile of the first 200 block
+     9's (25% for CGS and TFQMR), a profile of the first 50 block
      iterations of each, and BiCGSTAB capped at 100 block iterations
      through the plain products: x bit for bit;
   12. indefinite blocks: phase 8's operator and b, the same way:
@@ -134,6 +136,31 @@ Phases, in order:
      at most 1e-8, CRAIG capped through the plain products; each SpMM on
      A^T timed at K = 8 (f32 and f64 block, plain, torch's CSR SpMM)
      against its bound;
+  14. verified solves, one right-hand side, f32 storage, verified rtol
+     1e-6 (:func:`phase_verified_single`): refined CG legs and ff-CG on
+     phase 4's Poisson operator and b (DIA SpMV); refined BiCGSTAB legs
+     on phase 9's operator with the f32 b, rerun with the f64 b if it
+     stops short (istop 1 or 3); ff-MINRES and refined ff-MINRES legs on
+     phase 8b's tiled 1138bus, Jacobi M and b (SELL SpMV, f64 vectors);
+     ``refined_lls`` with LSMR legs on phase 10's state-estimation
+     operator and b (SELL SpMV on both card forms).  Each solve: launches
+     = the products the loop issued (two SpMVs a verification: DIA and
+     SELL storage have no compensated product), the verified stop code,
+     an independent f64 check of x + x_lo at or below the target (14d:
+     phase 10's certificate) that the solver's verified value meets to
+     1e-2 plus the verifier's own rounding, a profiled window of at most
+     40 iterations, the earlier phase's unverified time beside; one
+     capped run of each through the plain products, bit for bit;
+  15. verified blocks, K = 8, column 0 the single phase's b, seven
+     standard normal (seed 0) (:func:`phase_verified_blocks`): ff
+     ``cg_batched`` on Poisson (f32; (n, 8) products and (n, 16)
+     replacements through the DIA SpMM), ``refined_solve_batched`` with
+     BiCGSTAB legs on convection-diffusion (f32 where 14b's f32 passed,
+     rerun in f64 if it stops short; legs capped at phase 11's count),
+     ff ``minres_batched`` on tiled 1138bus with Jacobi (f64; one (n, 16)
+     SELL SpMM an iteration); the checks of 14 per column; then both
+     SpMMs at K = 16 with an f64 block timed against their bound and
+     torch's CSR SpMM in f64;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -155,9 +182,12 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-13,
-     ``launches_by_phase``; the SpMV kernels with their mixed-pair times
-     and bounds and both directions of the least-squares path,
+     (each with its launches in every run of phases 8-15,
+     ``launches_by_phase``, and the verified solves of phases 14-15 that
+     ran through it, ``verified_solves``; the SpMMs with their K = 16
+     f64-block times, ``k16_f64_block``; the SpMV kernels with their
+     mixed-pair times and bounds and both directions of the least-squares
+     path,
      ``lls_directions``; the SpMM kernels with their mixed-pair times at
      K = 8, their A^T times (``transpose``) and the block solves of
      phases 11-13 that ran through them (``block_solves``); the DIA
@@ -166,7 +196,7 @@ Phases, in order:
      and spill bytes), then the result line ``{"ok": true, "device":
      {...}}``.
 
-Phases 8-13 run after 5b and before 6; each resets every launch count
+Phases 8-15 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -931,7 +961,8 @@ def phase_dia_path(pt):
         raise AssertionError("n_iter %d (kernel) vs %d (plain)"
                              % (n_iter, n_plain))
     return A, coo, {"launches": launches, "max_abs_err": err,
-                    "n_iter": n_iter, "solve_s": secs, "plain_op": A_plain}
+                    "n_iter": n_iter, "solve_s": secs, "plain_op": A_plain,
+                    "b": b, "true_rel": true_rel}
 
 
 def _timed_solve(pt, label, A, b):
@@ -1442,7 +1473,8 @@ def phase_minres_golden(pt, A, coo):
     kernel's f32f64 entry.  b = A 1 / sqrt(TILES): MINRES's Anorm estimate
     takes in beta1, which grows as sqrt(TILES) with b = A 1; scaled so,
     beta1 and every stop test are the single matrix's, whose counts are
-    412 iterations at rtol 1e-6 and 583-584 at 1e-8."""
+    412 iterations at rtol 1e-6 and 583-584 at 1e-8.  Returns the
+    phase's numbers and (M, b), which phases 14c and 15c solve with."""
     from pykrylov_tpu_torch.io.datasets import load_bundled
     from pykrylov_tpu_torch.ops import DiagonalOperator
 
@@ -1482,7 +1514,7 @@ def phase_minres_golden(pt, A, coo):
         out["%.0e" % rtol] = {"n_iter": n_iter, "solve_s": secs,
                               "true_rel": true_rel, "launches": counts}
     del rows, cols, vals
-    return out
+    return out, (M, b)
 
 
 def phase_nonsym(pt):
@@ -1931,8 +1963,9 @@ def phase_lls_dia(pt, A, coo, rates):
 
 BLOCK_PLAIN_ITERS = 100     # block iterations of the plain-product runs
 # profiled block iterations a solve (the profiler's cost grows with the
-# events it keeps, ~40-100 kernels a block iteration)
-BLOCK_PROFILE_ITERS = 200
+# events it keeps, ~40-100 kernels a block iteration; 50 keeps the whole
+# smoke, phases 14-15 included, within its time)
+BLOCK_PROFILE_ITERS = 50
 # block products a batched solve makes in k block iterations
 # (solvers/batched.py): the SpMM launches it must count, A and A^T
 BLOCK_PRODUCTS = {"bicgstab": lambda k: 2 * k, "cgs": lambda k: 2 * k,
@@ -1967,7 +2000,8 @@ def _plain_block_op(pt, A):
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import sell as S
     if getattr(A, "cards", None) is not None:
-        fwd, bwd = A.cards["fwd"], A.cards["bwd"]
+        fwd = A.cards["fwd"]
+        bwd = A.cards.get("bwd", fwd)       # a symmetric matrix has one
         rules = (lambda x: S.sell_matvec_plain(fwd, x),
                  lambda x: S.sell_matvec_plain(bwd, x),
                  lambda X: S.sell_matmat_plain(fwd, X),
@@ -2292,6 +2326,572 @@ def phase_block_lls(pt, se, cd, single_se, single_cd, rates):
         lambda X: K.dia_matmat_plain(t.data, t.offsets, X),
         _torch_csr((vals, cols, rows, (m, m)), DEVICE), (m, m, len(vals)),
         len(t.offsets) * m * 4, rates)
+    return out
+
+
+# --------------------------------------------------------------------------
+# 14-15. verified arithmetic: refinement legs, ff-CG, ff-MINRES, and the
+# verified block twins, on the operators of phases 4-13
+# --------------------------------------------------------------------------
+
+VER_RTOL = 1e-6         # the verified target of phases 14-15
+# a solver's verified residual against the independent f64 check, relative,
+# beside the verifier's own rounding: without a compensated product its two
+# applies round in the working dtype, eps ||(|A| |x|)|| / ||b|| (:func:
+# `_rel_check`), which an f32 block column of the convection-diffusion
+# matrix (standard normal b, a large x) puts at 1.8e-6 of ||b||
+VER_AGREE = 1e-2
+# iterations of each profiled window (the profiler's cost grows with the
+# events it keeps: the ff solves launch 75-1290 kernels an iteration)
+VER_PROFILE_ITERS = 40
+# the profiled window of a refinement driver: two legs of at most half the
+# window each (a first leg to rtol 1e-2 may take only a few iterations)
+LEG_WINDOW = {"max_legs": 2, "leg_maxiter": VER_PROFILE_ITERS // 2}
+VER_PLAIN_ITERS = 100   # ff-CG's and ff-MINRES's plain-product runs
+VER_PLAIN_LEGS = 2      # the refinement drivers' plain-product runs, each
+                        # leg capped at VER_PLAIN_ITERS
+# a BiCGSTAB refinement leg (14b, 15b) is capped at the work the earlier
+# phase's unverified solve of the same b took to reach rtol from scratch
+# (the single solver's cap is in matvecs, the block twin's in block
+# iterations): a leg whose tightened rtol the f32 recurrence cannot reach
+# otherwise runs to the solver's default cap of 2n (8.4M here), and a cap
+# of 2000 block iterations stopped four f32 columns and one f64 column at
+# their first leg's 1e-2 (istop 3, on an NVIDIA H100 80GB HBM3); a capped
+# leg ends, is verified, and counts towards the driver's precision floor
+CD_MAX_LEGS = 6
+# legs of 15b's f32 block attempt: its columns that stall do so after their
+# first leg (five columns at 1e-2 after six legs, 70 s, on an NVIDIA H100
+# 80GB HBM3), so three legs show the outcome at half the cost
+CD_F32_BLOCK_LEGS = 3
+# (label, where a profiled kernel's name says what it is)
+PROFILE_GROUPS = (("kernel", ("spmv_kernel", "spmm_kernel")),
+                  ("reductions", ("reduce",)),
+                  ("elementwise", ("elementwise",)))
+
+
+def _profile_call(tag, fn, wall_per_iter):
+    """One run of ``fn()`` (a verified solve capped at VER_PROFILE_ITERS
+    iterations) under torch.profiler: device ms per iteration of the four
+    kernels, of the ff elementwise passes and of the reductions, busy, the
+    unprofiled wall (``wall_per_iter``, the full solve's) and the idle
+    share of it, and the launches an iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    n = max(int(res.n_iter), 1)
+    groups = {label: 0.0 for label, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        launches += e.count
+        label = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in e.key for k in keys)), "other")
+        groups[label] += e.self_device_time_total * 1e-3 / n
+    busy = sum(groups.values())
+    if busy == 0:
+        raise AssertionError("%s: the profiler saw no device time" % tag)
+    out = {k + "_ms": v for k, v in groups.items()}
+    out.update(busy_ms_per_iter=busy, wall_ms_per_iter=wall_per_iter,
+               idle=max(0.0, 1 - busy / wall_per_iter),
+               launches_per_iter=launches / n, iterations=n)
+    log("[%s] profile of %d iterations, ms per iteration: kernel %.4f, ff "
+        "elementwise %.4f, reductions %.4f, other %.4f; busy %.4f, wall "
+        "%.4f, idle %.1f%%; %.1f launches per iteration"
+        % (tag, n, groups["kernel"], groups["elementwise"],
+           groups["reductions"], groups["other"], busy, wall_per_iter,
+           100 * out["idle"], out["launches_per_iter"]))
+    return out
+
+
+def _verified(tag, label, fn, kernel, launches_of, codes, check, profile,
+              unverified, out):
+    """One verified solve ``fn()`` with every launch count set to 0 just
+    before and read just after: ``kernel``'s launches must equal the
+    products the loop issued (``launches_of(res)``), no other kernel may
+    launch, the stop code must be in ``codes``, and ``check(res)`` (name ->
+    (independent f64 values, the solver's verified values, bound, the
+    verifier's rounding floors), a value per column for a block) must hold
+    every independent value within its bound and the solver's within
+    VER_AGREE of the larger of the two plus the floor.  Then ``profile()``,
+    the
+    same solve capped at VER_PROFILE_ITERS, under the profiler.
+    ``unverified`` = (seconds, true residual) of the earlier phase's
+    unverified solve of the same right-hand side, logged beside.  Records
+    ``out[label]`` and returns the result."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    n_iter, n_mv = int(res.n_iter), int(res.n_matvec)
+    info = res.info
+    legs = info.get("n_legs")
+    nrep = info.get("n_replacements")
+    nrep = None if nrep is None else (int(nrep) if nrep.ndim == 0
+                                      else nrep.tolist())
+    istop = res.istop.tolist()
+    want = launches_of(res)
+    log("[%s] %s: istop %s, %s%d iterations, %s%d matvecs, %d %s launches "
+        "(%d products issued), %.3f s, %.4f ms per iteration"
+        % (tag, label, istop, "" if legs is None else "%d legs, " % legs,
+           n_iter, "" if nrep is None else "replacements %s, " % (nrep,),
+           n_mv, counts[kernel], kernel, want, secs,
+           1e3 * secs / max(n_iter, 1)))
+    if counts[kernel] != want or want == 0:
+        raise AssertionError("%s %s: %d %s launches for %d products"
+                             % (tag, label, counts[kernel], kernel, want))
+    if any(v for k, v in counts.items() if k != kernel):
+        raise AssertionError("%s %s: other kernels launched: %s"
+                             % (tag, label, counts))
+    if not (torch.isfinite(res.x).all() and torch.isfinite(
+            info["x_lo"]).all()):
+        raise AssertionError("%s %s: non-finite solution" % (tag, label))
+    certs = check(res)
+    for name, (vals, claimed, bound, floor) in certs.items():
+        log("[%s] %s: %s (f64, independent) %s, the solver's %s (bound "
+            "%.0e; the verifier's rounding %s)"
+            % (tag, label, name, " ".join("%.3e" % v for v in vals),
+               " ".join("%.3e" % v for v in claimed), bound,
+               " ".join("%.1e" % f for f in floor)))
+    codes_ok = all(c in codes for c in (istop if isinstance(istop, list)
+                                        else [istop]))
+    bad = [name for name, (vals, claimed, bound, floor) in certs.items()
+           if not (max(vals) <= bound and all(
+               abs(c - v) <= VER_AGREE * max(v, c) + f
+               for v, c, f in zip(vals, claimed, floor)))]
+    u_s, u_rel = unverified
+    log("[%s] %s: to the verified target in %.3f s; the unverified solve "
+        "of the same b: %.3f s, true relative residual %.3e"
+        % (tag, label, secs, u_s, u_rel))
+    if bad or not codes_ok:
+        raise AssertionError("%s %s: istop %s, checks failed: %s (%r)"
+                             % (tag, label, istop, bad, certs))
+    out[label] = {"istop": istop, "n_legs": legs, "n_iter": n_iter,
+                  "n_replacements": nrep, "n_matvec": n_mv,
+                  "launches": counts, "kernel": kernel, "solve_s": secs,
+                  "ms_per_iter": 1e3 * secs / max(n_iter, 1),
+                  "unverified_s": u_s, "unverified_true_rel": u_rel,
+                  "checks": {k: max(v[0]) for k, v in certs.items()}}
+    out[label]["profile"] = _profile_call(
+        "%s, %s" % (tag, label), profile, 1e3 * secs / max(n_iter, 1))
+    return res
+
+
+def _plain_same(tag, label, fn, A, plain, out):
+    """``fn(op)`` capped, through the kernels (``A``) and through their
+    plain versions on the same containers (``plain``): x and x_lo bit for
+    bit, and the plain products launch nothing."""
+    kern = fn(A)
+    _reset_counts()
+    ref = fn(plain)
+    torch.cuda.synchronize()
+    if any(_counts().values()):
+        raise AssertionError("%s: the plain products launched %s"
+                             % (tag, _counts()))
+    same = (torch.equal(kern.x, ref.x)
+            and torch.equal(kern.info["x_lo"], ref.info["x_lo"])
+            and int(kern.n_iter) == int(ref.n_iter))
+    log("[%s] %s through the kernels and through the plain products: %d "
+        "and %d iterations, x and x_lo bit for bit: %s"
+        % (tag, label, int(kern.n_iter), int(ref.n_iter), same))
+    if not same:
+        raise AssertionError("%s: %s differs from the plain products' run"
+                             % (tag, label))
+    out["plain " + label] = {"n_iter": int(kern.n_iter), "equal": same}
+
+
+def _rel_check(b, ax64, absax64):
+    """A ``check`` of :func:`_verified`: the independent f64 relative
+    residual of ``x + x_lo`` (``ax64`` gives A x in f64) against the
+    solver's verified ``resid_norm / ||b||``, per column for a block, and
+    the rounding of a verification in the solve's dtype, ``eps ||(|A|
+    |x|)|| / ||b||`` (``absax64`` gives |A| x in f64)."""
+    b64 = b.double()
+    bn = torch.linalg.vector_norm(b64, dim=0)
+
+    def check(res):
+        x = res.x.double() + res.info["x_lo"].double()
+        rel = torch.linalg.vector_norm(b64 - ax64(x), dim=0) / bn
+        claimed = res.resid_norm.double() / bn
+        floor = (torch.finfo(res.x.dtype).eps
+                 * torch.linalg.vector_norm(absax64(x.abs()), dim=0) / bn)
+        return {"||b - Ax||/||b||": (rel.reshape(-1).tolist(),
+                                     claimed.reshape(-1).tolist(), VER_RTOL,
+                                     floor.reshape(-1).tolist())}
+    return check
+
+
+def _dia_f64(A, absolute=False):
+    """A x (|A| x) in f64 through the DIA kernel's plain version, for a
+    vector or a block."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+    c = A.container
+    data = (c.data.abs() if absolute else c.data).double()
+    return lambda x: (K.dia_matvec_plain if x.ndim == 1
+                      else K.dia_matmat_plain)(data, c.offsets, x)
+
+
+def _sell_f64(card, absolute=False):
+    """A x (|A| x) in f64 through the SELL kernel's plain version on the
+    card form (f32 values, an f64 x)."""
+    from pykrylov_tpu_torch.sparse import sell as S
+    if absolute:
+        card = card._replace(vals=card.vals.abs())
+    return lambda x: (S.sell_matvec_plain if x.ndim == 1
+                      else S.sell_matmat_plain)(card, x)
+
+
+def _single_products(res):
+    """The SpMV launches of a single-rhs verified solve without a
+    compensated product: its matvecs (two applies a verification, each
+    counted)."""
+    return int(res.n_matvec)
+
+
+def phase_verified_single(pt, dia, A_dia, A_bus, bus, cd, se, single):
+    """14: one right-hand side, every verified route, f32 storage.
+
+    14a Poisson n = N (phase 4's operator and f32 b), the DIA SpMV:
+    ``solve(verified=True)`` (refined CG legs with the curvature check)
+    and ``cg(replace_every=50)`` (ff-CG).  14b convection-diffusion
+    (phase 9's operator): ``solve(verified=True)`` (refined BiCGSTAB legs,
+    each capped at phase 9's matvecs) on the f32 b; if it stops short
+    (istop 1 or 3) its floor is logged and the f64 b (the f32f64 entry)
+    must pass.  14c tiled
+    1138bus with phase 8b's f64 Jacobi M and b (the SELL SpMV's f32f64
+    entry): ``minres(replace_every=50)`` (ff-MINRES) and
+    ``solve(method="minres", verified=True)`` (refined ff-MINRES legs).
+    14d state estimation (phase 10's operator and b): ``solve(verified=
+    True)`` (``refined_lls`` with LSMR legs) through the SELL SpMV on
+    ``cards["fwd"]`` and ``cards["bwd"]``, held to phase 10's certificate.
+    Each solve: launches = the products the loop issued, the verified stop
+    code, an independent f64 check at or below VER_RTOL (14d: CERT_BOUND)
+    that the solver's verified residual meets to VER_AGREE, a profiled
+    window; and one capped run of each sub-phase through the plain
+    products, bit for bit."""
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "14"
+    out = {}
+    cap = VER_PROFILE_ITERS
+
+    # ---- 14a: Poisson, DIA --------------------------------------------
+    b = dia["b"]
+    check = _rel_check(b, _dia_f64(A_dia), _dia_f64(A_dia, True))
+    plain = _plain_block_op(pt, A_dia)
+    unver = (dia["solve_s"], dia["true_rel"])
+    pt.solve(A_dia, b, verified=True, max_legs=1, leg_maxiter=20)  # warm
+    pt.cg(A_dia, b, replace_every=50, maxiter=20)
+    _verified(tag + "a verified, Poisson", "solve(verified=True)",
+              lambda: pt.solve(A_dia, b, verified=True, rtol=VER_RTOL),
+              "dia_spmv", _single_products, (0,), check,
+              lambda: pt.solve(A_dia, b, verified=True, rtol=VER_RTOL,
+                               **LEG_WINDOW), unver, out)
+    _verified(tag + "a verified, Poisson", "cg(replace_every=50)",
+              lambda: pt.cg(A_dia, b, replace_every=50, rtol=VER_RTOL),
+              "dia_spmv", _single_products, (0,), check,
+              lambda: pt.cg(A_dia, b, replace_every=50, rtol=VER_RTOL,
+                            maxiter=cap), unver, out)
+    _plain_same(tag + "a verified, Poisson", "cg(replace_every=50, maxiter=%d)"
+                % VER_PLAIN_ITERS,
+                lambda op: pt.cg(op, b, replace_every=50, rtol=VER_RTOL,
+                                 maxiter=VER_PLAIN_ITERS), A_dia, plain, out)
+    del plain
+
+    # ---- 14b: convection-diffusion, DIA ----------------------------------
+    A_cd, _, b_cd = cd
+    ax_cd, absax_cd = _dia_f64(A_cd), _dia_f64(A_cd, True)
+    s9 = single["9"]["solve (BiCGSTAB)"]
+    unver = (s9["solve_s"], s9["true_rel"])
+    b32 = b_cd.float()
+    # the leg cap goes to BiCGSTAB's matvec_max: phase 9's matvecs
+    cd_opts = {"rtol": VER_RTOL, "leg_maxiter": s9["n_matvec"],
+               "max_legs": CD_MAX_LEGS}
+    pt.solve(A_cd, b32, verified=True, max_legs=1, leg_maxiter=20)
+    label = "solve(verified=True), f32 b"
+    tag_b = tag + "b verified, convection-diffusion"
+    r32 = _verified(tag_b, label,
+                    lambda: pt.solve(A_cd, b32, verified=True, **cd_opts),
+                    "dia_spmv", _single_products, (0, 1, 3),
+                    lambda res: {} if int(res.istop)
+                    else _rel_check(b32, ax_cd, absax_cd)(res),
+                    lambda: pt.solve(A_cd, b32, verified=True, rtol=VER_RTOL,
+                                     **LEG_WINDOW), unver, out)
+    out["f32_floor"] = None
+    if int(r32.istop):
+        floor = float(r32.resid_norm) / float(
+            torch.linalg.vector_norm(b32))
+        out["f32_floor"] = floor
+        log("[%s] the f32 vectors stop short (istop %d) at a verified "
+            "relative residual of %.3e; the f64 b through the f32f64 "
+            "entry:" % (tag_b, int(r32.istop), floor))
+        _verified(tag_b, "solve(verified=True), f64 b",
+                  lambda: pt.solve(A_cd, b_cd, verified=True, **cd_opts),
+                  "dia_spmv", _single_products, (0,),
+                  _rel_check(b_cd, ax_cd, absax_cd),
+                  lambda: pt.solve(A_cd, b_cd, verified=True,
+                                   rtol=VER_RTOL, **LEG_WINDOW), unver, out)
+    b_cap = b32 if out["f32_floor"] is None else b_cd
+    _plain_same(tag_b, "solve(verified=True, max_legs=%d)" % VER_PLAIN_LEGS,
+                lambda op: pt.solve(op, b_cap, verified=True, rtol=VER_RTOL,
+                                    max_legs=VER_PLAIN_LEGS,
+                                    leg_maxiter=VER_PLAIN_ITERS),
+                A_cd, _plain_block_op(pt, A_cd), out)
+
+    # ---- 14c: tiled 1138bus, Jacobi, SELL (f64 vectors) -----------------
+    M, b_bus = bus
+    check = _rel_check(b_bus, _sell_f64(A_bus.cards["fwd"]),
+                       _sell_f64(A_bus.cards["fwd"], True))
+    s8b = single["8b"]["1e-06"]
+    unver = (s8b["solve_s"], s8b["true_rel"])
+    tag_c = tag + "c verified, tiled 1138bus"
+    pt.minres(A_bus, b_bus, M=M, replace_every=50, itnlim=20)
+    _verified(tag_c, "minres(replace_every=50)",
+              lambda: pt.minres(A_bus, b_bus, M=M, replace_every=50,
+                                rtol=VER_RTOL),
+              "sell_spmv", _single_products, (1,), check,
+              lambda: pt.minres(A_bus, b_bus, M=M, replace_every=50,
+                                rtol=VER_RTOL, itnlim=cap), unver, out)
+    _verified(tag_c, "solve(method='minres', verified=True)",
+              lambda: pt.solve(A_bus, b_bus, M=M, method="minres",
+                               verified=True, rtol=VER_RTOL),
+              "sell_spmv", _single_products, (0,), check,
+              lambda: pt.solve(A_bus, b_bus, M=M, method="minres",
+                               verified=True, rtol=VER_RTOL, **LEG_WINDOW),
+              unver, out)
+    _plain_same(tag_c, "minres(replace_every=50, itnlim=%d)"
+                % VER_PLAIN_ITERS,
+                lambda op: pt.minres(op, b_bus, M=M, replace_every=50,
+                                     rtol=VER_RTOL, itnlim=VER_PLAIN_ITERS),
+                A_bus, _plain_block_op(pt, A_bus), out)
+
+    # ---- 14d: state estimation, SELL on A and A^T -----------------------
+    A_se, coo_se, b_se = se
+    fwd, bwd = A_se.cards["fwd"], A_se.cards["bwd"]
+    fro = float(np.sqrt((coo_se[0].astype(np.float64) ** 2).sum()))
+
+    def certificate(res):
+        x = res.x.double() + res.info["x_lo"].double()
+        r = b_se - S.sell_matvec_plain(fwd, x)
+        rn = torch.linalg.vector_norm(r)
+        arn = torch.linalg.vector_norm(S.sell_matvec_plain(bwd, r))
+        cert = (arn / (fro * rn)).item()
+        claimed = (res.info["true_normar"] / (fro * res.resid_norm)).item()
+        # f64 vectors: the verification's rounding is negligible here
+        return {"||A'r||/(||A||_F ||r||)": ([cert], [claimed], CERT_BOUND,
+                                            [0.0]),
+                "||r||": ([rn.item()], [float(res.resid_norm)], np.inf,
+                          [0.0])}
+
+    s10 = single["10"]["solve (LSMR)"]
+    unver = (s10["solve_s"], s10["certificates"]["||A'r||/(||A||_F ||r||)"])
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL}
+    tag_d = tag + "d verified, state estimation"
+    pt.solve(A_se, b_se, verified=True, max_legs=1, leg_maxiter=20, **opts)
+    _verified(tag_d, "solve(verified=True) (refined_lls, LSMR legs)",
+              lambda: pt.solve(A_se, b_se, verified=True, **opts),
+              "sell_spmv",
+              lambda res: int(res.n_matvec) + res.info["n_legs"], (0,),
+              certificate,
+              lambda: pt.solve(A_se, b_se, verified=True, **LEG_WINDOW,
+                               **opts), unver, out)
+    _plain_same(tag_d, "solve(verified=True, max_legs=%d)" % VER_PLAIN_LEGS,
+                lambda op: pt.solve(op, b_se, verified=True,
+                                    max_legs=VER_PLAIN_LEGS,
+                                    leg_maxiter=VER_PLAIN_ITERS, **opts),
+                A_se, _plain_block_op(pt, A_se), out)
+    return out
+
+
+def _k16_timing(tag, name, mm, plain_mm, coo, own_matrix, rates):
+    """The verifiers' (n, 2 KB) product with an f64 block: the kernel, its
+    plain version and torch's CSR SpMM in f64 (cuSPARSE, a yardstick)
+    against the bound (the matrix once plus 2 KB f64 columns of X and Y,
+    or the f64 operations if longer)."""
+    vals, rows, cols, (m, n) = coo
+    kb = 2 * KB
+    csr = _torch_csr(coo, DEVICE)
+    csr64 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                    csr.values().double(), size=(m, n))
+    del csr
+    X = torch.randn((n, kb), device=DEVICE, dtype=torch.float64,
+                    generator=torch.Generator(device=DEVICE).manual_seed(16))
+    best = _best_ms([("kernel", lambda: mm(X)), ("plain", lambda: plain_mm(X)),
+                     ("torch CSR SpMM f64", lambda: torch.sparse.mm(csr64,
+                                                                    X))],
+                    10, ("plain",))
+    b = _bound(min(own_matrix, len(vals) * 8 + (m + 1) * 4)
+               + kb * (n + m) * 8, 2 * len(vals) * kb, rates, "f64")
+    log("[%s] %s K=%d, f32 storage with an f64 block (the verifiers' "
+        "product): kernel %.4f ms, plain %.4f, torch CSR SpMM (f64) %.4f; "
+        "bound %.4f ms (%s), kernel at %.1f%% of it"
+        % (tag, name, kb, best["kernel"], best["plain"],
+           best["torch CSR SpMM f64"], b["bound_ms"], b["bound_by"],
+           100 * b["bound_ms"] / best["kernel"]))
+    del X, csr64
+    return {"k": kb, "ms": best["kernel"], "plain_ms": best["plain"],
+            "library_ms": best["torch CSR SpMM f64"], **b}
+
+
+def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
+                          coo_bus, coo_cd, f64_cd):
+    """15: blocks of K = KB, column 0 the single phase's b and the others
+    standard normal from seed 0 (:func:`_block_of`).  15a Poisson n = N,
+    f32 block: ``solve(A, B, verified=True)`` (ff ``cg_batched``), its
+    iterations' (n, KB) products and its replacements' (n, 2 KB) through
+    the DIA SpMM.  15b convection-diffusion, f32 block (f64 where 14b's
+    f32 stopped at its floor): ``solve(A, B, verified=True)``
+    (``refined_solve_batched`` with BiCGSTAB legs), the DIA SpMM.  15c
+    tiled 1138bus with the f64 Jacobi M, f64 block: ``solve(A, B, M=M,
+    method="minres", verified=True)`` (ff ``minres_batched``), one (n, 2
+    KB) SELL SpMM an iteration.  The checks of phase 14 per column; each
+    capped through the plain products; the SpMMs timed at K = 2 KB with
+    an f64 block.  15b's refinement legs are capped at phase 11's
+    unverified block iterations (an f32 block gets CD_F32_BLOCK_LEGS
+    legs); an f32 block with a column short of the target (istop 1 or 3)
+    is logged and rerun as an f64 block, as 14b does."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "15 verified blocks"
+    out = {}
+    cap = VER_PROFILE_ITERS
+
+    # ---- 15a: Poisson, f32 block ----------------------------------------
+    Bm = _block_of(dia["b"]).float()
+    ax_dia = _dia_f64(A_dia)
+
+    tag_a = "15a verified blocks, Poisson"
+    pt.solve(A_dia, Bm, maxiter=10)                     # warm-ups
+    pt.solve(A_dia, Bm, verified=True, maxiter=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    un = pt.solve(A_dia, Bm)
+    torch.cuda.synchronize()
+    un_s = time.perf_counter() - t0
+    un_rel = max(_col_rel(Bm.double() - ax_dia(un.x.double()), Bm.double()))
+    log("[%s] the unverified cg_batched of the same block: %d block "
+        "iterations, %.3f s, true relative residual up to %.3e"
+        % (tag_a, int(un.n_iter), un_s, un_rel))
+    del un
+    # iterations' (n, KB) products and one (n, 2 KB) a replacement event:
+    # n_matvec = n_iter + 2 events
+    _verified(tag_a, "solve(A, B, verified=True) (ff cg_batched)",
+              lambda: pt.solve(A_dia, Bm, verified=True, rtol=VER_RTOL),
+              "dia_spmm",
+              lambda res: (int(res.n_iter) + int(res.n_matvec)) // 2, (0,),
+              _rel_check(Bm, ax_dia, _dia_f64(A_dia, True)),
+              lambda: pt.solve(A_dia, Bm, verified=True, rtol=VER_RTOL,
+                               maxiter=cap), (un_s, un_rel), out)
+    _plain_same(tag_a, "cg_batched(replace_every=50, maxiter=%d)"
+                % VER_PLAIN_ITERS,
+                lambda op: pt.solvers.cg_batched(
+                    op, Bm, replace_every=50, check_curvature=True,
+                    rtol=VER_RTOL, maxiter=VER_PLAIN_ITERS),
+                A_dia, _plain_block_op(pt, A_dia), out)
+    del Bm
+
+    # ---- 15b: convection-diffusion --------------------------------------
+    A_cd, _, b_cd = cd
+    B64 = _block_of(b_cd)
+    s11 = single["11"]["solve (bicgstab_batched)"]
+    cd_opts = {"rtol": VER_RTOL, "leg_maxiter": s11["n_iter"]}
+    tag_b = "15b verified blocks, convection-diffusion"
+    unver = (s11["solve_s"], s11["certificates"]["||b - Ax||/||b||"])
+    blocks = [B64] if f64_cd else [B64.float(), B64]
+    pt.solve(A_cd, blocks[0], verified=True, max_legs=1, leg_maxiter=10)
+    for Bm in blocks:
+        check = _rel_check(Bm, _dia_f64(A_cd), _dia_f64(A_cd, True))
+        # each leg's two block products an iteration and one (n, 2 KB)
+        # product a verification, one a leg
+        legs = {"max_legs": CD_F32_BLOCK_LEGS
+                if Bm.dtype == torch.float32 else CD_MAX_LEGS}
+        res = _verified(
+            tag_b, "solve(A, B, verified=True) (refined_solve_batched, %s "
+            "block)" % str(Bm.dtype)[6:],
+            lambda: pt.solve(A_cd, Bm, verified=True, **cd_opts, **legs),
+            "dia_spmm",
+            lambda res: 2 * int(res.n_iter) + res.info["n_legs"],
+            (0, 1, 3) if Bm.dtype == torch.float32 else (0,),
+            lambda res: {} if bool(res.istop.any()) else check(res),
+            lambda: pt.solve(A_cd, Bm, verified=True, rtol=VER_RTOL,
+                             **LEG_WINDOW), unver, out)
+        if not bool(res.istop.any()):
+            break
+        # the f64 rule of 14b: f32 columns short of the target (istop 1 or
+        # 3) are logged, and the f64 block must pass
+        out["f32_block_floor"] = (res.resid_norm.double() / torch.linalg
+                                  .vector_norm(Bm.double(), dim=0)).tolist()
+        log("[%s] f32 block: istop %s, verified relative residuals %s; "
+            "the f64 block through the f32f64 entry:"
+            % (tag_b, res.istop.tolist(), " ".join(
+                "%.3e" % v for v in out["f32_block_floor"])))
+    f64_cd = Bm.dtype == torch.float64
+    _plain_same(tag_b, "solve(A, B, verified=True, max_legs=%d)"
+                % VER_PLAIN_LEGS,
+                lambda op: pt.solve(op, Bm, verified=True, rtol=VER_RTOL,
+                                    max_legs=VER_PLAIN_LEGS,
+                                    leg_maxiter=VER_PLAIN_ITERS),
+                A_cd, _plain_block_op(pt, A_cd), out)
+    del Bm, B64, blocks
+
+    # ---- 15c: tiled 1138bus, Jacobi, f64 block ---------------------------
+    M, b_bus = bus
+    card = A_bus.cards["fwd"]
+    Bm = _block_of(b_bus)
+    ax_bus = _sell_f64(card)
+
+    tag_c = "15c verified blocks, tiled 1138bus"
+    pt.solve(A_bus, Bm, M=M, method="minres", verified=True, itnlim=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    un = pt.solve(A_bus, Bm, M=M, method="minres", rtol=VER_RTOL, etol=0.0)
+    torch.cuda.synchronize()
+    un_s = time.perf_counter() - t0
+    un_rel = max(_col_rel(Bm - ax_bus(un.x), Bm))
+    log("[%s] the unverified minres_batched of the same block (etol 0): %d "
+        "block iterations, %.3f s, true relative residual up to %.3e"
+        % (tag_c, int(un.n_iter), un_s, un_rel))
+    del un
+    # one (n, 2 KB) product a Lanczos step and one a verification event,
+    # each counted twice
+    _verified(tag_c, "solve(A, B, M=M, method='minres', verified=True) "
+              "(ff minres_batched)",
+              lambda: pt.solve(A_bus, Bm, M=M, method="minres",
+                               verified=True, rtol=VER_RTOL),
+              "sell_spmm", lambda res: int(res.n_matvec) // 2, (1,),
+              _rel_check(Bm, ax_bus, _sell_f64(card, True)),
+              lambda: pt.solve(A_bus, Bm, M=M, method="minres",
+                               verified=True, rtol=VER_RTOL, itnlim=cap),
+              (un_s, un_rel), out)
+    _plain_same(tag_c, "minres_batched(replace_every=50, itnlim=%d)"
+                % VER_PLAIN_ITERS,
+                lambda op: pt.solvers.minres_batched(
+                    op, Bm, M=M, replace_every=50, rtol=VER_RTOL,
+                    itnlim=VER_PLAIN_ITERS),
+                A_bus, _plain_block_op(pt, A_bus), out)
+    del Bm
+
+    # ---- the verifiers' (n, 2 KB) f64-block products, timed -------------
+    out["sell_spmm_k16"] = _k16_timing(
+        tag, "SELL tiled 1138bus", lambda X: S.sell_matmat(card, X),
+        lambda X: S.sell_matmat_plain(card, X), coo_bus,
+        S.sell_bytes(card), rates)
+    if f64_cd:
+        c = A_cd.container
+        out["dia_spmm_k16"] = _k16_timing(
+            tag, "DIA convection-diffusion",
+            lambda X: K.dia_matmat(c.data, c.offsets, X),
+            lambda X: K.dia_matmat_plain(c.data, c.offsets, X), coo_cd,
+            len(c.offsets) * A_cd.shape[0] * 4, rates)
     return out
 
 
@@ -2646,7 +3246,7 @@ def main():
     A_bell, coo_bell, bell = phase_bell_path(pt)
     bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
     new_s = {}
-    keep = {}      # operators and b of phases 8, 9 and 10 for 10b-13
+    keep = {}      # operators and b of phases 8-10 for 10b-15
 
     def kept(name, phase):
         def run():
@@ -2656,8 +3256,8 @@ def main():
 
     for key, run in (("8", kept("helm", lambda: phase_indefinite(pt,
                                                                  coo_dia))),
-                     ("8b", lambda: phase_minres_golden(pt, A_bell,
-                                                        coo_bell)),
+                     ("8b", kept("bus", lambda: phase_minres_golden(
+                         pt, A_bell, coo_bell))),
                      ("9", kept("cd", lambda: phase_nonsym(pt))),
                      ("9b", lambda: phase_bmark(pt)),
                      ("10", kept("se", lambda: phase_lls_sell(pt, rates))),
@@ -2669,7 +3269,16 @@ def main():
                          pt, *keep["helm"], new_s["8"][0])),
                      ("13", lambda: phase_block_lls(
                          pt, keep["se"], keep["cd"], new_s["10"][0],
-                         new_s["10b"][0], rates))):
+                         new_s["10b"][0], rates)),
+                     ("14", lambda: phase_verified_single(
+                         pt, dia, A_dia, A_bell, keep["bus"], keep["cd"],
+                         keep["se"], {k: new_s[k][0]
+                                      for k in ("8b", "9", "10")})),
+                     ("15", lambda: phase_verified_blocks(
+                         pt, dia, A_dia, A_bell, keep["bus"], keep["cd"],
+                         {"11": new_s["11"][0]}, rates, coo_bell,
+                         keep["cd"][1],
+                         new_s["14"][0]["f32_floor"] is not None))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
     keep.clear()
@@ -2768,7 +3377,8 @@ def main():
             "8b": {k: v["launches"] for k, v in new_s["8b"][0].items()},
             **{key: {k: v["launches"] for k, v in new_s[key][0].items()
                      if isinstance(v, dict) and "launches" in v}
-               for key in ("9", "9b", "10", "10b", "11", "12", "13")}}
+               for key in ("9", "9b", "10", "10b", "11", "12", "13", "14",
+                           "15")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -2784,9 +3394,23 @@ def main():
         mixed_ms=bt["kernel f32/f64"], mixed_plain_ms=bt["plain f32/f64"],
         mixed_bound_ms=bell_b["mixed"]["bound_ms"],
         mixed_bound_by=bell_b["mixed"]["bound_by"])
-    ind, gold, nonsym, bmark, se, lls, blk11, blk12, blk13 = (
+    ind, gold, nonsym, bmark, se, lls, blk11, blk12, blk13, ver14, ver15 = (
         new_s[k][0] for k in ("8", "8b", "9", "9b", "10", "10b", "11", "12",
-                              "13"))
+                              "13", "14", "15"))
+    # the verified solves of phases 14-15 through each kernel: launches an
+    # iteration and the profiled window's split
+    verified = {"%s %s" % (key, label): {
+        k: v[k] for k in ("n_iter", "n_matvec", "ms_per_iter", "solve_s",
+                          "unverified_s", "istop")}
+        | {"launches": v["launches"][v["kernel"]], "kernel": v["kernel"],
+           "profile": v["profile"]}
+        for key, out in (("14", ver14), ("15", ver15))
+        for label, v in out.items() if isinstance(v, dict) and "profile" in v}
+    for entry in kernels:
+        entry["verified_solves"] = {k: v for k, v in verified.items()
+                                    if v["kernel"] == entry["name"]}
+    kernels[2]["k16_f64_block"] = ver15.get("dia_spmm_k16")
+    kernels[3]["k16_f64_block"] = ver15["sell_spmm_k16"]
     # both directions of the least-squares path: state estimation A and
     # A^T through the SELL kernel (10), convection-diffusion A and A^T
     # through the DIA kernel (10b); 2 launches an iteration, one each
@@ -2849,6 +3473,14 @@ def main():
                                  v["ms_per_iter"], v["ms_per_column_iter"],
                                  v["single_ms_per_iter"], 100 * v["idle"])
                      for k, v in blocks.items())))
+    log("[7 result] phase 14 (%.1f s), 15 (%.1f s), verified: %s"
+        % (new_s["14"][1], new_s["15"][1],
+           "; ".join("%s: %d it., %.3f s (unverified %.3f s), %.4f ms per "
+                     "it., %.1f launches per it., idle %.1f%%"
+                     % (k, v["n_iter"], v["solve_s"], v["unverified_s"],
+                        v["ms_per_iter"], v["profile"]["launches_per_iter"],
+                        100 * v["profile"]["idle"])
+                     for k, v in verified.items())))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,20 @@ native block product; without ``method=``, a rectangular operator goes to
 and any other square one to ``bicgstab_batched``.  A block has no
 fallback: the batched solvers report per-column stop codes.
 
-Each branch whose solver is not ported yet raises ``NotImplementedError``
-naming its ROADMAP.md item: ``verified=True`` (any shape) and
-``method="cg_pipelined"`` (either shape of right-hand side).
+``verified=True`` (after the JAX package's ``solve.py:140-182`` and
+``:216-263``) stops only on recomputed true residuals: for a 1-D ``b``,
+``method=`` lsqr or lsmr (and a rectangular operator, with LSMR) goes to
+:func:`~.solvers.refine.refined_lls`, any other method to
+:func:`~.solvers.refine.refined_solve` with its solver, a symmetric
+operator to refined CG with the curvature check (rerouted to refined
+MINRES legs when a leg meets nonpositive curvature) and any other to
+refined BiCGSTAB.  For a block, a symmetric operator goes to ff
+``cg_batched`` (``replace_every=50``), ``method="minres"`` to ff
+``minres_batched`` and an unsymmetric one, or ``method=`` bicgstab, cgs or
+tfqmr, to :func:`~.solvers.refine.refined_solve_batched` with the twin.
+
+``method="cg_pipelined"`` (either shape of right-hand side) is not ported
+yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 An operator that carries ``solve_permutation`` (an RCM-reordered BELL
 operator, ``A = P^T A' P``) is solved in the permuted space: ``A' x' = P b``
@@ -35,6 +46,7 @@ un-permuted once; for a block only the rows are permuted.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
@@ -53,6 +65,8 @@ from .solvers.craigmr import craigmr
 from .solvers.lsmr import lsmr
 from .solvers.lsqr import lsqr
 from .solvers.minres import minres
+from .solvers.refine import (refined_lls, refined_solve,
+                             refined_solve_batched)
 from .solvers.symmlq import symmlq
 from .solvers.tfqmr import tfqmr
 from .utils.types import to_tensor
@@ -110,7 +124,12 @@ def _solve_permuted(A, b, method, verified, opts):
     if popts.get("M") is not None:
         popts["M"] = _permute_precon(popts["M"], p, ip)
     res = solve(inner, b[p], method=method, verified=verified, **popts)
-    return dataclasses.replace(res, x=res.x[ip])
+    info = res.info
+    if "x_lo" in info:
+        # the verified solution's low part un-permuted with its high part
+        # (the JAX package leaves it in the permuted space)
+        info = dict(info, x_lo=info["x_lo"][ip])
+    return dataclasses.replace(res, x=res.x[ip], info=info)
 
 
 def _check_method(method):
@@ -119,11 +138,54 @@ def _check_method(method):
                          % (method, ", ".join(_METHODS)))
 
 
+def _verified_replace_every(opts):
+    """The options of an in-loop verified block solve: ``replace_every``
+    50 unless given, and never 0 or None."""
+    opts = dict(opts)
+    opts.setdefault("replace_every", 50)
+    if not opts["replace_every"]:
+        raise ValueError(
+            "verified=True requires replace_every >= 1 (0/None "
+            "would silently run the unverified batched solver)")
+    return opts
+
+
+def _solve_block_verified(A, B, method, opts):
+    """The verified block routes (JAX ``solve.py:216-263``)."""
+    square = A.shape[0] == A.shape[1]
+    sym = A.symmetric or A.hermitian
+    if method in (None, "cg") and sym and square:
+        # per-column double-f32 carries and stops on recomputed true
+        # residuals; the curvature check keeps an indefinite operator from
+        # grinding to maxiter (istop 2 per column)
+        copts = _verified_replace_every(opts)
+        copts.setdefault("check_curvature", True)
+        return cg_batched(A, B, **copts)
+    if (method in ("bicgstab", "cgs", "tfqmr")
+            or (method is None and not sym)) and square:
+        leg = _BATCHED[method or "bicgstab"]
+        return refined_solve_batched(leg, A, B, **opts)
+    if method == "minres" and sym and square:
+        mopts = _verified_replace_every(opts)
+        mopts.setdefault("rtol", 1e-6)
+        return minres_batched(A, B, **mopts)
+    raise ValueError(
+        "verified=True for (n, K) right-hand-side blocks is "
+        "supported for square systems: symmetric via the batched "
+        "CG path (method=None or 'cg') or the ff-MINRES path "
+        "(method='minres', indefinite-capable), general via "
+        "block iterative refinement (method=None/'bicgstab'/"
+        "'cgs'/'tfqmr'); solve rectangular blocks column by "
+        "column for verified stops")
+
+
 def _solve_block(A, B, method, verified, opts):
     """Multi-RHS dispatch: each method's batched twin; by shape without
-    ``method=``.  The verified block paths raise naming their item."""
+    ``method=``."""
     if verified:
-        raise _not_ported("solve(verified=True) with an (n, K) block", 15)
+        if method is not None:
+            _check_method(method)
+        return _solve_block_verified(A, B, method, opts)
     if method is not None:
         _check_method(method)
         if method not in _BATCHED:
@@ -151,17 +213,28 @@ def solve(A, b, method=None, verified=False, **opts):
         return _solve_permuted(A, b, method, verified, opts)
     if (b.ndim if isinstance(b, torch.Tensor) else np.ndim(b)) == 2:
         return _solve_block(A, b, method, verified, opts)
-    if verified:
-        raise _not_ported("solve(verified=True)", 15)
     if method is not None:
         _check_method(method)
         if method not in _SOLVERS:
             raise _not_ported("method=%r" % method, _ITEM[method])
-        return _SOLVERS[method](A, b, **opts)
+        fn = _SOLVERS[method]
+        if not verified:
+            return fn(A, b, **opts)
+        if method in ("lsqr", "lsmr"):
+            return refined_lls(fn, A, b, **opts)
+        if method in ("craig", "craigmr"):
+            raise ValueError(
+                "verified=True is unsupported for the SQD solvers; "
+                "use verify_final=True for the post-solve "
+                "certificate")
+        return refined_solve(fn, A, b, **opts)
 
     m, n = A.shape
     if m != n:
-        return lsmr(A, b, **opts)
+        return refined_lls(lsmr, A, b, **opts) if verified \
+            else lsmr(A, b, **opts)
+    if verified:
+        return _solve_verified(A, b, opts)
     if A.symmetric or A.hermitian:
         res = cg(A, b, check_curvature=True, **opts)
         if int(res.istop) == 2:     # indefinite: MINRES handles it
@@ -173,6 +246,23 @@ def solve(A, b, method=None, verified=False, **opts):
         # option (x0, M, rtol, atol, matvec_max, store_history,
         # verify_final) carries over
         return tfqmr(A, b, **opts)
+    return res
+
+
+def _solve_verified(A, b, opts):
+    """The verified route of a square operator without ``method=``:
+    refined CG legs with the curvature check for a symmetric one, rerouted
+    to refined MINRES legs when a leg meets nonpositive curvature (the
+    unverified route's safety net), refined BiCGSTAB for any other."""
+    if not (A.symmetric or A.hermitian):
+        return refined_solve(bicgstab, A, b, **opts)
+    res = refined_solve(cg, A, b, **dict({"check_curvature": True}, **opts))
+    if not bool(res.converged) and bool((res.info["inner_istop"] == 2)
+                                        .any()):
+        ok = (set(inspect.signature(minres).parameters)
+              | set(inspect.signature(refined_solve).parameters))
+        return refined_solve(minres, A, b,
+                             **{k: v for k, v in opts.items() if k in ok})
     return res
 
 

@@ -4,11 +4,14 @@ CG, MINRES and SYMMLQ for symmetric indefinite systems, BiCGSTAB, CGS and
 TFQMR for square unsymmetric ones, and LSQR, LSMR, CRAIG and CRAIG-MR for
 rectangular and regularized ones are ported, each with its block-batched
 twin for an (n, K) block of right-hand sides (``cg_batched`` ...
-``craigmr_batched``; ``solve_columns`` runs one solve per column); the
-other solvers of ``pykrylov_tpu.solvers`` (the verified, pipelined and
-differentiable variants) follow in the order of ROADMAP.md queue 1.
+``craigmr_batched``; ``solve_columns`` runs one solve per column), and the
+verified variants: CG's and MINRES's ``replace_every`` (single and
+batched) and the refinement drivers ``refined_solve``, ``refined_lls`` and
+``refined_solve_batched``.  The pipelined and differentiable variants of
+``pykrylov_tpu.solvers`` follow in the order of ROADMAP.md queue 1.
 Each solver's module keeps its ``ISTOP_MSG`` table; ``ISTOP_MSGS`` gathers
-them by solver name, the batched twins' included.
+them by solver name, the batched twins' and the refinement drivers'
+included.
 
 The submodules are imported before the function names are bound, so each
 name below is the solver, not the module of the same name.
@@ -18,7 +21,7 @@ from .result import SolveResult
 from . import (cg as _m_cg, minres as _m_minres, symmlq as _m_symmlq,
                bicgstab as _m_bicgstab, cgs as _m_cgs, tfqmr as _m_tfqmr,
                lsqr as _m_lsqr, lsmr as _m_lsmr, craig as _m_craig,
-               craigmr as _m_craigmr)  # noqa: F401
+               craigmr as _m_craigmr, refine as _m_refine)  # noqa: F401
 from .cg import cg
 from .minres import minres
 from .symmlq import symmlq
@@ -29,6 +32,7 @@ from .lsqr import lsqr
 from .lsmr import lsmr
 from .craig import craig
 from .craigmr import craigmr
+from .refine import refined_solve, refined_solve_batched, refined_lls
 from .batched import (ISTOP_MSG, ISTOP_MSG_TF, cg_batched, bicgstab_batched,
                       cgs_batched, tfqmr_batched, minres_batched,
                       symmlq_batched, lsqr_batched, lsmr_batched,
@@ -47,11 +51,15 @@ ISTOP_MSGS = {"cg": _m_cg.ISTOP_MSG, "cg_batched": ISTOP_MSG,
               "lsqr_batched": _m_lsqr.ISTOP_MSG,
               "lsmr_batched": _m_lsmr.ISTOP_MSG,
               "craig_batched": _m_craig.ISTOP_MSG,
-              "craigmr_batched": _m_craigmr.ISTOP_MSG}
+              "craigmr_batched": _m_craigmr.ISTOP_MSG,
+              "refined_solve": _m_refine.ISTOP_MSG,
+              "refined_lls": _m_refine.ISTOP_MSG,
+              "refined_solve_batched": _m_refine.ISTOP_MSG}
 
 __all__ = ["SolveResult", "cg", "minres", "symmlq", "bicgstab", "cgs",
            "tfqmr", "lsqr", "lsmr", "craig", "craigmr", "cg_batched",
            "bicgstab_batched", "cgs_batched", "tfqmr_batched",
            "minres_batched", "symmlq_batched", "lsqr_batched",
            "lsmr_batched", "craig_batched", "craigmr_batched",
-           "solve_columns", "ISTOP_MSG", "ISTOP_MSG_TF", "ISTOP_MSGS"]
+           "solve_columns", "refined_solve", "refined_solve_batched",
+           "refined_lls", "ISTOP_MSG", "ISTOP_MSG_TF", "ISTOP_MSGS"]

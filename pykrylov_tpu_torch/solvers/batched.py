@@ -34,7 +34,12 @@ per solver:
     ``craigmr_batched``: one A and one A^T product, and one A^T before
     the loop;
 
-plus one for an ``x0`` block, and the preconditioners' applies.
+plus one for an ``x0`` block, and the preconditioners' applies.  With
+``replace_every`` (the verified twins of ``cg_batched`` and
+``minres_batched``) a verification event adds one (n, 2K) product of
+``[X, X_lo]``, and ff-MINRES's Lanczos step is itself one (n, 2K)
+product (where the operator's storage has no compensated product); the
+host reads once an iteration and once more after a verification.
 """
 
 from __future__ import annotations
@@ -44,7 +49,10 @@ import torch
 from ..ops.base import ShapeError, _block_apply
 from .common import (as_operator, default_maxiter, history_init, promote_rhs,
                      real_dtype, threshold_of)
+from .ffmv import resolve_ff_matmat
 from .result import SolveResult
+from ..utils.ff import (ff_add_ff, ff_div, ff_hypot, ff_mul, ff_sqrt,
+                        ff_vdot_cols, two_prod, two_sum)
 from ..utils.types import to_tensor
 
 __all__ = ["cg_batched", "bicgstab_batched", "cgs_batched", "tfqmr_batched",
@@ -169,15 +177,9 @@ def _check_x0(x0, B, name):
                      % (name, tuple(x0.shape), tuple(B.shape)))
 
 
-def _not_ported(name):
-    return NotImplementedError(
-        "%s(replace_every=...) is the verified-arithmetic path, not ported "
-        "yet: ROADMAP.md queue 1 item 15" % name)
-
-
 def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
                maxiter=None, matvec_max=None, check_curvature=False,
-               store_history=False, replace_every=None):
+               store_history=False, replace_every=None, leg_rtol=1e-2):
     """Solve SPD ``A X = B`` for an (n, K) block of right-hand sides.
 
     Each column follows the reference CG recurrence and stopping rule on
@@ -188,8 +190,13 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     (n, K) block and costs one extra block product; a 1-D ``B`` is one
     column.  ``maxiter`` caps BLOCK iterations (default from
     ``matvec_max``, 2n); a column that has stopped freezes and stops
-    counting (``info["n_iter_columns"]``).  ``replace_every`` (verified
-    per-column stopping) is not ported yet and raises.
+    counting (``info["n_iter_columns"]``).
+
+    ``replace_every`` turns on verified per-column stopping, the block
+    counterpart of single ``cg``'s ff-CG (:func:`_cg_batched_verified`):
+    X and R ride double-f32 (hi, lo) blocks, each column refines in
+    ``leg_rtol`` legs from its own last verified residual and stops only on
+    a recomputed true residual, in the plain 2-norm.
 
     Returns
     -------
@@ -201,13 +208,16 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     ``info["definite"]`` holds the per-column curvature verdicts and
     ``info["active_at_exit"]`` the columns still running at the cap.
     """
-    if replace_every:
-        raise _not_ported("cg_batched")
     A, B, M = _block_rhs("cg_batched", A, B, M)
     if maxiter is None:
         maxiter = default_maxiter(B.shape[0], 1, matvec_max)
     maxiter = int(maxiter)
     X0 = _check_x0(x0, B, "cg_batched")
+    if replace_every:
+        return _cg_batched_verified(A, B, X0, M, rtol, atol, maxiter,
+                                    check_curvature, store_history,
+                                    int(replace_every), float(leg_rtol),
+                                    resolve_ff_matmat(A))
     dtype, dev = B.dtype, B.device
     K = B.shape[1]
 
@@ -664,9 +674,10 @@ def minres_batched(A, B, *, M=None, shift=0.0, rtol=1.0e-12, etol=None,
 
     Parameters mirror :func:`~pykrylov_tpu_torch.solvers.minres` (no
     ``check``/``show``/``store_iterates``); this is the estimate-stopping
-    mode.  ``replace_every`` (the verified per-column mode) is not ported
-    yet and raises; as in the JAX package, ``store_history``, ``etol`` and
-    ``window`` are refused with it, and ``atol`` without it.
+    mode.  ``replace_every`` turns on the verified per-column mode,
+    :func:`_minres_batched_ff`, whose ``atol`` is the absolute floor of its
+    stop; as in the JAX package, ``store_history``, ``etol`` and ``window``
+    are refused with it, and ``atol`` without it.
 
     Returns a :class:`SolveResult` with per-column fields (istop codes in
     :data:`ISTOP_MSG_MINRES`; ``resid_norm`` the recurrence's ``phibar``),
@@ -682,7 +693,12 @@ def minres_batched(A, B, *, M=None, shift=0.0, rtol=1.0e-12, etol=None,
             raise ValueError("minres_batched: the etol/window direct-error "
                              "stop does not exist in verified mode (istop 1 "
                              "fires only on recomputed true residuals)")
-        raise _not_ported("minres_batched")
+        A, B, M = _block_rhs("minres_batched", A, B, M)
+        return _minres_batched_ff(
+            A, B, M, float(shift), float(rtol),
+            float(atol if atol is not None else 0.0),
+            int(itnlim if itnlim is not None else 5 * B.shape[0]),
+            replace_every, resolve_ff_matmat(A))
     if atol is not None:
         raise ValueError("minres_batched: atol is only used by the verified "
                          "(replace_every) stopping rule; the "
@@ -1691,3 +1707,311 @@ def craigmr_batched(A, B, *, M=None, N=None, etol=1.0e-6, window=5,
             "optimal": converged, "n_iter_columns": iters}
     return _lls_result(X, istop, converged, itn, zeta.abs(), beta0, hist,
                        info)
+
+
+# ---------------------------------------------------------------------------
+# The verified block twins: ff cg_batched and ff minres_batched
+# ---------------------------------------------------------------------------
+
+def _ff_product(A, ff_mm, Xh, Xl):
+    """``A (Xh + Xl)`` as an (hi, lo) pair of blocks: the compensated block
+    product where the storage has one, else one (n, 2K) block product of
+    ``[Xh, Xl]`` (one SpMM launch instead of two)."""
+    if ff_mm is not None:
+        return ff_mm(Xh, Xl)
+    K = Xh.shape[1]
+    SS = _apply_block(A, torch.cat([Xh, Xl], dim=1))
+    return SS[:, :K], SS[:, K:]
+
+
+def _cg_batched_verified(A, B, X0, M, rtol, atol, maxiter, check_curvature,
+                         store_history, replace_every, leg_rtol, ff_mm):
+    """The JAX package's ``replace_every`` branch of ``_cg_batched``
+    (``batched.py:98-248``), the per-column mirror of single ff-CG.
+
+    When a column's recurrence claims its leg target, or every
+    ``replace_every`` iterations, the true residual block is recomputed
+    from the (hi, lo) iterate, through one compensated block product or
+    one (n, 2K) product of ``[X, X_lo]``, and that column's direction
+    restarts from it; ``n_replacements`` counts each column's
+    replacements, ``n_matvec`` each product once (twice without a
+    compensated product).  Each iteration reads the host once: whether any
+    column verifies, and whether any would stay active if none did; a
+    verification, which runs only when that read says some column is due,
+    adds one more read, of the columns still active."""
+    dtype, dev = B.dtype, B.device
+    n, K = B.shape
+    if X0 is None:
+        X = torch.zeros_like(B)
+        R = B
+        extra = 0
+    else:
+        X = X0.to(device=dev, dtype=dtype)
+        R = B - _apply_block(A, X)
+        extra = 1
+    Z = torch.zeros_like(B)
+    Xl = Rl = Z
+    Y = _apply_block(M, R) if M is not None else R
+    ry = _col_dot(R, Y)
+    resid0 = _col_norm(R)
+    thresh = threshold_of(resid0, rtol, atol)
+    hist = _history(store_history, maxiter + 1, resid0)
+
+    P = Y
+    resid = leg_r0 = resid0
+    active = resid0 > thresh
+    definite = torch.ones(K, dtype=torch.bool, device=dev)
+    iters = torch.zeros(K, dtype=torch.int32, device=dev)
+    nrep_cols = torch.zeros(K, dtype=torch.int32, device=dev)
+    nrep_evts = 0
+    one = torch.ones((), dtype=ry.dtype, device=dev)
+    k = 0
+    any_active = bool(active.any())
+    while any_active and k < maxiter:
+        if ff_mm is not None:
+            AP, APl = ff_mm(P, Z)
+            pAp = _col_dot(P, AP) + _col_dot(P, APl)
+        else:
+            AP, APl = _apply_block(A, P), None
+            pAp = _col_dot(P, AP)
+        bad = active & (pAp <= 0) if check_curvature \
+            else torch.zeros_like(active)
+        act = active & ~bad
+        alpha = torch.where(act, ry / torch.where(pAp == 0, one, pAp),
+                            0).to(dtype)
+        ps, pe = two_prod(alpha, P)
+        X2, Xl2 = ff_add_ff(X, Xl, ps, pe)
+        qs, qe = two_prod(-alpha, AP)
+        if APl is not None:
+            qe = qe - alpha * APl
+        R2, Rl2 = ff_add_ff(R, Rl, qs, qe)
+        Y2 = _apply_block(M, R2) if M is not None else R2
+        ry2 = _col_dot(R2, Y2)
+        res2 = _col_norm(R2)
+        do_rep = act if (k + 1) % replace_every == 0 else \
+            act & (res2 <= torch.maximum(leg_rtol * leg_r0, thresh))
+        stays = act & ~((res2 <= thresh) | ~torch.isfinite(res2))
+        any_rep, any_active = torch.stack([do_rep.any(),
+                                           stays.any()]).tolist()
+        if any_rep:
+            Sh, Sl = _ff_product(A, ff_mm, X2, Xl2)
+            D, De = two_sum(B, -Sh)
+            Rt, Rtl = two_sum(D, De - Sl)
+            R2 = torch.where(do_rep, Rt, R2)
+            Rl2 = torch.where(do_rep, Rtl, Rl2)
+            Y2 = _apply_block(M, R2) if M is not None else R2
+            ry2 = _col_dot(R2, Y2)
+            res2 = torch.where(do_rep, _col_norm(Rt), res2)
+            nrep_evts += 1
+        nrep_cols += do_rep.to(torch.int32)
+        leg_r0 = torch.where(do_rep, res2, leg_r0)
+        beta = torch.where(act, ry2 / torch.where(ry == 0, one, ry),
+                           0).to(dtype)
+        P = torch.where(act, torch.where(do_rep, Y2, Y2 + beta * P), P)
+        resid2 = torch.where(act, res2, resid)
+        done = act & ((resid2 <= thresh) | ~torch.isfinite(resid2))
+        if hist is not None:
+            hist[k + 1] = torch.where(active, resid2, float("nan"))
+        # both halves of each pair are masked: ff_add_ff renormalizes a
+        # frozen column's (hi, lo) even under a zero update
+        X = torch.where(act, X2, X)
+        Xl = torch.where(act, Xl2, Xl)
+        R = torch.where(act, R2, R)
+        Rl = torch.where(act, Rl2, Rl)
+        Y = torch.where(act, Y2, Y)
+        ry = torch.where(act, ry2, ry)
+        resid = resid2
+        iters += active.to(torch.int32)
+        definite &= ~bad
+        active = act & ~done
+        k += 1
+        if any_rep:
+            any_active = bool(active.any())
+
+    converged = resid <= thresh
+    istop = torch.where(converged, 0, torch.where(definite, 1, 2))
+    info = {"definite": definite, "n_iter_columns": iters,
+            "active_at_exit": active, "n_replacements": nrep_cols,
+            "x_lo": Xl}
+    n_matvec = k + extra + nrep_evts * (1 if ff_mm is not None else 2)
+    return SolveResult(
+        x=X, converged=converged, istop=istop.to(torch.int32),
+        n_iter=torch.tensor(k, dtype=torch.int32, device=dev),
+        n_matvec=torch.tensor(n_matvec, dtype=torch.int32, device=dev),
+        resid_norm=resid, resid_norm0=resid0, resid_history=hist, info=info)
+
+
+def _minres_batched_ff(A, B, M, shift, rtol, atol, itnlim, replace_every,
+                       ff_mm):
+    """Verified MINRES on a block, the JAX package's
+    ``_minres_batched_ff`` (``batched.py:2058-2258``): single ff-MINRES's
+    recurrence per column, with every scalar a (K,) (hi, lo) pair and every
+    vector an (n, K) pair on the device, as in the JAX package's loop
+    body; istop 1 fires per column only on its recomputed true residual.
+    Each iteration applies A to ``[v, v_lo]`` in one (n, 2K) block product
+    (or the compensated block product) and reads the host once: whether
+    any column verifies and whether any would stay active if none did; a
+    verification, one more block product of ``[x, x_lo]``, runs only when
+    that read says some column is due and adds one read."""
+    dtype, dev = B.dtype, B.device
+    n, K = B.shape
+    eps = torch.finfo(dtype).eps
+    zK = torch.zeros(K, dtype=dtype, device=dev)
+    Z = torch.zeros_like(B)
+    shift_t = torch.tensor(shift, dtype=dtype, device=dev)
+
+    Y = _apply_block(M, B) if M is not None else B
+    beta1_sq = _col_dot(B, Y).to(dtype)
+    indef_precon = beta1_sq < 0              # istop 9
+    zero_b = beta1_sq == 0
+    beta1 = torch.sqrt(torch.clamp(beta1_sq, min=0))
+    bnorm = _col_norm(B)
+    vthresh = torch.maximum(torch.full_like(bnorm, atol), rtol * bnorm)
+
+    x = xl = r1l = r2l = yl = w = wl = w2 = w2l = Z
+    r1 = r2 = B
+    y = Y
+    oldb = oldbl = betal = dbar = dbarl = epsln = epslnl = phibarl = zK
+    csl = sn = snl = tnorm2 = gmax = gmin = zK
+    beta = phibar = beta1
+    cs = -torch.ones(K, dtype=dtype, device=dev)
+    rnt = bnorm
+    lastv = torch.zeros(K, dtype=torch.int32, device=dev)
+    nrep = torch.zeros(K, dtype=torch.int32, device=dev)
+    nrep_evts = 0
+    istop = torch.where(indef_precon, 9, 0).to(torch.int32)
+    iters = torch.zeros(K, dtype=torch.int32, device=dev)
+    done = indef_precon | zero_b
+    itn = 0
+    running = bool((~done).any())
+    while running and itn < itnlim:
+        act = ~done
+        itn += 1
+        # ---- double-f32 Lanczos, column by column -------------------------
+        v, vl = ff_div(y, yl, beta, betal)
+        y, ylo = _ff_product(A, ff_mm, v, vl)
+        ph0, pe0 = two_prod(-shift_t, v)
+        y, ylo = ff_add_ff(y, ylo, ph0, pe0 - shift_t * vl)
+        if itn >= 2:
+            c1, c1l = ff_div(beta, betal, oldb, oldbl)
+            t1h, t1l = two_prod(-c1, r1)
+            y, ylo = ff_add_ff(y, ylo, t1h, t1l - c1 * r1l - c1l * r1)
+        alfa, alfal = ff_vdot_cols(v, vl, y, ylo)
+        c2, c2l = ff_div(alfa, alfal, beta, betal)
+        t2h, t2l = two_prod(-c2, r2)
+        y, ylo = ff_add_ff(y, ylo, t2h, t2l - c2 * r2l - c2l * r2)
+        r1n, r1ln = r2, r2l
+        r2n, r2ln = y, ylo
+        if M is not None:
+            yn, yln = _apply_block(M, r2n), _apply_block(M, r2ln)
+        else:
+            yn, yln = r2n, r2ln
+        oldbn, oldbln = beta, betal
+        beta_sq, beta_sql = ff_vdot_cols(r2n, r2ln, yn, yln)
+        indef = act & (beta_sq < 0)          # istop 6
+        go = act & ~indef
+        istop = torch.where(indef, 6, istop).to(torch.int32)
+
+        pos = beta_sq > 0
+        betan, betaln = ff_sqrt(torch.clamp(beta_sq, min=0), beta_sql)
+        betan = torch.where(pos, betan, 0.0)
+        betaln = torch.where(pos, betaln, 0.0)
+        tnorm2n = tnorm2 + alfa ** 2 + oldbn ** 2 + betan ** 2
+        if itn == 1:
+            near_const = betan / torch.where(beta1 == 0, 1, beta1) \
+                <= 10 * eps
+            istop = torch.where(go & near_const, -1, istop).to(torch.int32)
+            gmax0 = gmin0 = alfa.abs()
+        else:
+            gmax0, gmin0 = gmax, gmin
+
+        # ---- double-f32 Givens chain ------------------------------------
+        oldeps, oldepsl = epsln, epslnl
+        d1h, d1l = ff_mul(cs, csl, dbar, dbarl)
+        d2h, d2l = ff_mul(sn, snl, alfa, alfal)
+        delta, deltal = ff_add_ff(d1h, d1l, d2h, d2l)
+        g1h, g1l = ff_mul(sn, snl, dbar, dbarl)
+        g2h, g2l = ff_mul(cs, csl, alfa, alfal)
+        gbar, gbarl = ff_add_ff(g1h, g1l, -g2h, -g2l)
+        epslnn, epslnln = ff_mul(sn, snl, betan, betaln)
+        dbarn, dbarln = ff_mul(-cs, -csl, betan, betaln)
+        gamma, gammal = ff_hypot(gbar, gbarl, betan, betaln)
+        gammal = torch.where(gamma <= eps, 0.0, gammal)
+        gamma = torch.clamp(gamma, min=eps)
+        csn, csln = ff_div(gbar, gbarl, gamma, gammal)
+        snn, snln = ff_div(betan, betaln, gamma, gammal)
+        phi, phil = ff_mul(csn, csln, phibar, phibarl)
+        phibarn, phibarln = ff_mul(snn, snln, phibar, phibarl)
+
+        # ---- double-f32 w recurrence and x update -----------------------
+        t1h, t1l = two_prod(-oldeps, w2)
+        t1l = t1l - oldeps * w2l - oldepsl * w2
+        t2h, t2l = two_prod(-delta, w)
+        t2l = t2l - delta * wl - deltal * w
+        sh, sl = two_sum(v, t1h)
+        sh, e2 = two_sum(sh, t2h)
+        wn, wln = ff_div(sh, sl + e2 + t1l + t2l + vl, gamma, gammal)
+        uh, ue = two_prod(phi, wn)
+        xn, xln = ff_add_ff(x, xl, uh, ue + phi * wln + phil * wn)
+
+        gmaxn = torch.maximum(gmax0, gamma)
+        gminn = torch.minimum(gmin0, gamma)
+        acond = gmaxn / torch.where(gminn == 0, 1, gminn)
+
+        # ---- verified stopping ------------------------------------------
+        code = torch.where(acond >= 0.1 / eps, 4,
+                           6 if itn >= itnlim else 0)
+        istop = torch.where(go & (istop == 0), code, istop).to(torch.int32)
+        do_ver = go & (phibarn <= vthresh) & (itn - lastv >= 5)
+        if itn % replace_every == 0:
+            do_ver = go.clone()
+        stays = ~(done | (istop != 0))
+        any_ver, running = torch.stack([do_ver.any(),
+                                        stays.any()]).tolist()
+        if any_ver:
+            sh2, sl2 = _ff_product(A, ff_mm, xn, xln)
+            ph, pe = two_prod(shift_t, xn)
+            d, de = two_sum(B, -sh2)
+            d2, de2 = two_sum(d, ph)
+            rt = d2 + (de + de2 + pe + shift_t * xln - sl2)
+            rnt = torch.where(do_ver, _col_norm(rt), rnt)
+            istop = torch.where(go & (istop == 0) & do_ver & (rnt <= vthresh),
+                                1, istop).to(torch.int32)
+            nrep_evts += 1
+
+        def mc(new, old):
+            return torch.where(go, new, old)
+
+        x, xl = mc(xn, x), mc(xln, xl)
+        r1, r1l, r2, r2l = mc(r1n, r1), mc(r1ln, r1l), mc(r2n, r2), \
+            mc(r2ln, r2l)
+        y, yl = mc(yn, y), mc(yln, yl)
+        w2, w2l, w, wl = mc(w, w2), mc(wl, w2l), mc(wn, w), mc(wln, wl)
+        oldb, oldbl = mc(oldbn, oldb), mc(oldbln, oldbl)
+        beta, betal = mc(betan, beta), mc(betaln, betal)
+        dbar, dbarl = mc(dbarn, dbar), mc(dbarln, dbarl)
+        epsln, epslnl = mc(epslnn, epsln), mc(epslnln, epslnl)
+        phibar, phibarl = mc(phibarn, phibar), mc(phibarln, phibarl)
+        cs, csl, sn, snl = mc(csn, cs), mc(csln, csl), mc(snn, sn), \
+            mc(snln, snl)
+        tnorm2 = mc(tnorm2n, tnorm2)
+        gmax, gmin = mc(gmaxn, gmax), mc(gminn, gmin)
+        lastv = mc(torch.where(do_ver, itn, lastv), lastv).to(torch.int32)
+        nrep += do_ver.to(torch.int32)
+        iters += act.to(torch.int32)
+        done = done | (istop != 0)
+        if any_ver:
+            running = bool((~done).any())
+
+    converged = zero_b | (istop == 1)
+    mult = 1 if ff_mm is not None else 2
+    return SolveResult(
+        x=torch.where(zero_b[None, :], 0, x), converged=converged,
+        istop=istop,
+        n_iter=torch.tensor(itn, dtype=torch.int32, device=dev),
+        n_matvec=torch.tensor((itn + nrep_evts) * mult, dtype=torch.int32,
+                              device=dev),
+        resid_norm=torch.where(zero_b, zK, rnt), resid_norm0=bnorm,
+        resid_history=None,
+        info={"n_replacements": nrep, "x_lo": xl, "n_iter_columns": iters,
+              "active_at_exit": ~done})

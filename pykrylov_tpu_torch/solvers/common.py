@@ -170,11 +170,27 @@ def table_tensor(tab):
     return torch.cat([x0[:, None], host.to(x0.device)], dim=1)
 
 
+def _certified_residual(A, b, x):
+    """``b - A x`` for the certificates: through the compensated product
+    (:func:`~.ffmv.resolve_ff_matvec`) where the operator's storage has
+    one, rounded to the working dtype by an error-free ``two_sum``, else
+    plain (the plain f32 product floors at ~eps·|A||x|)."""
+    from .ffmv import resolve_ff_matvec
+    ff = resolve_ff_matvec(A)
+    if ff is None or x.dtype.is_complex:
+        return b - apply_op(A, x)
+    from ..utils.ff import two_sum
+    sh, sl = ff(x, torch.zeros_like(x))
+    d, de = two_sum(b, -sh)
+    return d + (de - sl)
+
+
 def attach_true_residual(A, b, res, shift=0.0):
     """Post-solve verification: the 2-norm of the true residual ``b - (A -
-    shift I) x`` as ``info["true_resid_norm"]``.  One diagnostic matvec,
-    not counted in ``n_matvec``."""
-    rt = b - apply_op(A, res.x)
+    shift I) x``, with the compensated product where the operator's
+    storage has one, as ``info["true_resid_norm"]``.  One diagnostic
+    matvec, not counted in ``n_matvec``."""
+    rt = _certified_residual(A, b, res.x)
     if shift:
         rt = rt + shift * res.x
     res.info["true_resid_norm"] = torch.linalg.vector_norm(rt)
@@ -201,8 +217,9 @@ def attach_true_lls_residual(A, b, res, damp=0.0):
     are not folded in: this is the certificate a user would compute), in
     the promoted dtype of the solve; recorded as
     ``info["true_resid_norm"]`` and ``info["true_normar"]``.  Two
-    diagnostic matvecs, not counted in ``n_matvec``."""
-    rt = b - apply_op(A, res.x)
+    diagnostic matvecs, not counted in ``n_matvec``.  The forward product
+    is compensated where the operator's storage has one."""
+    rt = _certified_residual(A, b, res.x)
     ar = apply_op_T(A, rt)
     if damp:
         ar = ar - (damp * damp) * res.x

@@ -52,7 +52,8 @@ class SparseOperator(LinearOperator):
     """LinearOperator over a sparse container.
 
     ``fwd`` holds A and ``bwd`` A^T (None for a symmetric matrix, whose
-    transpose is A).  ``fmt`` names the compute format: the container's
+    transpose is A); ``container`` and ``container_transp`` are the
+    containers of A's and A^T's products.  ``fmt`` names the compute format: the container's
     own (``"coo"``, ``"csr"``, ``"ell"``, ``"dia"``: plain torch) by
     default, or ``"cuda-dia"`` for a DIA container whose products go
     through :func:`.kernels.dia_matvec` and, on (n, K) blocks,
@@ -79,6 +80,7 @@ class SparseOperator(LinearOperator):
             matmat_transp=(lambda X: block(transposed, X))
             if block and transposed is not None else None, **kwargs)
         self.container = fwd
+        self.container_transp = transposed
         self.fmt = fmt
 
     def to_array(self):

@@ -225,9 +225,16 @@ def test_shapes():
     with pytest.raises(ShapeError, match="x0"):
         cg_batched(A, torch.ones(10, 2, dtype=torch.float64),
                    x0=torch.zeros(2, 10, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 15$"):
-        cg_batched(A, torch.ones(10, 2, dtype=torch.float64),
-                   replace_every=50)
+    # replace_every (item 15) is ported: the verified twin against the JAX
+    # package's on the same block
+    opts = dict(replace_every=50, rtol=1e-12, atol=0.0, maxiter=100)
+    ver = cg_batched(A, torch.ones(10, 2, dtype=torch.float64), **opts)
+    jver = jax_cg_batched(linop_from_ndarray(jnp.asarray(spd(n=10, seed=1)),
+                                             symmetric=True),
+                          jnp.ones((10, 2)), **opts)
+    assert set(ver.info) == set(jver.info) and "x_lo" in ver.info
+    assert ver.istop.tolist() == np.asarray(jver.istop).tolist() == [0, 0]
+    assert rel(ver.x.numpy(), jver.x) <= X_RTOL
     two = cg_batched(A, torch.ones(10, 2, dtype=torch.float64))
     assert repr(two).startswith("SolveResult(converged=[True, True], "
                                 "istop=[0, 0], n_iter=")
@@ -338,19 +345,34 @@ def test_unported_block_branches_name_their_item(case):
     # package's solve(A, B) does: method= to its batched twin, a square
     # unsymmetric operator to bicgstab_batched, a rectangular one to
     # lsqr_batched, each result the JAX package's at the tolerances of
-    # tests/test_torch_batched_nonsym.py; the pipelined twin (item 16) and
-    # the verified block paths (item 15) still raise naming their item
+    # tests/test_torch_batched_nonsym.py; the verified block path of a
+    # symmetric operator (item 15) goes to ff cg_batched (replace_every 50,
+    # the curvature check on); the pipelined twin (item 16) still raises
+    # naming its item
     spd3 = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                           symmetric=True, device=DEV)
     B3 = torch.ones(3, 2, dtype=torch.float64)
-    if case in ("cg_pipelined", "verified"):
-        item = 15 if case == "verified" else 16
+    if case == "cg_pipelined":
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item %d$" % item):
-            if case == "verified":
-                pt.solve(spd3, B3, verified=True)
-            else:
-                pt.solve(spd3, B3, method=case)
+                           match="ROADMAP.md queue 1 item 16$"):
+            pt.solve(spd3, B3, method=case)
+    elif case == "verified":
+        a = spd(n=60, cond=1e2, seed=43)
+        B = np.random.default_rng(43).standard_normal((60, 3))
+        A = MatrixOperator(a, symmetric=True, device=DEV)
+        res = pt.solve(A, torch.from_numpy(B), verified=True, rtol=1e-10)
+        jres = jax_solve(linop_from_ndarray(jnp.asarray(a), symmetric=True),
+                         jnp.asarray(B), verified=True, rtol=1e-10)
+        assert set(res.info) == set(jres.info)
+        assert res.istop.tolist() == np.asarray(jres.istop).tolist()
+        np.testing.assert_array_equal(
+            res.info["n_replacements"].numpy(),
+            np.asarray(jres.info["n_replacements"]))
+        assert int(res.n_matvec) == int(jres.n_matvec)
+        assert rel(res.x.numpy(), jres.x) <= X_RTOL
+        assert torch.equal(res.x, cg_batched(
+            A, torch.from_numpy(B), rtol=1e-10, replace_every=50,
+            check_curvature=True).x)
     else:
         A, jA, B, method, twin = _route_case(case)
         opts = dict(atol=1e-10, btol=1e-10, etol=0.0) if twin is \

@@ -198,9 +198,9 @@ def test_minres_batched_mode_option_guards():
     A = MatrixOperator(sym(np.linspace(1, 10, 30), 61), symmetric=True,
                        device=DEV)
     B = torch.ones(30, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 15$"):
-        PS.minres_batched(A, B, replace_every=10)
+    # replace_every (item 15) is ported: the verified mode runs
+    ver = PS.minres_batched(A, B, replace_every=10, rtol=1e-8)
+    assert "x_lo" in ver.info and bool(ver.converged.all())
     with pytest.raises(ValueError, match="store_history"):
         PS.minres_batched(A, B, replace_every=10, store_history=True)
     with pytest.raises(ValueError, match="etol"):
@@ -211,8 +211,19 @@ def test_minres_batched_mode_option_guards():
     r0 = PS.minres_batched(A, B, rtol=1e-10)
     r1 = PS.minres_batched(A, B, rtol=1e-10, replace_every=0)
     assert torch.equal(r0.x, r1.x)
-    with pytest.raises(NotImplementedError, match="item 15$"):
-        pt.solve(A, B, method="minres", verified=True)
+    # the verified block route with method="minres" is ff minres_batched
+    # (replace_every 50, rtol 1e-6 unless given), the JAX package's route
+    res = pt.solve(A, B, method="minres", verified=True)
+    jA = linop_from_ndarray(jnp.asarray(sym(np.linspace(1, 10, 30), 61)),
+                            symmetric=True)
+    jres = jax_solve(jA, jnp.ones((30, 2)), method="minres", verified=True)
+    assert set(res.info) == set(jres.info)
+    np.testing.assert_array_equal(res.istop.numpy(), np.asarray(jres.istop))
+    assert int(res.n_matvec) == int(jres.n_matvec)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x),
+                               rtol=1e-10, atol=1e-12)
+    assert torch.equal(res.x, PS.minres_batched(A, B, rtol=1e-6,
+                                                replace_every=50).x)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -225,10 +225,19 @@ def test_istop_table_matches_jax():
 
 
 def test_not_ported_options_raise():
+    # replace_every (item 15, verified arithmetic) is ported: ff-MINRES
+    # against the JAX package's, in f64 step for step
     A, _, b = SYSTEMS["spd"]()
     op = MatrixOperator(torch.from_numpy(A), symmetric=True, device=DEV)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15$"):
-        minres(op, torch.from_numpy(b), replace_every=10)
+    t = minres(op, torch.from_numpy(b), rtol=1e-9, replace_every=10)
+    j = jax_minres(JMatrix(jnp.asarray(A), symmetric=True), jnp.asarray(b),
+                   rtol=1e-9, replace_every=10)
+    assert int(t.istop) == int(j.istop) == 1
+    for key in ("n_iter", "n_matvec"):
+        assert int(getattr(t, key)) == int(getattr(j, key))
+    assert int(t.info["n_replacements"]) == int(j.info["n_replacements"])
+    assert rel(t.x.numpy(), np.asarray(j.x)) <= 1e-10
+    assert set(t.info) == set(j.info)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,8 @@ float64 with the same stored matrix; only summation order differs, so the
 iteration counts must be equal and the solutions agree to 1e-10
 relative."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from pykrylov_tpu_torch.sparse import kernels as K
 from pykrylov_tpu_torch.sparse import operator_from_coo
 from pykrylov_tpu_torch.sparse.linop import auto_format
 
-from test_torch_lls import rect
+from test_torch_lls import rect, rel
 
 DEV = "cpu"  # the port's entry points default to the card
 
@@ -84,8 +86,12 @@ def test_no_unported_knobs():
     # accepted silently
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                          symmetric=True, device=DEV)
-    with pytest.raises(TypeError, match="leg_rtol"):
-        cg(spd, torch.ones(3, dtype=torch.float64), leg_rtol=1e-2)
+    # cg's leg_rtol came back with the verified path (ff-CG's leg target);
+    # without replace_every it changes nothing, as in the JAX package
+    b = torch.ones(3, dtype=torch.float64)
+    assert torch.equal(cg(spd, b, leg_rtol=1e-3).x, cg(spd, b).x)
+    with pytest.raises(TypeError, match="leg_tol"):
+        cg(spd, b, leg_tol=1e-2)
     vals, rows, cols, shape = poisson3d_coo(4)
     with pytest.raises(TypeError, match="max_diags"):
         operator_from_coo(vals, rows, cols, shape, max_diags=100,
@@ -104,18 +110,135 @@ def test_auto_on_cpu_keeps_plain_dia_for_large_stencils():
 # package's, through the twin it picks)
 BLOCK_ROUTES = {"block_rhs": "bicgstab_batched",
                 "rectangular_block": "lsqr_batched"}
+# the cases that named item 15 (verified arithmetic) are route tests too:
+# the port's verified route against the JAX package's, the same solver it
+# picks (refined CG legs, ff-CG, refined_lls with LSMR legs, refined legs
+# in the RCM permuted space); and the verified routes that stay errors
+VERIFIED_ROUTES = ("verified", "replace_every", "rectangular_verified",
+                   "permuted_verified")
+VERIFIED_ERRORS = {
+    "craig_verified": "unsupported for the SQD solvers",
+    "rectangular_block_verified": "supported for square systems",
+    "verified_block_replace_every_0": "requires replace_every >= 1"}
+
+
+def _verified_route(case):
+    """(port result, JAX result, the port's call through the solver that
+    the JAX package's route picks) of one verified route."""
+    rng = np.random.default_rng(15)
+    if case == "rectangular_verified":
+        a = rect(40, 15, seed=15)
+        b = a @ rng.standard_normal(15) + 0.01 * rng.standard_normal(40)
+        A = MatrixOperator(a, device=DEV)
+        opts = dict(atol=1e-10, btol=1e-10, max_legs=6)
+
+        def direct():
+            return pt.solvers.refined_lls(pt.solvers.lsmr, A,
+                                          torch.from_numpy(b), **opts)
+        res = pt.solve(A, torch.from_numpy(b), verified=True, **opts)
+        jres = pykrylov_tpu.solve(JMatrix(jnp.asarray(a)), jnp.asarray(b),
+                                  verified=True, **opts)
+        return res, jres, direct
+    if case == "permuted_verified":
+        from test_torch_batched import _sparse_spd
+        from pykrylov_tpu.sparse import bell as JB
+        from pykrylov_tpu.sparse import formats as JF
+        a, t = _sparse_spd(n=500, seed=15)
+        b = rng.standard_normal(500)
+        A = operator_from_coo(*t, symmetric=True, fmt="bell-rcm",
+                              device=DEV)
+        assert A.solve_permutation is not None
+        jA = JB.bell_operator(JF.coo_from_arrays(*t, device=False),
+                              symmetric=True, interpret=True, reorder=True)
+        opts = dict(rtol=1e-12, leg_rtol=1e-4)
+        res = pt.solve(A, torch.from_numpy(b), verified=True, **opts)
+        jres = pykrylov_tpu.solve(jA, jnp.asarray(b), verified=True, **opts)
+        # the JAX package leaves x_lo in the permuted space (ROADMAP.md
+        # queue 3); the port un-permutes it with x
+        p = A.solve_permutation[0].numpy()
+        jres.info["x_lo"] = np.asarray(jres.info["x_lo"])[np.argsort(p)]
+        assert rel(res.x.numpy(), np.linalg.solve(a, b)) <= 1e-10
+
+        def direct():
+            # refined CG legs on the inner operator, in the permuted space
+            p, ip, inner = A.solve_permutation
+            r = pt.solvers.refined_solve(cg, inner, torch.from_numpy(b)[p],
+                                         check_curvature=True, **opts)
+            return dataclasses.replace(r, x=r.x[ip], info=dict(
+                r.info, x_lo=r.info["x_lo"][ip]))
+        return res, jres, direct
+    a = np.diag(np.linspace(1.0, 4.0, 30))
+    a[0, 5] = a[5, 0] = 0.3
+    b = rng.standard_normal(30)
+    A = MatrixOperator(a, symmetric=True, device=DEV)
+    jA = JMatrix(jnp.asarray(a), symmetric=True)
+    if case == "verified":
+        res = pt.solve(A, torch.from_numpy(b), verified=True, rtol=1e-12)
+        jres = pykrylov_tpu.solve(jA, jnp.asarray(b), verified=True,
+                                  rtol=1e-12)
+        return res, jres, lambda: pt.solvers.refined_solve(
+            cg, A, torch.from_numpy(b), rtol=1e-12, check_curvature=True)
+    res = cg(A, torch.from_numpy(b), replace_every=5, rtol=1e-12)
+    jres = pykrylov_tpu.solvers.cg(jA, jnp.asarray(b), replace_every=5,
+                                   rtol=1e-12)
+    return res, jres, lambda: cg(A, torch.from_numpy(b), replace_every=5,
+                                 rtol=1e-12)
 
 
 @pytest.mark.parametrize("case,item", [
     ("block_rhs", 14), ("verified", 15), ("cg_pipelined", 16),
     ("replace_every", 15), ("rectangular_verified", 15),
-    ("rectangular_block", 14),
+    ("rectangular_block", 14), ("permuted_verified", 15),
+    ("craig_verified", 15), ("rectangular_block_verified", 15),
+    ("verified_block_replace_every_0", 15),
 ])
 def test_not_ported_branches_name_their_roadmap_item(case, item):
     spd = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                          symmetric=True, device=DEV)
     b = torch.ones(3, dtype=torch.float64)
     rop = MatrixOperator(torch.ones(4, 3, dtype=torch.float64), device=DEV)
+    if case in VERIFIED_ROUTES:
+        res, jres, direct = _verified_route(case)
+        assert set(res.info) == set(jres.info)
+        assert int(res.istop) == int(jres.istop) == 0
+        assert int(res.n_iter) == int(jres.n_iter)
+        assert int(res.n_matvec) == int(jres.n_matvec)
+        for key in ("n_legs", "n_replacements"):
+            if key in res.info:
+                assert int(res.info[key]) == int(jres.info[key])
+        assert rel(res.x.numpy(), np.asarray(jres.x)) <= 1e-10
+        # (x, x_lo) pairs: canonical, the low part below an ulp of x
+        for hi, lo in ((res.x.numpy(), res.info["x_lo"].numpy()),
+                       (np.asarray(jres.x), np.asarray(jres.info["x_lo"]))):
+            assert (np.abs(lo) <= 2.3e-16 * np.abs(hi)).all()
+        # the route is that solver's: the same call gives the same bits
+        again = direct()
+        assert torch.equal(res.x, again.x)
+        assert torch.equal(res.info["x_lo"], again.info["x_lo"])
+        return
+    if case in VERIFIED_ERRORS:
+        calls = {
+            "craig_verified": lambda: pt.solve(
+                rop, torch.ones(4, dtype=torch.float64), method="craig",
+                verified=True),
+            "rectangular_block_verified": lambda: pt.solve(
+                rop, torch.ones(4, 2, dtype=torch.float64), verified=True),
+            "verified_block_replace_every_0": lambda: pt.solve(
+                spd, torch.ones(3, 2, dtype=torch.float64), verified=True,
+                replace_every=0)}
+        jspd = JMatrix(2 * jnp.eye(3), symmetric=True)
+        jrop = JMatrix(jnp.ones((4, 3)))
+        jcalls = {
+            "craig_verified": lambda: pykrylov_tpu.solve(
+                jrop, jnp.ones(4), method="craig", verified=True),
+            "rectangular_block_verified": lambda: pykrylov_tpu.solve(
+                jrop, jnp.ones((4, 2)), verified=True),
+            "verified_block_replace_every_0": lambda: pykrylov_tpu.solve(
+                jspd, jnp.ones((3, 2)), verified=True, replace_every=0)}
+        for call in (calls[case], jcalls[case]):
+            with pytest.raises(ValueError, match=VERIFIED_ERRORS[case]):
+                call()
+        return
     if case in BLOCK_ROUTES:
         # an (n, K) block on a square unsymmetric operator goes to
         # bicgstab_batched, on a rectangular one to lsqr_batched, as in
@@ -142,17 +265,9 @@ def test_not_ported_branches_name_their_roadmap_item(case, item):
                                    rtol=1e-8, atol=1e-12)
         assert bool(res.converged.all())
         return
-    calls = {
-        "verified": lambda: pt.solve(spd, b, verified=True),
-        "replace_every": lambda: cg(spd, b, replace_every=50),
-        # the rectangular branch's verified stop (refined_lls)
-        "rectangular_verified": lambda: pt.solve(
-            rop, torch.ones(4, dtype=torch.float64), verified=True),
-    }
-    call = calls.get(case, lambda: pt.solve(spd, b, method=case))
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1 item %d$" % item):
-        call()
+        pt.solve(spd, b, method=case)
 
 
 @pytest.mark.parametrize("case", ["rectangular", "lsqr", "lsmr", "craig",
