@@ -30,7 +30,10 @@ and CRAIG-MR on the convection-diffusion matrix (DIA in both
 directions); and, with a block of K = 8, the nine batched solvers on the
 same operators, through the SpMM kernels on A and A^T; and every
 verified route (``solve(verified=True)``, ff-CG, ff-MINRES and the
-verified block twins) on the same operators, with f32 storage.
+verified block twins) on the same operators, with f32 storage; and
+pipelined CG and its block twin, the differentiable solves, the Chebyshev
+preconditioner, a complex system through its real equivalent and the
+block-diagonal, L-BFGS and Cholesky operators.
 
 Phases, in order:
 
@@ -161,6 +164,38 @@ Phases, in order:
      SELL SpMM an iteration); the checks of 14 per column; then both
      SpMMs at K = 16 with an f64 block timed against their bound and
      torch's CSR SpMM in f64;
+  16a. pipelined CG (:func:`phase_pipelined`), f64 vectors: ``cg_pipelined``
+     on phase 4's operator and b, replace_every 0 and 10 (DIA SpMV), and
+     on tiled 1138bus with phase 8b's Jacobi M and b, replace_every 10
+     (SELL SpMV), each beside a classic ``cg`` of the same vectors and M:
+     istop 0, launches = n_matvec + 1 (the product enqueued before the
+     read that stops the loop is dropped), the true relative residual in
+     f64 at most 1e-4, iterations within 10% of the classic solve's, a
+     profiled window of each (idle share beside the classic solve's);
+  16b. ``solve(A, B, method="cg_pipelined")`` with a K = 8 f64 block,
+     column 0 phase 4's b, through the DIA SpMM (n_iter + 1 launches),
+     every column's true residual at most 1e-4, column 0 within 10% of
+     16a's;
+  16c. the differentiable solves, ``L = w'x``, one backward each:
+     ``cg_solve`` on Poisson (DIA on A), ``bicgstab_solve`` on phase 9's
+     operator (the adjoint on ``dia_transpose``), ``lsqr_solve`` on phase
+     10's operator (SELL on both card forms): the forward's and the
+     adjoint's launches and walls, ``||A g - w||`` (or ``A'``) at most
+     1e-4 of ``||w||`` in f64;
+  17a. ``chebyshev_preconditioner`` (Lanczos 16, degree 8) on phase 4's
+     operator: 16 SpMVs for the bounds; ``cg`` with it (launches =
+     n_matvec + 7 (n_iter + 1)) and ``solve(A, B, M=M)`` through the DIA
+     SpMM, outer iterations beside phase 4's;
+  17b. ``complex_solve(cg, ...)`` on a Hermitian positive definite complex
+     system (3-D Poisson at n = 160 plus a shift, plus i times a skew
+     first difference: 8,192,000 real rows), the kernel ``fmt="auto"``
+     picked for the real equivalent, the true complex residual through a
+     complex128 torch CSR product at most 1e-4;
+  17c. CG on a ``BlockDiagonalLinearOperator`` of phase 4's and phase 5's
+     operators (one DIA and one SELL launch an iteration, each block's
+     true residual at most 1e-4); an ``InverseLBFGSOperator`` of 5 pairs
+     (s, A s) (the secant equation to 1e-6); a ``CholeskyOperator`` of a
+     dense SPD matrix of order 4096 (its residual to 1e-10);
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -182,7 +217,7 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-15,
+     (each with its launches in every run of phases 8-17,
      ``launches_by_phase``, and the verified solves of phases 14-15 that
      ran through it, ``verified_solves``; the SpMMs with their K = 16
      f64-block times, ``k16_f64_block``; the SpMV kernels with their
@@ -196,7 +231,7 @@ Phases, in order:
      and spill bytes), then the result line ``{"ok": true, "device":
      {...}}``.
 
-Phases 8-15 run after 5b and before 6; each resets every launch count
+Phases 8-17 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -939,7 +974,7 @@ def phase_dia_path(pt):
         raise AssertionError("true relative residual %.3e > 1e-4"
                              % true_rel)
     del r, b64
-    _profile_solve(pt, "4 DIA path", A, b, secs)
+    prof = _profile_solve(pt, "4 DIA path", A, b, secs)
 
     t0 = time.perf_counter()
     A_plain = operator_from_coo(*coo, symmetric=True, fmt="dia",
@@ -962,7 +997,7 @@ def phase_dia_path(pt):
                              % (n_iter, n_plain))
     return A, coo, {"launches": launches, "max_abs_err": err,
                     "n_iter": n_iter, "solve_s": secs, "plain_op": A_plain,
-                    "b": b, "true_rel": true_rel}
+                    "b": b, "true_rel": true_rel, "profile": prof}
 
 
 def _timed_solve(pt, label, A, b):
@@ -1069,7 +1104,7 @@ def phase_bell_path(pt):
         raise AssertionError("true relative residual %.3e > 1e-4"
                              % true_rel)
     del rows, cols, vals, x64, ax, b64
-    _profile_solve(pt, "5 BELL path", A, b, secs)
+    prof = _profile_solve(pt, "5 BELL path", A, b, secs)
 
     before = S.SELL_LAUNCHES
     res_plain, secs_plain = _timed_solve(pt, "plain BELL", A.plain(), b)
@@ -1106,7 +1141,8 @@ def phase_bell_path(pt):
     return A, coo, {"launches": launches, "max_abs_err": err,
                     "n_iter": n_iter, "solve_s": secs, "build_s": build_s,
                     "card_s": card_s, "plain_n_iter": n_plain,
-                    "plain_solve_s": secs_plain, "ms_per_iter": per_iter}
+                    "plain_solve_s": secs_plain, "ms_per_iter": per_iter,
+                    "b": b, "profile": prof}
 
 
 def _block_checks(pt, tag, A, Bm, res, ax64):
@@ -1972,7 +2008,12 @@ BLOCK_PRODUCTS = {"bicgstab": lambda k: 2 * k, "cgs": lambda k: 2 * k,
                   "tfqmr": lambda k: 2 * k + 1, "minres": lambda k: k,
                   "symmlq": lambda k: k + 2, "lsqr": lambda k: 2 * k + 1,
                   "lsmr": lambda k: 2 * k + 1, "craig": lambda k: 2 * k + 1,
-                  "craigmr": lambda k: 2 * k + 1}
+                  "craigmr": lambda k: 2 * k + 1,
+                  # phases 16b and 17a: the pipelined twin (its last
+                  # iteration's product too), cg_batched with the Chebyshev
+                  # preconditioner (degree - 1 products an apply)
+                  "cg_pipelined": lambda k: k + 1,
+                  "cg_cheb": lambda k: k + (CHEB_DEGREE - 1) * (k + 1)}
 # column 0 against the single solve of the same b: CGS's and TFQMR's
 # counts swing with the rounding order (phase 9's CGS takes 46% of the JAX
 # package's count on this system), the others within ITER_RTOL
@@ -1980,7 +2021,8 @@ COL0_RTOL = {"cgs": 0.25, "tfqmr": 0.25}
 # the per-column cap that stands for a block-iteration cap
 CAP_OPTION = {"bicgstab": "maxiter", "cgs": "maxiter", "tfqmr": "maxiter",
               "minres": "itnlim", "symmlq": "matvec_max", "lsqr": "itnlim",
-              "lsmr": "itnlim", "craig": "itnlim", "craigmr": "itnlim"}
+              "lsmr": "itnlim", "craig": "itnlim", "craigmr": "itnlim",
+              "cg_pipelined": "maxiter", "cg_cheb": "maxiter"}
 
 
 def _block_of(b):
@@ -2896,6 +2938,428 @@ def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
 
 
 # --------------------------------------------------------------------------
+# 16-17. pipelined CG, the differentiable solves, the remaining operators
+# --------------------------------------------------------------------------
+
+PIPE_RTOL = 1e-6        # rtol of the solves of phases 16-17
+# pipelined against classic CG on the same vectors and M, iterations (the
+# JAX package's claim for replace_every = 10, pipelined.py:166-169)
+PIPE_ITER_RTOL = 0.1
+PIPE_PROFILE_ITERS = 200    # profiled iterations of a single solve (16-17)
+CHEB_DEGREE = 8         # Chebyshev preconditioner (17a): degree - 1 SpMVs
+CHEB_LANCZOS = 16       # Lanczos steps of its bounds
+CX_N = 160              # complex system (17b): 2 * 160^3 real rows
+CX_SHIFT, CX_SKEW = 1.0, 0.4
+LBFGS_PAIRS = 5         # (s, A s) pairs of the inverse L-BFGS operator (17c)
+CHOL_N = 4096           # dense SPD matrix of the Cholesky operator (17c)
+
+
+def _dropped(res):
+    """The operator product a pipelined solve enqueued before the read
+    that stopped it and then dropped: ``cg_pipelined``'s launches are its
+    ``n_matvec`` plus this."""
+    return int(bool(res.converged) and int(res.n_iter) > 0)
+
+
+def _col_check(Bm, ax64):
+    """A ``check`` of :func:`_block_solve`: every column's true relative
+    residual in f64 (``ax64`` gives A X in f64) at most 1e-4."""
+    return lambda res: {"||b - Ax||/||b||": (
+        _col_rel(Bm.double() - ax64(res.x.double()), Bm.double()), 1e-4)}
+
+
+def phase_pipelined(pt, A_dia, dia, A_bus, bus, bell):
+    """16a: ``cg_pipelined`` with f64 vectors on phase 4's Poisson
+    operator and b (the DIA SpMV's f32f64 entry), replace_every 0 and 10,
+    and on phase 5's tiled 1138bus with phase 8b's f64 Jacobi M and b
+    (the SELL SpMV), replace_every 10; each beside a classic ``cg`` of the
+    same vectors and M.  In f32 vectors the pipelined recurrence stalls on
+    both (PERF.md §6), and unpreconditioned tiled 1138bus takes 8%
+    more iterations than classic CG even in f64.  Each solve: istop 0,
+    launches = n_matvec plus the dropped product of the stopping iteration
+    (:func:`_dropped`), the true relative residual in f64 at most 1e-4,
+    the pipelined count within PIPE_ITER_RTOL of the classic one, and a
+    profiled window of at most PIPE_PROFILE_ITERS iterations."""
+    tag = "16a pipelined CG"
+    M, b_bus = bus
+    systems = (("Poisson", A_dia, dia["b"].double(), None, _dia_f64(A_dia),
+                "dia_spmv", (0, 10), dia),
+               ("tiled 1138bus + Jacobi", A_bus, b_bus, M,
+                _sell_f64(A_bus.cards["fwd"]), "sell_spmv", (10,), bell))
+    out = {}
+    for name, A, b, MM, ax64, kernel, everies, earlier in systems:
+        pt.solvers.cg_pipelined(A, b, M=MM, maxiter=20)      # warm-up
+        runs = [("%s, classic cg" % name, None)] + [
+            ("%s, cg_pipelined(replace_every=%d)" % (name, e), e)
+            for e in everies]
+        classic = None
+        for label, every in runs:
+            if every is None:
+                def fn(cap=None):
+                    return pt.cg(A, b, M=MM, rtol=PIPE_RTOL, maxiter=cap)
+                extra = lambda res: 0                       # noqa: E731
+            else:
+                def fn(cap=None):
+                    return pt.solvers.cg_pipelined(
+                        A, b, M=MM, rtol=PIPE_RTOL, maxiter=cap,
+                        replace_every=every)
+                extra = _dropped
+            res, secs, counts = _counted_solve(tag, label, fn, kernel, extra)
+            n_iter = int(res.n_iter)
+            true_rel = _true_rel(b, ax64, res.x)
+            log("[%s] %s: true relative residual (f64) %.3e"
+                % (tag, label, true_rel))
+            if int(res.istop) != 0 or not true_rel <= 1e-4:
+                raise AssertionError("%s %s: %r, true relative residual "
+                                     "%.3e" % (tag, label, res, true_rel))
+            if classic is None:
+                classic = n_iter
+            elif abs(n_iter - classic) > PIPE_ITER_RTOL * classic:
+                raise AssertionError("%s %s: %d iterations, classic CG %d"
+                                     % (tag, label, n_iter, classic))
+            ms = 1e3 * secs / max(n_iter, 1)
+            prof = _profile_call("%s, %s" % (tag, label),
+                                 lambda: fn(PIPE_PROFILE_ITERS), ms)
+            out[label] = {"kernel": kernel, "n_iter": n_iter,
+                          "n_matvec": int(res.n_matvec), "launches": counts,
+                          "solve_s": secs, "ms_per_iter": ms,
+                          "true_rel": true_rel, "profile": prof}
+        log("[%s] %s: classic CG %d iterations here; the f32 classic CG of "
+            "phase %s: %d iterations, %.4f ms per iteration, device idle "
+            "%.1f%%" % (tag, name, classic, "4" if kernel == "dia_spmv"
+                        else "5 (no M)", earlier["n_iter"],
+                        1e3 * earlier["solve_s"] / earlier["n_iter"],
+                        100 * earlier["profile"]["idle"]))
+    return out
+
+
+def phase_pipelined_block(pt, A_dia, dia, single):
+    """16b: ``solve(A, B, method="cg_pipelined")`` (cg_pipelined_batched)
+    on phase 4's operator with a K = KB f64 block whose column 0 is phase
+    4's b: every block product through the DIA SpMM (n_iter + 1, no
+    replacement), every column's true relative residual in f64 at most
+    1e-4, column 0's count within ITER_RTOL of 16a's single solve of the
+    same b (plus the iteration whose test stops it, which a block column
+    counts), a profiled window."""
+    tag = "16b pipelined CG block"
+    Bm = _block_of(dia["b"])
+    pt.solve(A_dia, Bm, method="cg_pipelined", maxiter=20)   # warm-up
+    s = single["Poisson, cg_pipelined(replace_every=0)"]
+    out = {}
+    _block_solve(pt, tag, "solve(A, B, method='cg_pipelined')",
+                 "cg_pipelined", A_dia, Bm,
+                 {"method": "cg_pipelined", "rtol": PIPE_RTOL}, "dia_spmm",
+                 (s["n_iter"] + 1, s["ms_per_iter"]),
+                 _col_check(Bm, _dia_f64(A_dia)), out)
+    return out
+
+
+def phase_diff(pt, A_dia, dia, cd, se):
+    """16c: the differentiable solves, ``L = w'x``, ``dL/db`` by one
+    backward: ``cg_solve`` on phase 4's operator and f32 b (DIA SpMV on A
+    in both solves; ``||A g - w|| / ||w||``), ``bicgstab_solve`` on phase
+    9's operator and f64 b (the adjoint through ``dia_transpose``;
+    ``||A' g - w|| / ||w||``), each with w standard normal (seed 0), and
+    ``lsqr_solve`` on phase 10's state-estimation operator (SELL on
+    ``cards["fwd"]`` and ``cards["bwd"]`` in both solves; ``||A' g - w|| /
+    ||w||``) at atol = btol = 1e-8, with b = A x, x standard normal, and
+    w = A'u, u standard normal: ``L = u'A x`` of the fitted measurements.
+    There phase 10's noisy b would keep the forward LSQR to its iteration
+    cap at that tolerance, and a standard normal w the adjoint (its small
+    singular directions) above 1e-2 (PERF.md §6).  Each gradient
+    residual at most 1e-4 in f64, with the forward solve's and the
+    backward's launches (only the expected kernel) and walls."""
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    tag = "16c differentiable solves"
+    A_cd, _, b_cd = cd
+    A_se = se[0]
+    t = K.dia_transpose(A_cd.container)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def normal(n, dtype):
+        return torch.randn(n, generator=g, device=DEVICE, dtype=dtype)
+
+    m_se, n_se = A_se.shape
+    cases = (("cg_solve, Poisson", A_dia, dia["b"], None,
+              pt.solvers.cg_solve, {"rtol": PIPE_RTOL}, _dia_f64(A_dia)),
+             ("bicgstab_solve, convection-diffusion", A_cd, b_cd, None,
+              pt.solvers.bicgstab_solve, {"rtol": 1e-6},
+              lambda x: K.dia_matvec_plain(t.data.double(), t.offsets, x)),
+             ("lsqr_solve, state estimation", A_se,
+              A_se * normal(n_se, torch.float64),
+              A_se.T * normal(m_se, torch.float64), pt.solvers.lsqr_solve,
+              {"atol": 1e-8, "btol": 1e-8}, _sell_f64(A_se.cards["bwd"])))
+    out = {}
+    for label, A, b, w, fn, opts, atg in cases:
+        kernel = "dia_spmv" if getattr(A, "cards", None) is None \
+            else "sell_spmv"
+        if w is None:
+            w = normal(A.shape[1], b.dtype)
+        bb = b.detach().clone().requires_grad_(True)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = fn(A, bb, **opts)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd = _counts()
+        _reset_counts()
+        t0 = time.perf_counter()
+        (w @ x).backward()
+        torch.cuda.synchronize()
+        bwd_s = time.perf_counter() - t0
+        bwd = _counts()
+        grad = bb.grad
+        rel = (torch.linalg.vector_norm(atg(grad.double()) - w.double())
+               / torch.linalg.vector_norm(w.double())).item()
+        log("[%s] %s: forward %d %s launches in %.3f s, backward (the "
+            "adjoint solve) %d in %.3f s; ||A%s g - w|| / ||w|| (f64) %.3e"
+            % (tag, label, fwd[kernel], kernel, fwd_s, bwd[kernel], bwd_s,
+               "" if A is A_dia else "'", rel))
+        for counts in (fwd, bwd):
+            if counts[kernel] == 0 or any(v for k, v in counts.items()
+                                          if k != kernel):
+                raise AssertionError("%s %s: launches %s" % (tag, label,
+                                                             counts))
+        if not (rel <= 1e-4 and torch.isfinite(grad).all()):
+            raise AssertionError("%s %s: gradient residual %.3e"
+                                 % (tag, label, rel))
+        out[label] = {"kernel": kernel, "forward_s": fwd_s,
+                      "backward_s": bwd_s, "rel": rel,
+                      "launches": {k: fwd[k] + bwd[k] for k in fwd},
+                      "forward_launches": fwd[kernel],
+                      "adjoint_launches": bwd[kernel]}
+        del x, bb, grad
+    return out
+
+
+def phase_chebyshev(pt, A_dia, dia):
+    """17a: ``chebyshev_preconditioner`` (Lanczos CHEB_LANCZOS steps,
+    degree CHEB_DEGREE) on phase 4's operator: CHEB_LANCZOS SpMVs for the
+    bounds; ``cg`` with it on phase 4's b in f64 (DIA launches = n_matvec
+    + (CHEB_DEGREE - 1) a preconditioner apply, n_iter + 1 applies; the
+    true residual at most 1e-4) beside phase 4's outer count; and
+    ``solve(A, B, M=M)`` (cg_batched) with a K = KB f64 block, the
+    preconditioner's block rule through the DIA SpMM."""
+    tag = "17a Chebyshev"
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M = pt.chebyshev_preconditioner(A_dia, degree=CHEB_DEGREE,
+                                    k_lanczos=CHEB_LANCZOS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    log("[%s] Lanczos bounds [%.6g, %.6g] in %.3f s, %s" % (
+        tag, M.lmin, M.lmax, secs, counts))
+    if counts != {"dia_spmv": CHEB_LANCZOS, "dia_spmm": 0, "sell_spmv": 0,
+                  "sell_spmm": 0}:
+        raise AssertionError("%s: Lanczos launches %s" % (tag, counts))
+    out = {"bounds": [M.lmin, M.lmax],
+           "lanczos": {"launches": counts, "s": secs}}
+    b = dia["b"].double()
+    pt.cg(A_dia, b, M=M, maxiter=3)                          # warm-up
+    label = "cg, M = Chebyshev(%d)" % CHEB_DEGREE
+    res, secs, counts = _counted_solve(
+        tag, label, lambda: pt.cg(A_dia, b, M=M, rtol=PIPE_RTOL),
+        "dia_spmv",
+        lambda res: (CHEB_DEGREE - 1) * (int(res.n_iter) + 1))
+    n_iter = int(res.n_iter)
+    true_rel = _true_rel(b, _dia_f64(A_dia), res.x)
+    ms = 1e3 * secs / max(n_iter, 1)
+    log("[%s] %s: %d outer iterations (phase 4 without M: %d), %.4f ms "
+        "per outer iteration (phase 4: %.4f), true relative residual (f64) "
+        "%.3e" % (tag, label, n_iter, dia["n_iter"], ms,
+                  1e3 * dia["solve_s"] / dia["n_iter"], true_rel))
+    if int(res.istop) != 0 or not true_rel <= 1e-4:
+        raise AssertionError("%s %s: %r, true relative residual %.3e"
+                             % (tag, label, res, true_rel))
+    prof = _profile_call("%s, %s" % (tag, label), lambda: pt.cg(
+        A_dia, b, M=M, rtol=PIPE_RTOL, maxiter=PIPE_PROFILE_ITERS), ms)
+    out[label] = {"kernel": "dia_spmv", "n_iter": n_iter,
+                  "n_matvec": int(res.n_matvec), "launches": counts,
+                  "solve_s": secs, "ms_per_iter": ms, "true_rel": true_rel,
+                  "profile": prof}
+    Bm = _block_of(dia["b"])
+    pt.solve(A_dia, Bm, M=M, maxiter=3)                      # warm-up
+    _block_solve(pt, tag, "solve(A, B, M = Chebyshev(%d))" % CHEB_DEGREE,
+                 "cg_cheb", A_dia, Bm, {"M": M, "rtol": PIPE_RTOL},
+                 "dia_spmm", (n_iter, ms), _col_check(Bm, _dia_f64(A_dia)),
+                 out)
+    return out
+
+
+def cx_coo(n=CX_N):
+    """A Hermitian positive definite complex system: 3-D Poisson on an
+    n^3 grid plus CX_SHIFT I plus i times a real skew-symmetric first
+    difference of CX_SKEW along x (its eigenvalues lie within 2 CX_SKEW <
+    CX_SHIFT of 0): complex COO triples (vals, rows, cols, shape)."""
+    from pykrylov_tpu_torch.gallery import poisson3d_coo
+    vals, rows, cols, shape = poisson3d_coo(n)
+    vals = vals + CX_SHIFT * (rows == cols)
+    i = np.arange(shape[0])
+    r = i[(i % n) < n - 1]
+    skew = np.full(len(r), CX_SKEW)
+    return (np.concatenate([vals.astype(np.complex128), 1j * skew,
+                            -1j * skew]),
+            np.concatenate([rows, r, r + 1]),
+            np.concatenate([cols, r + 1, r]), shape)
+
+
+def phase_complex(pt):
+    """17b: ``complex_solve(cg, ...)`` on :func:`cx_coo` through
+    ``real_equivalent_operator(..., hermitian=True)`` with f32 storage (the
+    auto policy's pick logged: it must be a kernel), b complex standard
+    normal (seed 0) in complex128 (f64 vectors, the f32f64 entry): istop
+    0, launches = n_matvec, the true complex residual in complex128
+    through torch's CSR product at most 1e-4, a profiled window."""
+    tag = "17b complex"
+    t0 = time.perf_counter()
+    vals, rows, cols, shape = cx_coo(CX_N)
+    op = pt.real_equivalent_operator((vals, rows, cols, shape),
+                                     hermitian=True, dtype=np.float32,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kernel = {"cuda-dia": "dia_spmv", "bell": "sell_spmv"}.get(
+        getattr(op, "fmt", None))
+    log("[%s] A: %d complex rows, %d nonzeros; real equivalent %d x %d, "
+        "fmt=%s (auto), %s, built in %.1f s" % (
+            tag, shape[0], len(vals), op.shape[0], op.shape[1],
+            getattr(op, "fmt", None), str(op.dtype)[6:], build_s))
+    if kernel is None or not op.symmetric:
+        raise AssertionError("%s: the auto policy gave %r" % (tag, op))
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    bz = torch.complex(*(torch.randn(shape[0], generator=g, device=DEVICE,
+                                     dtype=torch.float64) for _ in range(2)))
+    pt.complex_solve(pt.cg, op, bz, maxiter=3)               # warm-up
+    label = "complex_solve(cg)"
+    res, secs, counts = _counted_solve(
+        tag, label, lambda: pt.complex_solve(pt.cg, op, bz, rtol=PIPE_RTOL),
+        kernel)
+    idx = torch.from_numpy(np.stack([rows, cols])).to(DEVICE)
+    Acsr = torch.sparse_coo_tensor(idx, torch.from_numpy(vals).to(DEVICE),
+                                   shape).coalesce().to_sparse_csr()
+    del idx
+    true_rel = (torch.linalg.vector_norm(bz - Acsr @ res.x)
+                / torch.linalg.vector_norm(bz)).item()
+    n_iter = int(res.n_iter)
+    ms = 1e3 * secs / max(n_iter, 1)
+    log("[%s] %s: x %s, true complex relative residual (complex128 CSR) "
+        "%.3e" % (tag, label, str(res.x.dtype)[6:], true_rel))
+    if (int(res.istop) != 0 or res.x.dtype != torch.complex128
+            or not true_rel <= 1e-4):
+        raise AssertionError("%s: %r, true relative residual %.3e"
+                             % (tag, res, true_rel))
+    del Acsr
+    prof = _profile_call("%s, %s" % (tag, label), lambda: pt.complex_solve(
+        pt.cg, op, bz, rtol=PIPE_RTOL, maxiter=PIPE_PROFILE_ITERS), ms)
+    return {"fmt": op.fmt, "build_s": build_s, "shape": list(op.shape),
+            label: {"kernel": kernel, "n_iter": n_iter,
+                    "n_matvec": int(res.n_matvec), "launches": counts,
+                    "solve_s": secs, "ms_per_iter": ms,
+                    "true_rel": true_rel, "profile": prof}}
+
+
+def phase_operators(pt, A_dia, dia, A_bus, bell):
+    """17c: CG on ``BlockDiagonalLinearOperator([A_dia, A_bus])`` (phase 4's
+    and phase 5's operators, b their f32 b's each scaled to norm 1): one
+    DIA and one SELL launch an iteration, each block's true relative
+    residual in f64 at most 1e-4, a profiled window; an
+    ``InverseLBFGSOperator`` of LBFGS_PAIRS pairs (s, A s), s standard
+    normal in f64 (the DIA SpMV's f32f64 entry): the secant equation of
+    the newest pair ``||H y - s|| / ||s||`` at most 1e-6; a
+    ``CholeskyOperator`` of a dense SPD matrix of order CHOL_N in f64:
+    ``||A (C^-1 b) - b|| / ||b||`` at most 1e-10."""
+    tag = "17c operators"
+    out = {}
+    b1 = dia["b"] / torch.linalg.vector_norm(dia["b"])
+    b2 = bell["b"] / torch.linalg.vector_norm(bell["b"])
+    op = pt.BlockDiagonalLinearOperator([A_dia, A_bus])
+    b = torch.cat([b1, b2])
+    n1 = b1.shape[0]
+    pt.cg(op, b, maxiter=3)                                  # warm-up
+    label = "cg, BlockDiagonalLinearOperator([DIA, SELL])"
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pt.cg(op, b, rtol=PIPE_RTOL)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    n_iter, n_mv = int(res.n_iter), int(res.n_matvec)
+    rels = [_true_rel(b1, _dia_f64(A_dia), res.x[:n1]),
+            _true_rel(b2, _sell_f64(A_bus.cards["fwd"]), res.x[n1:])]
+    ms = 1e3 * secs / max(n_iter, 1)
+    log("[%s] %s: istop %d, %d iterations, %.3f s, %.4f ms per iteration, "
+        "launches %s; true relative residual (f64) per block %.3e %.3e"
+        % (tag, label, int(res.istop), n_iter, secs, ms, counts, *rels))
+    if (counts != {"dia_spmv": n_mv, "sell_spmv": n_mv, "dia_spmm": 0,
+                   "sell_spmm": 0} or int(res.istop) != 0
+            or not max(rels) <= 1e-4):
+        raise AssertionError("%s %s: %r, launches %s, residuals %s"
+                             % (tag, label, res, counts, rels))
+    prof = _profile_call("%s, %s" % (tag, label), lambda: pt.cg(
+        op, b, rtol=PIPE_RTOL, maxiter=PIPE_PROFILE_ITERS), ms)
+    out[label] = {"n_iter": n_iter, "launches": counts, "solve_s": secs,
+                  "ms_per_iter": ms, "true_rel": rels, "profile": prof}
+    del op, b, res
+
+    m = A_dia.shape[0]
+    H = pt.InverseLBFGSOperator(m, LBFGS_PAIRS, dtype=torch.float64,
+                                device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    _reset_counts()
+    for _ in range(LBFGS_PAIRS):
+        s = torch.randn(m, generator=g, device=DEVICE, dtype=torch.float64)
+        y = A_dia * s
+        H.store(s, y)
+    torch.cuda.synchronize()
+    counts = _counts()
+    t0 = time.perf_counter()
+    hy = H * y
+    torch.cuda.synchronize()
+    h_s = time.perf_counter() - t0
+    rel = (torch.linalg.vector_norm(hy - s)
+           / torch.linalg.vector_norm(s)).item()
+    log("[%s] InverseLBFGSOperator, %d pairs (s, A s) on %d rows: launches "
+        "%s; H y = s for the newest pair to %.3e (f64); one apply %.3f s"
+        % (tag, LBFGS_PAIRS, m, counts, rel, h_s))
+    if counts["dia_spmv"] != LBFGS_PAIRS or not rel <= 1e-6:
+        raise AssertionError("%s: L-BFGS launches %s, secant %.3e"
+                             % (tag, counts, rel))
+    out["InverseLBFGSOperator"] = {"launches": counts, "secant_rel": rel,
+                                   "apply_s": h_s}
+    del H, s, y, hy
+
+    Q = torch.randn(CHOL_N, CHOL_N, generator=g, device=DEVICE,
+                    dtype=torch.float64)
+    A = Q @ Q.T / CHOL_N + torch.eye(CHOL_N, dtype=torch.float64,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C = pt.CholeskyOperator(A, device=DEVICE)
+    torch.cuda.synchronize()
+    f_s = time.perf_counter() - t0
+    bc = torch.randn(CHOL_N, generator=g, device=DEVICE,
+                     dtype=torch.float64)
+    t0 = time.perf_counter()
+    x = C * bc
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    rel = (torch.linalg.vector_norm(A @ x - bc)
+           / torch.linalg.vector_norm(bc)).item()
+    log("[%s] CholeskyOperator, dense SPD %d x %d (f64): factor %.3f s, "
+        "apply %.4f s, ||A (C^-1 b) - b|| / ||b|| %.3e"
+        % (tag, CHOL_N, CHOL_N, f_s, a_s, rel))
+    if not rel <= 1e-10:
+        raise AssertionError("%s: Cholesky residual %.3e" % (tag, rel))
+    out["CholeskyOperator"] = {"factor_s": f_s, "apply_s": a_s, "rel": rel}
+    return out
+
+
+# --------------------------------------------------------------------------
 # 6. timing
 # --------------------------------------------------------------------------
 
@@ -3278,7 +3742,17 @@ def main():
                          pt, dia, A_dia, A_bell, keep["bus"], keep["cd"],
                          {"11": new_s["11"][0]}, rates, coo_bell,
                          keep["cd"][1],
-                         new_s["14"][0]["f32_floor"] is not None))):
+                         new_s["14"][0]["f32_floor"] is not None)),
+                     ("16a", lambda: phase_pipelined(
+                         pt, A_dia, dia, A_bell, keep["bus"], bell)),
+                     ("16b", lambda: phase_pipelined_block(
+                         pt, A_dia, dia, new_s["16a"][0])),
+                     ("16c", lambda: phase_diff(pt, A_dia, dia, keep["cd"],
+                                                keep["se"])),
+                     ("17a", lambda: phase_chebyshev(pt, A_dia, dia)),
+                     ("17b", lambda: phase_complex(pt)),
+                     ("17c", lambda: phase_operators(pt, A_dia, dia, A_bell,
+                                                     bell))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
     keep.clear()
@@ -3378,7 +3852,7 @@ def main():
             **{key: {k: v["launches"] for k, v in new_s[key][0].items()
                      if isinstance(v, dict) and "launches" in v}
                for key in ("9", "9b", "10", "10b", "11", "12", "13", "14",
-                           "15")}}
+                           "15", "16a", "16b", "16c", "17a", "17b", "17c")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -3481,6 +3955,22 @@ def main():
                         v["ms_per_iter"], v["profile"]["launches_per_iter"],
                         100 * v["profile"]["idle"])
                      for k, v in verified.items())))
+    p16 = {key: new_s[key] for key in ("16a", "16b", "16c", "17a", "17b",
+                                        "17c")}
+    log("[7 result] phases 16-17 (%s): %s; 16c: %s; 17b: fmt=%s"
+        % (", ".join("%s %.1f s" % (k, v[1]) for k, v in p16.items()),
+           "; ".join("%s %s: %d it., %.4f ms per it., idle %.1f%%"
+                     % (key, label, v["n_iter"], v["ms_per_iter"],
+                        100 * v["profile"]["idle"])
+                     for key, (out, _) in p16.items()
+                     for label, v in out.items()
+                     if isinstance(v, dict) and "profile" in v),
+           "; ".join("%s: forward %d launches in %.3f s, backward %d in "
+                     "%.3f s" % (label, v["forward_launches"],
+                                 v["forward_s"], v["adjoint_launches"],
+                                 v["backward_s"])
+                     for label, v in p16["16c"][0].items()),
+           p16["17b"][0]["fmt"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ tensor code is PyTorch; each Pallas kernel becomes a CUDA kernel written
 for Hopper, compiled from ``csrc/`` at first use.  This package imports
 torch and NumPy, never JAX.
 
-Ported so far: the operator layer with native block products, CG, MINRES,
+Ported so far: the operator layer with native block products (with the
+block, Chebyshev, L-BFGS, Cholesky, COO, reduced and complex
+real-equivalent operators), CG and pipelined CG, MINRES,
 SYMMLQ, BiCGSTAB, CGS, TFQMR, LSQR, LSMR, CRAIG and CRAIG-MR with the
 reference's ``show`` tables and each with its block-batched twin, the reference-style
 class API (``compat``) and its import paths (``cg``, ``minres``, ...,
@@ -19,6 +21,8 @@ MINRES on an indefinite operator; BiCGSTAB, falling back to TFQMR on a
 breakdown, for unsymmetric ones; and LSMR for rectangular ones.  An (n, K)
 block of right-hand sides goes to ``cg_batched``, ``bicgstab_batched`` or
 ``lsqr_batched`` by the same shapes, or to ``method=``'s batched twin.
+The differentiable solves (``solvers.cg_solve``, ``bicgstab_solve``,
+``lsqr_solve``) carry gradients through a solve by one adjoint solve.
 """
 
 from .version import __version__
@@ -37,14 +41,38 @@ from . import compat
 # leaves the name alone)
 from . import (cg, minres, symmlq, bicgstab, cgs, tfqmr, lls, linop, generic,
                tools)  # noqa: F401
-from .ops import LinearOperator
+from .ops import (
+    ShapeError, BaseLinearOperator, LinearOperator, IdentityOperator,
+    DiagonalOperator, ZeroOperator, MatrixOperator, CoordLinearOperator,
+    PysparseLinearOperator, ReducedLinearOperator,
+    SymmetricallyReducedLinearOperator, linop_from_ndarray, aslinearoperator,
+    sqrt, BlockLinearOperator, BlockDiagonalLinearOperator,
+    BlockPreconditioner, BlockDiagonalPreconditioner,
+    InverseLBFGSOperator, LBFGSOperator, CompactLBFGSOperator,
+    StructuredLBFGSOperator, CholeskyOperator, HostFactorizationOperator,
+    lanczos_bounds, ChebyshevOperator, chebyshev_preconditioner,
+    pack_complex, unpack_complex, real_equivalent_dense,
+    real_equivalent_coo, real_equivalent_operator, complex_solve,
+)
 from .solvers import (SolveResult, ISTOP_MSGS, cg, minres, symmlq, bicgstab,
                       cgs, tfqmr, lsqr, lsmr, craig, craigmr)
 from .utils import (machine_epsilon, roots_quadratic, check_symmetric,
                     check_positive_definite)
 from .solve import solve
 
-__all__ = ["__version__", "solve", "LinearOperator", "SolveResult",
+__all__ = ["__version__", "solve", "ShapeError", "BaseLinearOperator",
+           "LinearOperator", "IdentityOperator", "DiagonalOperator",
+           "ZeroOperator", "MatrixOperator", "CoordLinearOperator",
+           "PysparseLinearOperator", "ReducedLinearOperator",
+           "SymmetricallyReducedLinearOperator", "linop_from_ndarray",
+           "aslinearoperator", "sqrt", "BlockLinearOperator",
+           "BlockDiagonalLinearOperator", "BlockPreconditioner",
+           "BlockDiagonalPreconditioner", "InverseLBFGSOperator",
+           "LBFGSOperator", "CompactLBFGSOperator", "StructuredLBFGSOperator",
+           "CholeskyOperator", "HostFactorizationOperator", "lanczos_bounds",
+           "ChebyshevOperator", "chebyshev_preconditioner", "pack_complex",
+           "unpack_complex", "real_equivalent_dense", "real_equivalent_coo",
+           "real_equivalent_operator", "complex_solve", "SolveResult",
            "ISTOP_MSGS", "cg", "minres", "symmlq", "bicgstab", "cgs",
            "tfqmr", "lsqr", "lsmr", "craig", "craigmr", "machine_epsilon",
            "roots_quadratic", "check_symmetric", "check_positive_definite",

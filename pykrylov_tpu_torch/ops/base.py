@@ -23,6 +23,12 @@ A 2-D operand ``(n, K)`` goes through the operator's native block product
 columns (``ops/base.py:183-221,267-296,347-374`` of the JAX package); the
 rule propagates through ``.T``/``.H``, scaling, products, sums and powers,
 and an operator without one is applied column by column.
+
+``params`` holds the tensors an operator's products read (a derived
+operator collects its children's), through which the differentiable
+solves reach a dense or diagonal operator's entries.  The module also
+holds the COO, pysparse-adapter and reduced operators and ``sqrt``
+(``linop.py:560-754``).
 """
 
 from __future__ import annotations
@@ -42,7 +48,13 @@ __all__ = [
     "DiagonalOperator",
     "ZeroOperator",
     "MatrixOperator",
+    "CoordLinearOperator",
+    "PysparseLinearOperator",
+    "ReducedLinearOperator",
+    "SymmetricallyReducedLinearOperator",
+    "linop_from_ndarray",
     "aslinearoperator",
+    "sqrt",
 ]
 
 
@@ -193,15 +205,21 @@ class LinearOperator(BaseLinearOperator):
     function of the vector alone.  ``matmat``/``matmat_transp`` are the
     optional native block products ``A @ X`` and ``A.T @ X`` on (n, K)
     blocks; a symmetric operator's transpose rule defaults to ``matmat``.
+
+    ``params`` are the tensors the products read (the JAX package's
+    ``A.params``): derived operators collect their children's, and the
+    differentiable solves (:mod:`..solvers.diff`) pull a gradient back to
+    those that require one.
     """
 
     def __init__(self, nargin, nargout, matvec, matvec_transp=None,
                  matvec_adj=None, symmetric=False, hermitian=False,
                  dtype=None, name=None, device="cuda", matmat=None,
-                 matmat_transp=None):
+                 matmat_transp=None, params=()):
         super().__init__(nargin, nargout, symmetric=symmetric,
                          hermitian=hermitian, dtype=dtype, name=name,
                          device=device)
+        self._params = tuple(params)
         if self.symmetric and matmat_transp is None:
             matmat_transp = matmat
         self._mm = matmat
@@ -234,15 +252,22 @@ class LinearOperator(BaseLinearOperator):
 
     def _like(self, nargin, nargout, matvec, matvec_transp=None,
               matvec_adj=None, symmetric=False, hermitian=False, dtype=None,
-              suffix=None, matmat=None, matmat_transp=None):
-        """A derived operator on this operator's device."""
+              suffix=None, matmat=None, matmat_transp=None, params=None):
+        """A derived operator on this operator's device, reading this
+        operator's ``params`` unless given others."""
         return LinearOperator(
             nargin, nargout, matvec, matvec_transp, matvec_adj,
             symmetric=symmetric, hermitian=hermitian,
             dtype=self.dtype if dtype is None else dtype,
             name=None if (self.name is None or suffix is None)
             else self.name + suffix,
-            device=self.device, matmat=matmat, matmat_transp=matmat_transp)
+            device=self.device, matmat=matmat, matmat_transp=matmat_transp,
+            params=self.params if params is None else params)
+
+    @property
+    def params(self):
+        """The tensors the products read (a tuple, possibly empty)."""
+        return self._params
 
     # -- core application --------------------------------------------------
     def _as_tensor(self, x):
@@ -384,7 +409,8 @@ class LinearOperator(BaseLinearOperator):
             dtype=result_type(self.dtype, other.dtype),
             matmat=_compose_mm(a, a._mv, b, b._mv),
             matmat_transp=_compose_mm(b, b._rmv, a, a._rmv)
-            if (a._rmv is not None and b._rmv is not None) else None)
+            if (a._rmv is not None and b._rmv is not None) else None,
+            params=a.params + b.params)
 
     def __mul__(self, x):
         if isinstance(x, BaseLinearOperator):
@@ -424,7 +450,8 @@ class LinearOperator(BaseLinearOperator):
             dtype=result_type(a.dtype, b.dtype),
             matmat=_add_mm(a, a._mv, b, b._mv),
             matmat_transp=_add_mm(a, a._rmv, b, b._rmv)
-            if (a._rmv is not None and b._rmv is not None) else None)
+            if (a._rmv is not None and b._rmv is not None) else None,
+            params=a.params + b.params)
 
     def __neg__(self):
         return self._mul_scalar(-1)
@@ -472,6 +499,10 @@ class LinearOperator(BaseLinearOperator):
                           matmat_transp=_pow_mm(self, self._rmv, k)
                           if self._rmv is not None else None)
 
+    def _sqrt(self):
+        raise NotImplementedError("no operator square root for %s"
+                                  % repr(self))
+
 
 # ---------------------------------------------------------------------------
 # Simple concrete operators
@@ -485,6 +516,12 @@ class IdentityOperator(LinearOperator):
         super().__init__(nargin, nargin, matvec=lambda x: x,
                          symmetric=True, hermitian=True, dtype=dtype,
                          device=device, **kwargs)
+
+    def _sqrt(self):
+        return self
+
+    def __abs__(self):
+        return self
 
 
 class DiagonalOperator(LinearOperator):
@@ -504,8 +541,18 @@ class DiagonalOperator(LinearOperator):
                          else None,
                          symmetric=True, hermitian=not is_complex,
                          dtype=diag.dtype, device=diag.device,
-                         matmat=lambda X: diag[:, None] * X, **kwargs)
+                         matmat=lambda X: diag[:, None] * X, params=(diag,),
+                         **kwargs)
         self.diag = diag
+
+    def __abs__(self):
+        return DiagonalOperator(self.diag.abs(), device=self.device)
+
+    def _sqrt(self):
+        # the reference refuses the square root of an indefinite diagonal
+        if not self.diag.dtype.is_complex and bool((self.diag < 0).any()):
+            raise ValueError("math domain error: negative diagonal entries")
+        return DiagonalOperator(torch.sqrt(self.diag), device=self.device)
 
 
 class ZeroOperator(LinearOperator):
@@ -526,6 +573,12 @@ class ZeroOperator(LinearOperator):
                          symmetric=(nargin == nargout),
                          hermitian=(nargin == nargout),
                          dtype=dtype, device=device, **kwargs)
+
+    def _sqrt(self):
+        return self
+
+    def __abs__(self):
+        return self
 
 
 def _dense_product(A, x):
@@ -557,11 +610,176 @@ class MatrixOperator(LinearOperator):
                          dtype=A.dtype, device=A.device,
                          matmat=lambda X: _dense_block(A, X),
                          matmat_transp=lambda X: _dense_block(At, X),
-                         **kwargs)
+                         params=(A,), **kwargs)
         self.matrix = A
 
     def to_array(self):
         return self.matrix
+
+
+def linop_from_ndarray(A, symmetric=False, hermitian=False, device="cuda",
+                       **kwargs):
+    """Operator from a dense array or tensor (parity alias of
+    :class:`MatrixOperator`; ``linop.py:723-745``)."""
+    return MatrixOperator(A, symmetric=symmetric, hermitian=hermitian,
+                          device=device, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# COO operator
+# ---------------------------------------------------------------------------
+
+
+def _segment_sum(vals, gather, scatter, x, n):
+    """``y[scatter[e]] += vals[e] * x[gather[e]]`` for a vector or an (n,
+    K) block ``x``."""
+    v = vals if x.ndim == 1 else vals[:, None]
+    contrib = v * x[gather]
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=contrib.dtype,
+                    device=x.device)
+    return y.index_add_(0, scatter, contrib)
+
+
+class CoordLinearOperator(LinearOperator):
+    """Operator from COO triples (vals, rows, cols) (``linop.py:638-685``).
+
+    The reference loops over the nonzeros in Python; here a product is a
+    gather and an ``index_add_`` (the JAX package's ``segment_sum``), for
+    a vector or an (n, K) block alike.  With ``symmetric=True`` only one
+    triangle is stored and the mirrored contribution is added on the fly,
+    as in the reference.
+    """
+
+    def __init__(self, vals, rows, cols, nargin=0, nargout=0,
+                 symmetric=False, device="cuda", **kwargs):
+        vals = to_tensor(vals, device=device).ravel()
+        rows = to_tensor(rows, device=vals.device).ravel().long()
+        cols = to_tensor(cols, device=vals.device).ravel().long()
+        if not (vals.shape == rows.shape == cols.shape):
+            raise ShapeError("vals, rows, cols must have matching lengths")
+        if nargin == 0:
+            nargin = int(cols.max()) + 1 if cols.numel() else 0
+        if nargout == 0:
+            nargout = int(rows.max()) + 1 if rows.numel() else 0
+        off = torch.where(rows != cols, vals, torch.zeros_like(vals)) \
+            if symmetric else None
+
+        def mv(x):
+            y = _segment_sum(vals, cols, rows, x, nargout)
+            if symmetric:
+                y = y + _segment_sum(off, rows, cols, x, nargout)
+            return y
+
+        def rmv(x):
+            y = _segment_sum(vals, rows, cols, x, nargin)
+            if symmetric:
+                y = y + _segment_sum(off, cols, rows, x, nargin)
+            return y
+
+        super().__init__(nargin, nargout, matvec=mv, matvec_transp=rmv,
+                         symmetric=symmetric,
+                         hermitian=symmetric and not vals.dtype.is_complex,
+                         dtype=vals.dtype, device=vals.device, matmat=mv,
+                         matmat_transp=rmv, params=(vals,), **kwargs)
+        self.vals, self.rows, self.cols = vals, rows, cols
+
+
+class PysparseLinearOperator(LinearOperator):
+    """Adapter for external sparse-matrix objects (``linop.py:688-720``).
+
+    The reference wraps pysparse matrices; this adapter accepts any host
+    object exposing ``shape`` and either ``matvec(x, y)``/``matvec_transp(x,
+    y)`` (the pysparse protocol) or ``A @ x`` (scipy.sparse).  A product is
+    a direct host call: the vector is copied to the host, multiplied there,
+    and the result copied back to the vector's device.
+    """
+
+    def __init__(self, A, device="cuda", **kwargs):
+        m, n = A.shape
+        dtype = np.dtype(getattr(A, "dtype", np.float64))
+        issym = bool(getattr(A, "issym", False))
+
+        def host_mv(x):
+            if hasattr(A, "matvec") and not hasattr(A, "dot"):
+                y = np.empty(m, dtype=dtype)
+                A.matvec(x, y)
+                return y
+            return np.asarray(A @ x, dtype=dtype).ravel()
+
+        def host_rmv(x):
+            if issym:
+                return host_mv(x)
+            if hasattr(A, "matvec_transp"):
+                y = np.empty(n, dtype=dtype)
+                A.matvec_transp(x, y)
+                return y
+            return np.asarray(A.T @ x, dtype=dtype).ravel()
+
+        def through_host(fn):
+            return lambda x: to_tensor(fn(x.detach().cpu().numpy()),
+                                       device=x.device)
+
+        super().__init__(n, m, matvec=through_host(host_mv),
+                         matvec_transp=through_host(host_rmv),
+                         symmetric=issym, dtype=dtype, device=device,
+                         **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Reduced operators
+# ---------------------------------------------------------------------------
+
+
+def _apply_any(op, fn, z):
+    """``op``'s rule ``fn`` on a vector, or its block rule on a block."""
+    return _apply_fn(fn, z) if z.ndim == 1 else _block_apply(op, fn, z)
+
+
+def _restricted(op, fn, n_full, scatter_idx, gather_idx):
+    """``x -> (op's fn)(z)[gather_idx]`` with ``z`` zero but
+    ``z[scatter_idx] = x``."""
+    if fn is None:
+        return None
+
+    def mv(x):
+        z = torch.zeros((n_full,) + tuple(x.shape[1:]),
+                        dtype=torch.promote_types(op.dtype, x.dtype),
+                        device=x.device)
+        z[scatter_idx] = x
+        return _apply_any(op, fn, z)[gather_idx]
+    return mv
+
+
+def ReducedLinearOperator(op, row_indices, col_indices):
+    """Restriction of ``op`` to row and column index subsets
+    (``linop.py:560-591``): scatter, the full product, gather.  Not
+    flagged symmetric even if ``op`` is (different index sets)."""
+    ri = to_tensor(row_indices, device=op.device).ravel().long()
+    ci = to_tensor(col_indices, device=op.device).ravel().long()
+    mv = _restricted(op, op._mv, op.nargin, ci, ri)
+    rmv = _restricted(op, op._rmv, op.nargout, ri, ci)
+    return LinearOperator(ci.shape[0], ri.shape[0], matvec=mv,
+                          matvec_transp=rmv, symmetric=False,
+                          dtype=op.dtype, device=op.device, matmat=mv,
+                          matmat_transp=rmv, params=op.params)
+
+
+def SymmetricallyReducedLinearOperator(op, indices):
+    """Symmetric restriction to one index set (``linop.py:594-623``)."""
+    ix = to_tensor(indices, device=op.device).ravel().long()
+    mv = _restricted(op, op._mv, op.nargin, ix, ix)
+    rmv = _restricted(op, op._rmv, op.nargout, ix, ix)
+    return LinearOperator(ix.shape[0], ix.shape[0], matvec=mv,
+                          matvec_transp=rmv, symmetric=op.symmetric,
+                          hermitian=op.hermitian, dtype=op.dtype,
+                          device=op.device, matmat=mv, matmat_transp=rmv,
+                          params=op.params)
+
+
+def sqrt(op):
+    """Operator square root, dispatching to ``op._sqrt``
+    (``linop.py:748-754``)."""
+    return op._sqrt()
 
 
 def aslinearoperator(A, symmetric=False, hermitian=False):

@@ -34,9 +34,6 @@ refined BiCGSTAB.  For a block, a symmetric operator goes to ff
 ``minres_batched`` and an unsymmetric one, or ``method=`` bicgstab, cgs or
 tfqmr, to :func:`~.solvers.refine.refined_solve_batched` with the twin.
 
-``method="cg_pipelined"`` (either shape of right-hand side) is not ported
-yet and raises ``NotImplementedError`` naming its ROADMAP.md item.
-
 An operator that carries ``solve_permutation`` (an RCM-reordered BELL
 operator, ``A = P^T A' P``) is solved in the permuted space: ``A' x' = P b``
 through its inner operator, with no gathers per product, and ``x`` is
@@ -52,7 +49,8 @@ import numpy as np
 import torch
 
 from .ops.base import DiagonalOperator, LinearOperator
-from .solvers.batched import (bicgstab_batched, cg_batched, cgs_batched,
+from .solvers.batched import (bicgstab_batched, cg_batched,
+                              cg_pipelined_batched, cgs_batched,
                               craig_batched, craigmr_batched, lsmr_batched,
                               lsqr_batched, minres_batched, symmlq_batched,
                               tfqmr_batched)
@@ -65,6 +63,7 @@ from .solvers.craigmr import craigmr
 from .solvers.lsmr import lsmr
 from .solvers.lsqr import lsqr
 from .solvers.minres import minres
+from .solvers.pipelined import cg_pipelined
 from .solvers.refine import (refined_lls, refined_solve,
                              refined_solve_batched)
 from .solvers.symmlq import symmlq
@@ -73,26 +72,18 @@ from .utils.types import to_tensor
 
 __all__ = ["solve"]
 
-_METHODS = ("cg", "cg_pipelined", "minres", "symmlq", "bicgstab", "cgs",
-            "tfqmr", "lsqr", "lsmr", "craig", "craigmr")
-
-# method -> its solver, where ported
-_SOLVERS = {"cg": cg, "minres": minres, "symmlq": symmlq,
-            "bicgstab": bicgstab, "cgs": cgs, "tfqmr": tfqmr, "lsqr": lsqr,
-            "lsmr": lsmr, "craig": craig, "craigmr": craigmr}
-# method -> its batched twin, where ported (JAX solve.py:204-210)
-_BATCHED = {"cg": cg_batched, "bicgstab": bicgstab_batched,
+# method -> its solver
+_SOLVERS = {"cg": cg, "cg_pipelined": cg_pipelined, "minres": minres,
+            "symmlq": symmlq, "bicgstab": bicgstab, "cgs": cgs,
+            "tfqmr": tfqmr, "lsqr": lsqr, "lsmr": lsmr, "craig": craig,
+            "craigmr": craigmr}
+# method -> its batched twin (JAX solve.py:204-210)
+_BATCHED = {"cg": cg_batched, "cg_pipelined": cg_pipelined_batched,
+            "bicgstab": bicgstab_batched,
             "cgs": cgs_batched, "tfqmr": tfqmr_batched,
             "minres": minres_batched, "symmlq": symmlq_batched,
             "lsqr": lsqr_batched, "lsmr": lsmr_batched,
             "craig": craig_batched, "craigmr": craigmr_batched}
-# method -> ROADMAP.md queue 1 item that ports it, where not
-_ITEM = {"cg_pipelined": 16}
-
-
-def _not_ported(what, item):
-    return NotImplementedError("%s is not ported yet: ROADMAP.md queue 1 "
-                               "item %d" % (what, item))
 
 
 def _permute_precon(M, p, ip):
@@ -133,9 +124,9 @@ def _solve_permuted(A, b, method, verified, opts):
 
 
 def _check_method(method):
-    if method not in _METHODS:
+    if method not in _SOLVERS:
         raise ValueError("unknown method %r (have %s)"
-                         % (method, ", ".join(_METHODS)))
+                         % (method, ", ".join(_SOLVERS)))
 
 
 def _verified_replace_every(opts):
@@ -188,9 +179,6 @@ def _solve_block(A, B, method, verified, opts):
         return _solve_block_verified(A, B, method, opts)
     if method is not None:
         _check_method(method)
-        if method not in _BATCHED:
-            raise _not_ported("method=%r with an (n, K) block (%s_batched)"
-                              % (method, method), _ITEM[method])
         return _BATCHED[method](A, B, **opts)
     m, n = A.shape
     if m != n:
@@ -215,8 +203,6 @@ def solve(A, b, method=None, verified=False, **opts):
         return _solve_block(A, b, method, verified, opts)
     if method is not None:
         _check_method(method)
-        if method not in _SOLVERS:
-            raise _not_ported("method=%r" % method, _ITEM[method])
         fn = _SOLVERS[method]
         if not verified:
             return fn(A, b, **opts)

@@ -2,10 +2,10 @@
 solve per column.
 
 Counterpart of ``pykrylov_tpu/solvers/batched.py``: ``cg_batched``,
-``bicgstab_batched``, ``cgs_batched``, ``tfqmr_batched``,
-``minres_batched``, ``symmlq_batched``, ``lsqr_batched``,
-``lsmr_batched``, ``craig_batched``, ``craigmr_batched`` and
-``solve_columns``.  Solving K systems one by one streams the operator K
+``cg_pipelined_batched``, ``bicgstab_batched``, ``cgs_batched``,
+``tfqmr_batched``, ``minres_batched``, ``symmlq_batched``,
+``lsqr_batched``, ``lsmr_batched``, ``craig_batched``,
+``craigmr_batched`` and ``solve_columns``.  Solving K systems one by one streams the operator K
 times; a batched solver iterates on an (n, K) block instead and applies
 the operator (and, for the least-squares family, its transpose) to all K
 columns at once through its native block product (the DIA and SELL SpMM
@@ -27,6 +27,7 @@ applied every iteration here too, so the products an iteration are fixed
 per solver:
 
   * ``cg_batched``, ``minres_batched``: one A product;
+  * ``cg_pipelined_batched``: one, and one before the loop;
   * ``bicgstab_batched``, ``cgs_batched``: two; ``tfqmr_batched``: two,
     and one before the loop;
   * ``symmlq_batched``: one, and one before and one after the loop;
@@ -55,8 +56,8 @@ from ..utils.ff import (ff_add_ff, ff_div, ff_hypot, ff_mul, ff_sqrt,
                         ff_vdot_cols, two_prod, two_sum)
 from ..utils.types import to_tensor
 
-__all__ = ["cg_batched", "bicgstab_batched", "cgs_batched", "tfqmr_batched",
-           "minres_batched", "symmlq_batched", "lsqr_batched",
+__all__ = ["cg_batched", "cg_pipelined_batched", "bicgstab_batched",
+           "cgs_batched", "tfqmr_batched", "minres_batched", "symmlq_batched", "lsqr_batched",
            "lsmr_batched", "craig_batched", "craigmr_batched",
            "solve_columns", "ISTOP_MSG", "ISTOP_MSG_TF", "ISTOP_MSG_LSQR",
            "ISTOP_MSG_MINRES", "ISTOP_MSG_SYMMLQ", "ISTOP_MSG_CRAIG",
@@ -292,6 +293,117 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         n_iter=torch.tensor(k, dtype=torch.int32, device=dev),
         n_matvec=torch.tensor(k + extra, dtype=torch.int32, device=dev),
         resid_norm=resid, resid_norm0=resid0, resid_history=hist, info=info)
+
+
+def cg_pipelined_batched(A, B, *, x0=None, M=None, rtol=1.0e-6,
+                         atol=1.0e-8, maxiter=None, matvec_max=None,
+                         replace_every=0, store_history=False):
+    """Solve SPD ``A X = B`` by pipelined (communication-hiding) CG, the
+    block twin of :func:`~.pipelined.cg_pipelined` (JAX
+    ``solvers/batched.py:2260-2400``).
+
+    Each column runs the single-rhs pipelined recurrence under a
+    per-column freeze mask, with its scalars in (K,) tensors; the two
+    per-column dot blocks share their operands, and ``M W`` and ``A (M W)``
+    are one block product an iteration, applied whatever the columns'
+    states, as in the JAX body (the last iteration's too: ``n_matvec`` is
+    ``n_iter + 1``, plus one for ``x0``).  ``replace_every`` restores every
+    coupled recurrence of the active columns every k iterations, 4 block
+    products and 2 preconditioner applies each time, which the JAX
+    package's ``n_matvec`` does not count.
+
+    A column that stops, or has stopped, takes ``alpha = beta = 0``, so
+    its X, R, U and W are carried unchanged (``v + 0 * d`` is ``v`` for
+    finite values) without a block select; its Z, Q, S and P move, but
+    with its scalars frozen nothing of the column reads them again.  The
+    host reads once an iteration, whether any column is active.
+    """
+    A, B, M = _block_rhs("cg_pipelined_batched", A, B, M)
+    if maxiter is None:
+        maxiter = default_maxiter(B.shape[0], 1, matvec_max)
+    maxiter, replace_every = int(maxiter), int(replace_every)
+    X0 = _check_x0(x0, B, "cg_pipelined_batched")
+    dtype, dev = B.dtype, B.device
+    K = B.shape[1]
+
+    def precon(V):
+        return _apply_block(M, V) if M is not None else V
+
+    if X0 is None:
+        X = torch.zeros_like(B)
+        R = B
+        extra = 0
+    else:
+        X = X0.to(device=dev, dtype=dtype)
+        R = B - _apply_block(A, X)
+        extra = 1
+    U = precon(R)
+    W = _apply_block(A, U)
+    gamma = _col_dot(R, U)
+    resid0 = torch.sqrt(torch.abs(gamma))
+    thresh = threshold_of(resid0, rtol, atol)
+    hist = _history(store_history, maxiter + 1, resid0)
+
+    Z = Q = S = P = torch.zeros_like(B)
+    alpha = torch.ones_like(gamma)
+    resid = resid0
+    active = resid0 > thresh
+    iters = torch.zeros(K, dtype=torch.int32, device=dev)
+    k = 0
+    while k < maxiter:
+        if not _poll(active)[0]:                   # the one host sync
+            break
+        gamma2 = _col_dot(R, U)
+        delta = _col_dot(W, U)
+        resid2 = torch.where(active, torch.sqrt(torch.abs(gamma2)), resid)
+        act = active & ~(resid2 <= thresh)
+        Mw = precon(W)
+        Nv = _apply_block(A, Mw)
+        if k == 0:
+            beta = torch.zeros_like(gamma2)
+            den = delta
+        else:
+            beta = gamma2 / _safe(gamma)
+            den = delta - beta * gamma2 / _safe(alpha)
+        alpha2 = torch.where(act, gamma2 / _safe(den), 0).to(dtype)
+        beta = torch.where(act, beta, 0).to(dtype)
+        Z = torch.addcmul(Nv, beta, Z)
+        Q = torch.addcmul(Mw, beta, Q)
+        S = torch.addcmul(W, beta, S)
+        P = torch.addcmul(U, beta, P)
+        X = torch.addcmul(X, alpha2, P)
+        R = torch.addcmul(R, alpha2, S, value=-1)
+        U = torch.addcmul(U, alpha2, Q, value=-1)
+        W = torch.addcmul(W, alpha2, Z, value=-1)
+        if replace_every and (k + 1) % replace_every == 0:
+            # full per-column restoration from X and P (partial
+            # replacements worsen the drift); the stopped columns keep
+            # their blocks
+            Rn = B - _apply_block(A, X)
+            Un = precon(Rn)
+            Wn = _apply_block(A, Un)
+            Sn = _apply_block(A, P)
+            Qn = precon(Sn)
+            Zn = _apply_block(A, Qn)
+            R, U, W, S, Q, Z = (torch.where(act, new, old) for new, old in (
+                (Rn, R), (Un, U), (Wn, W), (Sn, S), (Qn, Q), (Zn, Z)))
+        if hist is not None:
+            hist[k + 1] = torch.where(active, resid2, float("nan"))
+        gamma = torch.where(act, gamma2, gamma)
+        alpha = torch.where(act, alpha2, alpha)
+        resid = resid2
+        iters += active.to(torch.int32)
+        active = act
+        k += 1
+
+    converged = resid <= thresh
+    return SolveResult(
+        x=X, converged=converged,
+        istop=torch.where(converged, 0, 1).to(torch.int32),
+        n_iter=torch.tensor(k, dtype=torch.int32, device=dev),
+        n_matvec=torch.tensor(k + 1 + extra, dtype=torch.int32, device=dev),
+        resid_norm=resid, resid_norm0=resid0, resid_history=hist,
+        info={"n_iter_columns": iters, "active_at_exit": active})
 
 
 def solve_columns(solver, A, B, **kwargs):

@@ -347,15 +347,27 @@ def test_unported_block_branches_name_their_item(case):
     # lsqr_batched, each result the JAX package's at the tolerances of
     # tests/test_torch_batched_nonsym.py; the verified block path of a
     # symmetric operator (item 15) goes to ff cg_batched (replace_every 50,
-    # the curvature check on); the pipelined twin (item 16) still raises
-    # naming its item
+    # the curvature check on); method="cg_pipelined" (item 16) to
+    # cg_pipelined_batched
     spd3 = MatrixOperator(torch.eye(3, dtype=torch.float64) * 2,
                           symmetric=True, device=DEV)
     B3 = torch.ones(3, 2, dtype=torch.float64)
     if case == "cg_pipelined":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 16$"):
-            pt.solve(spd3, B3, method=case)
+        a = spd(n=60, cond=10.0, seed=44)
+        B = np.random.default_rng(44).standard_normal((60, 3))
+        A = MatrixOperator(a, symmetric=True, device=DEV)
+        res = pt.solve(A, torch.from_numpy(B), method=case, rtol=1e-8)
+        jres = jax_solve(linop_from_ndarray(jnp.asarray(a), symmetric=True),
+                         jnp.asarray(B), method=case, rtol=1e-8)
+        assert torch.equal(res.x, PS.cg_pipelined_batched(
+            A, torch.from_numpy(B), rtol=1e-8).x)
+        assert set(res.info) == set(jres.info)
+        assert res.istop.tolist() == np.asarray(jres.istop).tolist()
+        assert res.info["n_iter_columns"].tolist() == \
+            np.asarray(jres.info["n_iter_columns"]).tolist()
+        assert int(res.n_matvec) == int(jres.n_matvec)
+        assert rel(res.x.numpy(), jres.x) <= X_RTOL
+        assert bool(res.converged.all())
     elif case == "verified":
         a = spd(n=60, cond=1e2, seed=43)
         B = np.random.default_rng(43).standard_normal((60, 3))

@@ -21,6 +21,12 @@ def test_import_loads_no_jax():
         "import pykrylov_tpu_torch.sparse.kernels\n"
         "import pykrylov_tpu_torch.sparse.bell\n"
         "import pykrylov_tpu_torch.gallery.general\n"
+        "import pykrylov_tpu_torch.ops.blkop, pykrylov_tpu_torch.ops.lbfgs\n"
+        "import pykrylov_tpu_torch.ops.chebyshev\n"
+        "import pykrylov_tpu_torch.ops.cholesky\n"
+        "import pykrylov_tpu_torch.ops.complex_eq\n"
+        "import pykrylov_tpu_torch.solvers.pipelined\n"
+        "import pykrylov_tpu_torch.solvers.diff\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pykrylov_tpu'))\n"
         "assert not bad, bad\n")
@@ -38,6 +44,22 @@ def test_source_does_not_import_jax(path):
     assert "pykrylov_tpu.native" not in text
     assert not re.search(r"^\s*from\s+\.+\s+import\s+native\b", text,
                          re.MULTILINE)
+
+
+@pytest.mark.parametrize("module", ["ops", "solvers.diff",
+                                    "solvers.pipelined", ""])
+def test_public_names_match_the_jax_package(module):
+    # every name of the JAX package's ops, diff and pipelined modules and of
+    # its package root has its counterpart under the same name
+    import importlib
+    jax_mod = importlib.import_module(("pykrylov_tpu." + module).rstrip("."))
+    port = importlib.import_module(("pykrylov_tpu_torch." + module)
+                                   .rstrip("."))
+    names = list(jax_mod.__all__) if module else [
+        n for n in dir(jax_mod) if not n.startswith("_")
+        and n not in ("annotations", "parallel", "native", "version")]
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):

@@ -213,3 +213,134 @@ def test_aslinearoperator(mats):
         tops.aslinearoperator(lambda x: x)
     with pytest.raises(TypeError):
         tops.aslinearoperator("A")
+
+
+# --------------------------------------------------------------------------
+# the operators of ROADMAP item 3 and ops/cholesky.py
+# --------------------------------------------------------------------------
+
+
+def _coord(A, symmetric=False):
+    """COO triples of A's nonzeros (the lower triangle when symmetric)."""
+    rows, cols = np.nonzero(np.tril(A) if symmetric else A)
+    return A[rows, cols], rows, cols
+
+
+def test_sqrt_and_abs(rng):
+    d = np.array([1.0, 4.0, 9.0])
+    x = rng.standard_normal(3)
+    t = tops.DiagonalOperator(d, device=DEV)
+    same(tops.sqrt(t) * torch.from_numpy(x),
+         jops.sqrt(jops.DiagonalOperator(d)) * jnp.asarray(x))
+    same(abs(tops.DiagonalOperator(-d, device=DEV)) * torch.from_numpy(x),
+         d * x)
+    eye = tops.IdentityOperator(3, dtype=torch.float64, device=DEV)
+    assert tops.sqrt(eye) is eye and abs(eye) is eye
+    zero = tops.ZeroOperator(3, 3, dtype=torch.float64, device=DEV)
+    assert tops.sqrt(zero) is zero
+    with pytest.raises(ValueError):
+        tops.sqrt(tops.DiagonalOperator(np.array([1.0, -1.0]), device=DEV))
+    with pytest.raises(NotImplementedError):
+        tops.sqrt(tops.MatrixOperator(np.eye(2), device=DEV))
+
+
+def test_reduced_operators_match_jax(rng):
+    A = rng.standard_normal((6, 6))
+    t, j = both(A)
+    rows, cols = [0, 2, 4], [1, 3, 5]
+    red, jred = (tops.ReducedLinearOperator(t, rows, cols),
+                 jops.ReducedLinearOperator(j, rows, cols))
+    x = rng.standard_normal(3)
+    same(red * torch.from_numpy(x), jred * jnp.asarray(x))
+    same(red.T * torch.from_numpy(x), jred.T * jnp.asarray(x))
+    same(red * torch.from_numpy(x), A[np.ix_(rows, cols)] @ x)
+    S = A + A.T
+    t, j = both(S, symmetric=True)
+    idx = [1, 2, 5]
+    sred = tops.SymmetricallyReducedLinearOperator(t, idx)
+    assert sred.symmetric
+    same(sred * torch.from_numpy(x),
+         jops.SymmetricallyReducedLinearOperator(j, idx) * jnp.asarray(x))
+    # an (n, K) block goes through the block rule, as column by column
+    X = torch.from_numpy(rng.standard_normal((3, 2)))
+    same(sred * X, torch.stack([sred * X[:, 0], sred * X[:, 1]], 1))
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_coord_operator_matches_jax(symmetric, rng):
+    A = rng.standard_normal((5, 5) if symmetric else (5, 4))
+    if symmetric:
+        A = A + A.T
+    A[np.abs(A) < 0.5] = 0.0
+    vals, rows, cols = _coord(A, symmetric)
+    m, n = A.shape
+    t = tops.CoordLinearOperator(vals, rows, cols, n, m, symmetric=symmetric,
+                                 device=DEV)
+    j = jops.CoordLinearOperator(vals, rows, cols, n, m, symmetric=symmetric)
+    assert t.symmetric == symmetric and t.hermitian == symmetric
+    x, y = rng.standard_normal(n), rng.standard_normal(m)
+    same(t * torch.from_numpy(x), j * jnp.asarray(x))
+    same(t.T * torch.from_numpy(y), j.T * jnp.asarray(y))
+    same(t * torch.from_numpy(x), A @ x)
+    X = rng.standard_normal((n, 3))
+    same(t * torch.from_numpy(X), A @ X)
+
+
+def test_linop_from_ndarray(rng):
+    A = rng.standard_normal((3, 4))
+    op = tops.linop_from_ndarray(A, device=DEV)
+    assert isinstance(op, tops.MatrixOperator)
+    x = rng.standard_normal(4)
+    same(op * torch.from_numpy(x), jops.linop_from_ndarray(A) * jnp.asarray(x))
+
+
+def test_pysparse_adapter_solves(rng):
+    # a scipy matrix (A @ x) and a pysparse-protocol object (matvec(x, y))
+    # behind the adapter: products are host calls, CG solves through them
+    import scipy.sparse as sp
+    from pykrylov_tpu_torch.solvers import cg
+
+    n = 30
+    A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n)).tocsr()
+    op = tops.PysparseLinearOperator(A, device=DEV)
+    x = rng.standard_normal(n)
+    same(op * torch.from_numpy(x), A @ x)
+    same(op.T * torch.from_numpy(x), A.T @ x)
+
+    class Pysparse:
+        shape, dtype, issym = (n, n), np.float64, True
+
+        def matvec(self, x, y):
+            y[:] = A @ x
+
+    pop = tops.PysparseLinearOperator(Pysparse(), device=DEV)
+    assert pop.symmetric
+    res = cg(pop, torch.from_numpy(A @ np.ones(n)), rtol=1e-10)
+    assert bool(res.converged)
+    np.testing.assert_allclose(res.x.numpy(), 1.0, atol=1e-8)
+
+
+def test_cholesky_operators(rng):
+    import scipy.sparse as sp
+
+    A = rng.standard_normal((6, 6))
+    spd = A @ A.T + 6 * np.eye(6)
+    x = rng.standard_normal(6)
+    for src in (spd, tops.MatrixOperator(spd, symmetric=True, device=DEV)):
+        inv = tops.CholeskyOperator(src, device=DEV)
+        assert inv.symmetric
+        np.testing.assert_allclose((inv * torch.from_numpy(spd @ x)).numpy(),
+                                   x, rtol=1e-10)
+    same(inv * torch.from_numpy(x), jops.CholeskyOperator(spd)
+         * jnp.asarray(x))
+    X = rng.standard_normal((6, 3))
+    np.testing.assert_allclose((inv * torch.from_numpy(spd @ X)).numpy(), X,
+                               rtol=1e-10)
+    d = rng.standard_normal(8) ** 2 + 1
+    op = tops.HostFactorizationOperator.from_scipy_spd(sp.diags(d).tocsc(),
+                                                       device=DEV)
+    y = rng.standard_normal(8)
+    np.testing.assert_allclose((op * torch.from_numpy(d * y)).numpy(), y,
+                               rtol=1e-12)
+    host = tops.HostFactorizationOperator(4, lambda r: r / d[:4], device=DEV)
+    assert (host * torch.ones(4, dtype=torch.float64)).dtype == torch.float64

@@ -1,8 +1,9 @@
 """The slice end to end: ``solve(operator_from_coo(...), b)`` in the port
 against the JAX package, the automatic format policy, and the branches
-that are not ported yet; the CG→MINRES and BiCGSTAB→TFQMR fallbacks, as
-``tests/test_solve_frontdoor.py`` holds the JAX package's, and ``method=``
-routing to each ported solver against the JAX package's ``solve``.
+that once were not ported (route tests now); the CG→MINRES and
+BiCGSTAB→TFQMR fallbacks, as ``tests/test_solve_frontdoor.py`` holds the
+JAX package's, and ``method=`` routing to each solver against the JAX
+package's ``solve``.
 
 At ``poisson3d_coo(16)`` both packages pick DIA on the CPU and run CG in
 float64 with the same stored matrix; only summation order differs, so the
@@ -265,9 +266,16 @@ def test_not_ported_branches_name_their_roadmap_item(case, item):
                                    rtol=1e-8, atol=1e-12)
         assert bool(res.converged.all())
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item %d$" % item):
-        pt.solve(spd, b, method=case)
+    # method="cg_pipelined" (item 16) goes to cg_pipelined, as in the JAX
+    # package: the same counts, x to 1e-10, and the solver's own bits
+    res = pt.solve(spd, b, method=case, rtol=1e-8)
+    jres = pykrylov_tpu.solve(JMatrix(2 * jnp.eye(3), symmetric=True),
+                              jnp.ones(3), method=case, rtol=1e-8)
+    assert torch.equal(res.x, pt.solvers.cg_pipelined(spd, b, rtol=1e-8).x)
+    assert int(res.istop) == int(jres.istop) == 0
+    assert int(res.n_iter) == int(jres.n_iter)
+    assert int(res.n_matvec) == int(jres.n_matvec)
+    assert rel(res.x.numpy(), np.asarray(jres.x)) <= 1e-10
 
 
 @pytest.mark.parametrize("case", ["rectangular", "lsqr", "lsmr", "craig",
