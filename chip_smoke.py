@@ -33,7 +33,9 @@ verified route (``solve(verified=True)``, ff-CG, ff-MINRES and the
 verified block twins) on the same operators, with f32 storage; and
 pipelined CG and its block twin, the differentiable solves, the Chebyshev
 preconditioner, a complex system through its real equivalent and the
-block-diagonal, L-BFGS and Cholesky operators.
+block-diagonal, L-BFGS and Cholesky operators; and a checkpointed and a
+traced solve, and the sharded operators on a mesh of shard slots that
+share the card, each shard's product one kernel launch.
 
 Phases, in order:
 
@@ -196,6 +198,29 @@ Phases, in order:
      true residual at most 1e-4); an ``InverseLBFGSOperator`` of 5 pairs
      (s, A s) (the secant equation to 1e-6); a ``CholeskyOperator`` of a
      dense SPD matrix of order 4096 (its residual to 1e-10);
+  18a. ``checkpointed_solve(cg, ...)`` on phase 4's operator and b in
+     chunks of 50 iterations (:func:`phase_checkpoint`): stopped by
+     ``keep_going`` after its first chunk, resumed from the file to
+     convergence (true residual at most 1e-4, DIA launches =
+     ``total_matvec``), beside phase 4's count;
+  18b. ``trace`` around phase 5's solve capped at 200 iterations, with
+     ``annotate`` spans: the Chrome trace holds the spans and one SELL
+     SpMV kernel event a launch, ``solve_stats`` agrees with the result;
+  19a. ``HaloDiaOperator`` of phase 4's matrix over 4 shard slots on the
+     card (the kernel path, 3,456,000 rows a shard): a product and a K = 8
+     block product bit for bit phase 4's, CG in phase 4's count, 4 DIA
+     launches a product;
+  19b. ``GatherBellOperator`` of tiled 1138bus over 4 slots (one SELL
+     launch a shard a product; CG within 10% of phase 5's count; over 12
+     slots, whose partition cuts tiles, the same with the exchange;
+     ``cg(replace_every=50)`` over its verified shadow, capped at 200) and
+     of phase 10's state-estimation matrix with ``with_transpose=True``
+     (A and A^T against phase 10's card forms; LSQR capped at 500 held to
+     the unsharded capped LSQR);
+  19c. ``HaloStencilPoisson3DOperator`` (4 z-slabs) and
+     ``Halo2DPoissonOperator`` (2 x 2 bricks) at n = 240, CG within 2 of
+     phase 4's count; ``TallSkinnyOperator`` of a dense f32 2^20 x 256
+     matrix, LSQR's f64 certificate at most 1e-5;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -217,7 +242,7 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-17,
+     (each with its launches in every run of phases 8-19,
      ``launches_by_phase``, and the verified solves of phases 14-15 that
      ran through it, ``verified_solves``; the SpMMs with their K = 16
      f64-block times, ``k16_f64_block``; the SpMV kernels with their
@@ -231,7 +256,7 @@ Phases, in order:
      and spill bytes), then the result line ``{"ok": true, "device":
      {...}}``.
 
-Phases 8-17 run after 5b and before 6; each resets every launch count
+Phases 8-19 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
@@ -2952,6 +2977,50 @@ CX_N = 160              # complex system (17b): 2 * 160^3 real rows
 CX_SHIFT, CX_SKEW = 1.0, 0.4
 LBFGS_PAIRS = 5         # (s, A s) pairs of the inverse L-BFGS operator (17c)
 CHOL_N = 4096           # dense SPD matrix of the Cholesky operator (17c)
+CKPT_CHUNK = 50         # iterations a chunk of the checkpointed solve (18a)
+MESH_SHARDS = 4         # shard slots of the sharded phases (19a-19c), all
+                        # on the one card
+SHARD_FF_ITERS = 200    # cap of 19b's verified-shadow ff-CG
+SHARD_LLS_ITERS = 500   # cap of 19b's LSQR through the transposed shards
+# 19b holds that LSQR to the unsharded one by its residual norm and x at
+# the cap.  The state-estimation areas fall whole into the shards (256 a
+# shard), so no entry crosses a shard and the transposed exchange adds
+# each partial to zeros: the sharded A'u is the unsharded one's bits.
+# Where the partition cuts areas, LSQR's iterates part at the rounding of
+# A'u alone past about 20 iterations (the control below: A'u perturbed by
+# 1e-16 relative moves x by about 1e-3 at 500 iterations)
+SHARD_LLS_RTOL = 1e-2   # the residual norms at the cap, relative
+SHARD_LLS_XTOL = 1e-4   # x at the cap, relative
+# 19b's mesh whose partition cuts 1138bus tiles.  A shard's private
+# address space is [own block | received rows], so a row at a shard's edge
+# spans the whole block: the window-1 BELL packing takes at most 1024
+# bands of 128 columns (SpanError past it, in the JAX package too), which
+# 3 shards of 388,438 rows exceed and 12 of 97,110 stay within
+EXCHANGE_SHARDS = 12
+# 19b's mesh whose partition cuts state-estimation areas.  A shard's
+# transposed block has its private columns as rows and its own rows as
+# columns, and a step of private columns received from both neighbours
+# spans the whole row block: 12 shards of 222,552 rows raise SpanError
+# (1737 bands), 24 of 111,276 stay within the 1024-band budget
+SE_EXCHANGE_SHARDS = 24
+# cap of 19b's LSQR through the transposed exchange over SE_EXCHANGE_SHARDS
+# slots, whose partition cuts state-estimation areas: below about 20
+# iterations the iterates have not yet parted at the rounding of A'u, so
+# the sharded LSQR is held to the unsharded one's residual norm and x at
+# the cap (CPU rehearsal at 50 areas: 5e-16 and 3e-9 apart, the control's
+# 7e-16 and 3e-9; at 40 iterations both 1e-5)
+SHARD_XLLS_ITERS = 20
+SHARD_XLLS_RTOL = 1e-10  # the residual norms at that cap, relative
+SHARD_XLLS_XTOL = 1e-6   # x at that cap, relative
+TRACE_ITERS = 200       # iterations of phase 5's solve traced in 18b
+# launches of a one-element add at the start of 18b's trace, before the
+# traced solve: a session's first host launches may get no device record
+# (the first 57 of one session late in a full run of this script, on an
+# NVIDIA H100 80GB HBM3; every launch kept its record in 81 sessions run
+# alone), so these absorb that loss and the solve's launches all keep
+# theirs
+TRACE_WARMUP = 1000
+TALL_M, TALL_N = 1 << 20, 256   # dense f32 tall matrix of 19c
 
 
 def _dropped(res):
@@ -3360,6 +3429,882 @@ def phase_operators(pt, A_dia, dia, A_bus, bell):
 
 
 # --------------------------------------------------------------------------
+# 18-19. checkpointed and traced solves; the sharded operators
+# --------------------------------------------------------------------------
+
+def _ckpt_run(pt, A, b, path, log_chunks, **kw):
+    """``checkpointed_solve(cg, A, b, path, chunk_iters=CKPT_CHUNK, **kw)``
+    with each chunk's (iterations, matvecs) appended to ``log_chunks``."""
+    import functools
+    from pykrylov_tpu_torch.utils import checkpointed_solve
+
+    @functools.wraps(pt.cg)
+    def chunk_cg(*args, **kwargs):
+        res = pt.cg(*args, **kwargs)
+        log_chunks.append((int(res.n_iter), int(res.n_matvec)))
+        return res
+    return checkpointed_solve(chunk_cg, A, b, path, chunk_iters=CKPT_CHUNK,
+                              **kw)
+
+
+def phase_checkpoint(pt, A_dia, dia):
+    """18a: ``checkpointed_solve(cg, ...)`` on phase 4's Poisson operator
+    and f32 b (the DIA SpMV), in chunks of CKPT_CHUNK iterations: a first
+    call whose ``keep_going`` stops it after its first chunk, then a
+    second call that resumes from the file and runs to convergence.  The
+    file after the first call holds chunk 0, its iterate bit for bit and
+    the frozen threshold ``rtol ||b||``; the resumed run converges with
+    istop 0, a true relative residual in f64 at most 1e-4, and DIA
+    launches over both calls = ``total_matvec`` = the chunks' matvecs
+    (the x0 product of each resumed chunk included).  Logs
+    ``total_matvec`` beside phase 4's count, the restart cost in matvecs
+    and seconds, one save's time and a profiled window of two chunks."""
+    import shutil
+    import tempfile
+    import types
+    from pykrylov_tpu_torch.utils import load_result, save_result
+
+    tag = "18a checkpointed CG"
+    b = dia["b"]
+    chunks = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(tmp, "poisson.npz")
+        pt.cg(A_dia, b, maxiter=3)                           # warm-up
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = _ckpt_run(pt, A_dia, b, path, chunks,
+                          keep_going=lambda chunk, res: False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = load_result(path)
+        thresh = 1e-6 * float(torch.linalg.vector_norm(b))
+        log("[%s] first call: %d chunk(s) %s, converged=%s, saved chunk %d, "
+            "frozen threshold %.6e (rtol ||b|| = %.6e), %.3f s"
+            % (tag, len(chunks), chunks, bool(first.converged),
+               int(state["extra_chunk"]), float(state["extra_abs_threshold"]),
+               thresh, t1 - t0))
+        if (len(chunks) != 1 or bool(first.converged)
+                or int(state["extra_chunk"]) != 0
+                or not np.array_equal(state["x"], first.x.cpu().numpy())
+                or not abs(float(state["extra_abs_threshold"]) - thresh)
+                <= 1e-6 * thresh):
+            raise AssertionError("%s: the first call's checkpoint is wrong: "
+                                 "%s, %r" % (tag, chunks, sorted(state)))
+        res = _ckpt_run(pt, A_dia, b, path, chunks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        total = int(res.info["total_matvec"])
+        n_iter = sum(c[0] for c in chunks)
+        true_rel = _true_rel(b, _dia_f64(A_dia), res.x)
+        t2 = time.perf_counter()
+        save_result(os.path.join(tmp, "save.npz"), res)
+        save_s = time.perf_counter() - t2
+        ms = 1e3 * secs / max(n_iter, 1)
+        phase4_s = dia["solve_s"]
+        log("[%s] resumed: %d chunks in all %s, istop %d, total_matvec %d "
+            "(phase 4: %d), DIA launches %s; true relative residual (f64) "
+            "%.3e; both calls %.3f s, %.4f ms per iteration (phase 4: %.3f "
+            "s); restart cost %d matvecs, %.3f s; one save of x %.3f s"
+            % (tag, len(chunks), chunks, int(res.istop), total,
+               dia["launches"], counts, true_rel, secs, ms, phase4_s,
+               total - dia["launches"], secs - phase4_s, save_s))
+        if (int(res.istop) != 0 or not bool(res.converged)
+                or total != sum(c[1] for c in chunks)
+                or counts != {"dia_spmv": total, "dia_spmm": 0,
+                              "sell_spmv": 0, "sell_spmm": 0}
+                or not true_rel <= 1e-4):
+            raise AssertionError("%s: %r, total_matvec %d, launches %s, "
+                                 "residual %.3e" % (tag, res, total, counts,
+                                                    true_rel))
+
+        def window():
+            del chunks[:]
+            _ckpt_run(pt, A_dia, b, os.path.join(tmp, "window.npz"), chunks,
+                      max_chunks=2)
+            return types.SimpleNamespace(n_iter=sum(c[0] for c in chunks))
+        prof = _profile_call(tag, window, ms)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"checkpointed cg": {
+        "n_iter": n_iter, "chunks": len(chunks), "total_matvec": total,
+        "phase4_matvec": dia["launches"], "launches": counts,
+        "solve_s": secs, "phase4_s": phase4_s, "ms_per_iter": ms,
+        "save_s": save_s, "true_rel": true_rel, "profile": prof}}
+
+
+def _kernel_events(events, name):
+    """The device kernel events of a Chrome trace whose name holds
+    ``name``."""
+    return sum(1 for e in events
+               if str(e.get("cat", "")).lower() == "kernel"
+               and name in str(e.get("name", "")))
+
+
+def _device_calls(prof, name):
+    """The calls of device kernels whose name holds ``name`` that a
+    profiler session recorded."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key)
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_window(events, first, last):
+    """From a Chrome trace: the host span ``first``'s start to the host
+    span ``last``'s end; the device events (kernels, copies, fills) that
+    start inside it and their busy microseconds; the host kernel launches
+    matched by correlation id to their kernels, the least and greatest
+    (kernel start - launch start) in microseconds; and the host launches
+    whose kernel record is missing, before the window and inside it."""
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in (first, last)}
+    lo = spans[first]["ts"]
+    hi = spans[last]["ts"] + spans[last]["dur"]
+    device = [e for e in events if str(e.get("cat", "")).lower()
+              in DEVICE_CATS and lo <= e["ts"] <= hi]
+    kernels = {e["args"]["correlation"]: e for e in events
+               if str(e.get("cat", "")).lower() == "kernel"
+               and "correlation" in e.get("args", {})}
+    launches = [e for e in events
+                if str(e.get("cat", "")).lower() == "cuda_runtime"
+                and "LaunchKernel" in str(e.get("name", ""))
+                and "correlation" in e.get("args", {})]
+    delays = [kernels[e["args"]["correlation"]]["ts"] - e["ts"]
+              for e in launches if e["args"]["correlation"] in kernels]
+    missing = [e["ts"] for e in launches
+               if e["args"]["correlation"] not in kernels]
+    return {"device": device,
+            "busy_us": sum(min(e["ts"] + e.get("dur", 0), hi) - e["ts"]
+                           for e in device),
+            "delay_us": (min(delays, default=None),
+                         max(delays, default=None)),
+            "launches": len(launches),
+            "missing_before": sum(1 for t in missing if t < lo),
+            "missing_inside": sum(1 for t in missing if t >= lo)}
+
+
+def phase_trace(pt, A_bell, bell):
+    """18b: ``trace`` around phase 5's solve (CG on tiled 1138bus, the SELL
+    SpMV) capped at TRACE_ITERS iterations, an ``annotate`` span around
+    the solve and another around the synchronisation after it, after
+    TRACE_WARMUP one-element launches in the same trace.  The Chrome
+    trace file must exist in the trace directory and hold both spans and,
+    between them, one SELL SpMV kernel event for each launch counted and
+    no host launch without its kernel record; ``solve_stats`` must agree
+    with the result.  The log gives the launches' delays to their
+    kernels' starts and the warm-up launches that lost their records.
+    The device time between the spans over their wall gives the idle
+    share; the traced wall beside phase 5's untraced one gives the
+    tracing's cost."""
+    import shutil
+    import tempfile
+    from pykrylov_tpu_torch.utils import annotate, solve_stats, trace
+
+    tag = "18b traced CG"
+    b = bell["b"]
+    spans = ("chip_smoke.18b.solve", "chip_smoke.18b.sync")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        warm = torch.zeros(1, device=DEVICE)
+        torch.cuda.synchronize()
+        with trace(tmp) as prof:
+            for _ in range(TRACE_WARMUP):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with annotate(spans[0]):
+                res = pt.solve(A_bell, b, maxiter=TRACE_ITERS)
+            with annotate(spans[1]):
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+        files = sorted(os.listdir(tmp))
+        size = os.path.getsize(prof.trace_file)
+        with open(prof.trace_file) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_iter, n_mv = int(res.n_iter), int(res.n_matvec)
+    names = {e.get("name") for e in events}
+    if not set(spans) <= names:
+        raise AssertionError("%s: the trace lacks the spans %s" % (tag, spans))
+    win = _trace_window(events, *spans)
+    kernels = _kernel_events(win["device"], "sell_spmv_kernel")
+    recorded = _device_calls(prof, "sell_spmv_kernel")
+    busy = 1e-6 * win["busy_us"]
+    stats = solve_stats(res, secs)
+    ms = 1e3 * secs / max(n_iter, 1)
+    idle = max(0.0, 1 - busy / secs)
+    log("[%s] trace %s (%d bytes, %d events): spans %s; between them %d "
+        "SELL SpMV kernel events for %d launches counted (the profiler's "
+        "count, warm-up aside, %d); %d host launches, their kernels start "
+        "%s to %s us after them, %d without a kernel record before the "
+        "solve (of %d warm-up launches) and %d during it; %d iterations (the "
+        "cap %d), %.3f s traced, %.4f ms per iteration (phase 5 untraced: "
+        "%.4f), device busy %.4f ms per iteration, idle %.1f%%; solve_stats "
+        "%s" % (tag, files, size, len(events),
+                sorted(n for n in names if str(n).startswith("chip_smoke.")),
+                kernels, counts["sell_spmv"], recorded, win["launches"],
+                win["delay_us"][0], win["delay_us"][1],
+                win["missing_before"], TRACE_WARMUP, win["missing_inside"],
+                n_iter, TRACE_ITERS, secs, ms,
+                1e3 * bell["solve_s"] / bell["n_iter"], 1e3 * busy / n_iter,
+                100 * idle, stats))
+    if (len(files) != 1 or counts["sell_spmv"] != n_mv or kernels != n_mv
+            or win["missing_inside"] != 0
+            or n_iter != TRACE_ITERS or int(res.istop) != 1
+            or stats["n_iter"] != n_iter or stats["n_matvec"] != n_mv
+            or stats["converged"] is not False
+            or stats["resid_norm"] != float(res.resid_norm)
+            or busy <= 0):
+        raise AssertionError("%s: files %s, %d kernel events, launches %s, "
+                             "%r, stats %s" % (tag, files, kernels, counts,
+                                               res, stats))
+    return {"traced cg": {"n_iter": n_iter, "launches": counts,
+                          "kernel_events": kernels, "recorded": recorded,
+                          "launch_delay_us": list(win["delay_us"]),
+                          "warmup_records_lost": win["missing_before"],
+                          "solve_s": secs,
+                          "ms_per_iter": ms, "trace_bytes": size,
+                          "profile": {"busy_ms_per_iter": 1e3 * busy / n_iter,
+                                      "idle": idle}}}
+
+
+def _mesh_of(pt):
+    """MESH_SHARDS shard slots on the card: every slot the one device."""
+    mesh = pt.parallel.make_mesh(MESH_SHARDS, device=DEVICE)
+    if len(set(mesh.slots)) != 1 or mesh.size != MESH_SHARDS:
+        raise AssertionError("mesh %r: not %d slots of one device"
+                             % (mesh, MESH_SHARDS))
+    return mesh
+
+
+def _sharded_solve(tag, label, fn, kernel, products):
+    """:func:`_counted_solve` of a sharded operator: ``kernel`` launches
+    MESH_SHARDS times a product, ``products(res)`` products in all."""
+    return _counted_solve(tag, label, fn, kernel, lambda res: (
+        MESH_SHARDS * products(res) - int(res.n_matvec)))
+
+
+def phase_halo(pt, A_dia, dia):
+    """19a: ``HaloDiaOperator`` of phase 4's Poisson matrix (f32) over a
+    mesh of MESH_SHARDS slots on the card (3,456,000 rows a shard at n =
+    240), built with its defaults.  One product and one K = KB block
+    product, each MESH_SHARDS launches: each shard's rows bit for bit
+    the plain version (``dia_matvec_plain`` / ``dia_matmat_plain``) on
+    that shard's halo-extended storage and x, and the whole against
+    phase 4's unsharded kernel products on the same x (bit for bit: each
+    shard's rows sum the same diagonals in the same order over the same
+    x values); CG on phase 4's b: phase 4's count (exactly, when the
+    products are bit for bit), DIA launches = MESH_SHARDS x matvecs, the
+    true relative residual in f64 at most 1e-4, a profiled window."""
+    from pykrylov_tpu_torch.parallel import HaloDiaOperator, shard_vector
+    from pykrylov_tpu_torch.parallel.sharded import rows_on
+    from pykrylov_tpu_torch.sparse import kernels as K
+
+    tag = "19a halo DIA"
+    mesh = _mesh_of(pt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = HaloDiaOperator(A_dia.container, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = A_dia.shape[0]
+    L = m // MESH_SHARDS
+    log("[%s] %r: %d shards of %d rows, halo width %d, pad %d, kernel path "
+        "%s, built in %.2f s" % (tag, mesh, MESH_SHARDS, L, H.halo_width,
+                                 H.pad, H.local_kernel, build_s))
+    if not H.local_kernel or H.pad != 0:
+        raise AssertionError("%s: kernel path %s, pad %d"
+                             % (tag, H.local_kernel, H.pad))
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    out = {"build_s": build_s}
+    w, offsets = H.halo_width, tuple(H.offsets)
+    for label, x, kernel, plain in (
+            ("product", torch.randn(m, generator=g, device=DEVICE),
+             "dia_spmv", K.dia_matvec_plain),
+            ("K=%d block product" % KB,
+             torch.randn(m, KB, generator=g, device=DEVICE), "dia_spmm",
+             K.dia_matmat_plain)):
+        xs = shard_vector(x, mesh)
+        _reset_counts()
+        y = H * xs
+        torch.cuda.synchronize()
+        counts = _counts()
+        # each shard's rows: the plain version on its extended block
+        for k, data in enumerate(H.container):
+            xe = rows_on(xs, k * L - w, (k + 1) * L + w, mesh.slots[k])
+            _exact("%s, shard %d" % (label, k), y[k * L:(k + 1) * L],
+                   plain(data, offsets, xe)[w:w + L], tag=tag)
+            del xe
+        ref = A_dia * x
+        same = torch.equal(y, ref)
+        err = relerr(y, ref)
+        log("[%s] %s: %s launches, bit for bit phase 4's unsharded kernel "
+            "product: %s (rel err %.3e)" % (tag, label, counts[kernel], same,
+                                            err))
+        if counts[kernel] != MESH_SHARDS or sum(counts.values()) != \
+                MESH_SHARDS or not err <= REL_BOUND[torch.float32]:
+            raise AssertionError("%s %s: launches %s, rel err %.3e"
+                                 % (tag, label, counts, err))
+        out[label] = {"launches": counts, "bit_for_bit": same,
+                      "rel_err": err}
+        del x, xs, y, ref
+    b = shard_vector(dia["b"], mesh)
+    pt.cg(H, b, maxiter=3)                                   # warm-up
+    res, secs, counts = _sharded_solve(tag, "cg", lambda: pt.cg(H, b),
+                                       "dia_spmv", lambda r: int(r.n_matvec))
+    n_iter = int(res.n_iter)
+    true_rel = _true_rel(b, _dia_f64(A_dia), res.x)
+    ms = 1e3 * secs / max(n_iter, 1)
+    exact = all(out[k]["bit_for_bit"] for k in out if k != "build_s")
+    log("[%s] cg: %d iterations (phase 4: %d), true relative residual (f64) "
+        "%.3e, %.4f ms per iteration (phase 4 unsharded: %.4f)"
+        % (tag, n_iter, dia["n_iter"], true_rel, ms,
+           1e3 * dia["solve_s"] / dia["n_iter"]))
+    if (int(res.istop) != 0 or not true_rel <= 1e-4
+            or abs(n_iter - dia["n_iter"]) > (0 if exact else 2)):
+        raise AssertionError("%s: %r, %d iterations against phase 4's %d, "
+                             "residual %.3e" % (tag, res, n_iter,
+                                                dia["n_iter"], true_rel))
+    prof = _profile_call("%s, cg" % tag, lambda: pt.cg(
+        H, b, maxiter=PIPE_PROFILE_ITERS), ms)
+    out["cg"] = {"kernel": "dia_spmv", "n_iter": n_iter,
+                 "n_matvec": int(res.n_matvec), "launches": counts,
+                 "solve_s": secs, "ms_per_iter": ms, "true_rel": true_rel,
+                 "phase4_ms_per_iter": 1e3 * dia["solve_s"] / dia["n_iter"],
+                 "profile": prof}
+    return out
+
+
+def _coo_f64(coo, n_out, transpose=False):
+    """A x (A' x) in f64 through the COO triples, for a true residual."""
+    vals, rows, cols, _ = coo
+    r = torch.from_numpy(np.asarray(rows)).to(DEVICE)
+    c = torch.from_numpy(np.asarray(cols)).to(DEVICE)
+    v = torch.from_numpy(np.asarray(vals)).to(DEVICE, torch.float64)
+    if transpose:
+        r, c = c, r
+
+    def ax(x):
+        y = torch.zeros(n_out, dtype=torch.float64, device=DEVICE)
+        return y.index_add_(0, r, v * x.double()[c])
+    return ax
+
+
+def _gather_exchange(pt, tag, coo, A_bell, bell, ax64):
+    """19b's exchange leg: tiled 1138bus over EXCHANGE_SHARDS slots, whose
+    partition cuts tiles, so each shard receives rows from its
+    neighbours: one product against phase 5's card form (to REL_BOUND),
+    CG within ITER_RTOL of phase 5's count with EXCHANGE_SHARDS SELL
+    launches a matvec, the true relative residual in f64 at most 1e-4."""
+    from pykrylov_tpu_torch.parallel import (GatherBellOperator, make_mesh,
+                                             shard_vector)
+    from pykrylov_tpu_torch.sparse import formats as F
+    vals, rows, cols, shape = coo
+    mesh = make_mesh(EXCHANGE_SHARDS, device=DEVICE)
+    t0 = time.perf_counter()
+    G = GatherBellOperator(F.coo_from_arrays(vals, rows, cols, shape,
+                                             device=None),
+                           mesh, symmetric=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = shape[0]
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    x = torch.zeros(G.nargin, device=DEVICE)
+    x[:m] = torch.randn(m, generator=g, device=DEVICE)
+    _reset_counts()
+    y = G * shard_vector(x, mesh)
+    torch.cuda.synchronize()
+    counts = _counts()
+    err = relerr(y[:m], A_bell * x[:m])
+    log("[%s] exchange: tiled 1138bus over %r, built in %.2f s, pad %d, "
+        "comm entries %d a product (true %d), product: %s SELL launches, "
+        "rel err against phase 5's card form %.3e"
+        % (tag, mesh, build_s, G.pad, G.comm_entries_per_matvec,
+           G.comm_entries_true, counts["sell_spmv"], err))
+    if (G.comm_entries_true == 0 or counts["sell_spmv"] != EXCHANGE_SHARDS
+            or not err <= REL_BOUND[torch.float32] or y[m:].any()):
+        raise AssertionError("%s exchange: comm %d, launches %s, rel err "
+                             "%.3e" % (tag, G.comm_entries_true, counts,
+                                       err))
+    b = torch.zeros(G.nargin, device=DEVICE)
+    b[:m] = bell["b"]
+    b = shard_vector(b, mesh)
+    res, secs, counts = _counted_solve(
+        tag, "exchange cg", lambda: pt.solve(G, b), "sell_spmv",
+        lambda r: (EXCHANGE_SHARDS - 1) * int(r.n_matvec))
+    n_iter = int(res.n_iter)
+    true_rel = _true_rel(b[:m], ax64, res.x[:m])
+    ms = 1e3 * secs / max(n_iter, 1)
+    log("[%s] exchange cg: %d iterations (phase 5: %d), true relative "
+        "residual (f64) %.3e, %.4f ms per iteration"
+        % (tag, n_iter, bell["n_iter"], true_rel, ms))
+    if (int(res.istop) != 0 or not true_rel <= 1e-4
+            or abs(n_iter - bell["n_iter"]) > ITER_RTOL * bell["n_iter"]):
+        raise AssertionError("%s exchange: %r, residual %.3e"
+                             % (tag, res, true_rel))
+    prof = _profile_call("%s, exchange cg" % tag, lambda: pt.cg(
+        G, b, maxiter=PIPE_PROFILE_ITERS), ms)
+    return {"n_iter": n_iter, "launches": counts, "solve_s": secs,
+            "ms_per_iter": ms, "true_rel": true_rel, "build_s": build_s,
+            "comm_entries": G.comm_entries_per_matvec,
+            "comm_entries_true": G.comm_entries_true, "product_rel": err,
+            "profile": prof}
+
+
+def _perturbed_twin(pt, A):
+    """19b's control: the unsharded operator with its A'u rounded
+    differently (a seeded relative perturbation of 1e-16), as a sharded
+    exchange's shard-order sum rounds it."""
+    m, n = A.shape
+    ge = torch.Generator(device=DEVICE).manual_seed(1)
+    return pt.LinearOperator(
+        n, m, matvec=lambda v: A * v,
+        matvec_transp=lambda u: (A.T * u) * (1 + 1e-16 * torch.randn(
+            n, generator=ge, device=DEVICE, dtype=torch.float64)),
+        dtype=A.dtype, device=DEVICE)
+
+
+def _transposed_exchange(pt, tag, se, opts):
+    """19b's transposed exchange leg: phase 10's state-estimation matrix
+    with ``with_transpose=True`` over SE_EXCHANGE_SHARDS slots, whose
+    partition cuts areas, so each shard's transposed partials reach rows
+    that other shards own.  A v, A^T u and an f64 K = KB block A^T U
+    against phase 10's unsharded card forms (to REL_BOUND), one launch a
+    shard each; A^T u bit for bit the shards' plain partials summed into
+    their owners' rows in shard order; LSQR capped at SHARD_XLLS_ITERS
+    with SELL launches = SE_EXCHANGE_SHARDS x (matvecs + 1), held to the
+    unsharded capped LSQR by its residual norm (SHARD_XLLS_RTOL) and x
+    (SHARD_XLLS_XTOL), beside the control of :func:`phase_gather_bell`
+    at the same cap; a profiled window."""
+    from pykrylov_tpu_torch.parallel import (GatherBellOperator, make_mesh,
+                                             shard_vector)
+    from pykrylov_tpu_torch.parallel.gather import private_rows
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.sparse import sell as S
+    A_se, coo_se, b_se = se
+    vals, rows, cols, shape = coo_se
+    m, n = shape
+    mesh = make_mesh(SE_EXCHANGE_SHARDS, device=DEVICE)
+    t0 = time.perf_counter()
+    G = GatherBellOperator(F.coo_from_arrays(vals, rows, cols, shape,
+                                             device=None),
+                           mesh, with_transpose=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log("[%s] transposed exchange: state estimation over %r, built in %.2f "
+        "s, pad %d x %d, comm entries %d a product (true %d)"
+        % (tag, mesh, build_s, G.pad, G.pad_n, G.comm_entries_per_matvec,
+           G.comm_entries_true))
+    if G.comm_entries_true == 0:
+        raise AssertionError("%s transposed exchange: the partition cuts "
+                             "no area" % tag)
+    out = {"build_s": build_s, "comm_entries": G.comm_entries_per_matvec,
+           "comm_entries_true": G.comm_entries_true}
+    L = G.nargout // SE_EXCHANGE_SHARDS
+    priv = [torch.from_numpy(r).to(DEVICE) for r in private_rows(
+        G.schedule[1], SE_EXCHANGE_SHARDS, G.nargin // SE_EXCHANGE_SHARDS)]
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+
+    for label, prod, ref_prod, w_in, w_out, cols, kernel in (
+            ("A v (f64 v)", lambda v: G * v, lambda v: A_se * v, n, m,
+             None, "sell_spmv"),
+            ("A^T u (f64 u)", lambda u: G.T * u, lambda u: A_se.T * u, m, n,
+             None, "sell_spmv"),
+            ("A^T U (f64 U, K=%d)" % KB, lambda u: G.T * u,
+             lambda u: A_se.T * u, m, n, KB, "sell_spmm")):
+        total = G.nargin if w_in == n else G.nargout
+        v = torch.zeros((total,) if cols is None else (total, cols),
+                        dtype=torch.float64, device=DEVICE)
+        v[:w_in] = torch.randn(v[:w_in].shape, generator=g, device=DEVICE,
+                               dtype=torch.float64)
+        v = shard_vector(v, mesh)
+        _reset_counts()
+        y = prod(v)
+        torch.cuda.synchronize()
+        counts = _counts()
+        err = relerr(y[:w_out], ref_prod(v[:w_in]))
+        log("[%s] transposed exchange %s: %d %s launches, rel err against "
+            "phase 10's unsharded card form %.3e" % (tag, label,
+                                                     counts[kernel], kernel,
+                                                     err))
+        if (counts[kernel] != SE_EXCHANGE_SHARDS
+                or sum(counts.values()) != SE_EXCHANGE_SHARDS
+                or not err <= REL_BOUND[torch.float64] or y[w_out:].any()):
+            raise AssertionError("%s transposed exchange %s: launches %s, "
+                                 "rel err %.3e" % (tag, label, counts, err))
+        out[label] = {"launches": counts, "rel_err": err}
+        if label.startswith("A^T u"):
+            # the reversed exchange: each shard's private partials summed
+            # into their owners' rows in shard order
+            ref = torch.zeros_like(y)
+            for k, card in enumerate(G.cards_t):
+                ref.index_add_(0, priv[k], S.sell_matvec_plain(
+                    card, v[k * L:(k + 1) * L]))
+            _exact("transposed exchange A^T u", y, ref, tag=tag)
+        del v, y
+
+    bb = torch.zeros(G.nargout, dtype=b_se.dtype, device=DEVICE)
+    bb[:m] = b_se
+    bs = shard_vector(bb, mesh)
+    cap = dict(opts, itnlim=SHARD_XLLS_ITERS)
+    label = "lsqr, transposed exchange, itnlim=%d" % SHARD_XLLS_ITERS
+    res, secs, counts = _counted_solve(
+        tag, label, lambda: pt.lsqr(G, bs, **cap), "sell_spmv",
+        lambda r: SE_EXCHANGE_SHARDS * (int(r.n_matvec)
+                                        + _initial_launch(r))
+        - int(r.n_matvec))
+    ref = pt.lsqr(A_se, b_se, **cap)
+    ctrl = pt.lsqr(_perturbed_twin(pt, A_se), b_se, **cap)
+
+    def rel(x, y):
+        return (torch.linalg.vector_norm(x - y)
+                / torch.linalg.vector_norm(y)).item()
+    x_rel, ctrl_rel = rel(res.x[:n], ref.x), rel(ctrl.x, ref.x)
+    r_rel = abs(float(res.resid_norm) - float(ref.resid_norm)) \
+        / float(ref.resid_norm)
+    ms = 1e3 * secs / max(int(res.n_iter), 1)
+    log("[%s] %s: istop %d and %d (unsharded), %d iterations, ||r|| %.9e "
+        "and %.9e (%.3e apart); x against the unsharded capped LSQR's %.3e "
+        "relative, the control's (A'u perturbed by 1e-16) %.3e; %.4f ms per "
+        "iteration" % (tag, label, int(res.istop), int(ref.istop),
+                       int(res.n_iter), float(res.resid_norm),
+                       float(ref.resid_norm), r_rel, x_rel, ctrl_rel, ms))
+    if (int(res.n_iter) != int(ref.n_iter) or int(res.istop) != 7
+            or not r_rel <= SHARD_XLLS_RTOL or not x_rel <= SHARD_XLLS_XTOL
+            or res.x[n:].any()):
+        raise AssertionError("%s %s: %r against %r, ||r|| %.3e apart, x "
+                             "%.3e apart" % (tag, label, res, ref, r_rel,
+                                             x_rel))
+    prof = _profile_call("%s, %s" % (tag, label), lambda: pt.lsqr(
+        G, bs, **dict(opts, itnlim=LLS_PROFILE_ITERS // 5)), ms)
+    out[label] = {"kernel": "sell_spmv", "n_iter": int(res.n_iter),
+                  "launches": counts, "solve_s": secs, "ms_per_iter": ms,
+                  "x_rel": x_rel, "control_x_rel": ctrl_rel,
+                  "resid_rel": r_rel, "profile": prof}
+    return out
+
+
+def phase_gather_bell(pt, A_bell, coo_bell, bell, se):
+    """19b: ``GatherBellOperator`` over a mesh of MESH_SHARDS slots on the
+    card, each shard's window-1 BELL packing as one SELL card form.  Tiled
+    1138bus (symmetric, with the verified shadow): one product and one
+    K = KB block product against phase 5's unsharded card form (to
+    REL_BOUND: another packing sums in another order), each shard's rows
+    its kernel's product on its private x, bit for bit the plain
+    version; CG on phase 5's b within ITER_RTOL of phase 5's count, SELL
+    launches = MESH_SHARDS x matvecs, the true relative residual in f64
+    at most 1e-4, a profiled window; the same over EXCHANGE_SHARDS slots,
+    whose partition cuts tiles (:func:`_gather_exchange`);
+    ``cg(replace_every=50)`` capped at SHARD_FF_ITERS (its products
+    compensated over the shadow ELL arrays, as the JAX package's are: no
+    SELL launch), its verified residual the f64 one to VER_AGREE.  Phase
+    10's state-estimation matrix with ``with_transpose=True``: A and A^T
+    on an f64 vector and an f64 K = KB block against phase 10's unsharded
+    card forms (A bit for bit, A^T to REL_BOUND: the partials are summed
+    in shard order), then LSQR capped at SHARD_LLS_ITERS with SELL
+    launches = MESH_SHARDS x (matvecs + 1), held to the unsharded capped
+    LSQR by its residual norm (SHARD_LLS_RTOL) and x (SHARD_LLS_XTOL),
+    beside a control: the unsharded operator with its A'u perturbed by
+    1e-16 relative; the same matrix over SE_EXCHANGE_SHARDS slots, whose
+    partition cuts areas (:func:`_transposed_exchange`)."""
+    from pykrylov_tpu_torch.parallel import GatherBellOperator, shard_vector
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "19b gather SELL"
+    mesh = _mesh_of(pt)
+    out = {}
+    vals, rows, cols, shape = coo_bell
+    t0 = time.perf_counter()
+    G = GatherBellOperator(F.coo_from_arrays(vals, rows, cols, shape,
+                                             device=None),
+                           mesh, symmetric=True, verified_shadow=True)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    log("[%s] tiled 1138bus over %r: built in %.2f s, pad %d, comm entries "
+        "%d a product (true %d, all-gather %d), %d BELL slots a device, "
+        "card forms %s bytes" % (tag, mesh, out["build_s"], G.pad,
+                                 G.comm_entries_per_matvec,
+                                 G.comm_entries_true,
+                                 G.allgather_entries_per_matvec,
+                                 G.slots_per_device,
+                                 [S.sell_bytes(c) for c in G.cards]))
+    m = shape[0]
+    L = G.nargout // MESH_SHARDS
+    from pykrylov_tpu_torch.parallel.gather import private_rows
+    rows_k = [torch.from_numpy(r).to(DEVICE) for r in private_rows(
+        G.schedule[1], MESH_SHARDS, G.nargin // MESH_SHARDS)]
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    for label, shp, kernel, product, plain in (
+            ("product", (G.nargin,), "sell_spmv", S.sell_matvec,
+             S.sell_matvec_plain),
+            ("K=%d block product" % KB, (G.nargin, KB), "sell_spmm",
+             S.sell_matmat, S.sell_matmat_plain)):
+        x = shard_vector(torch.randn(shp, generator=g, device=DEVICE), mesh)
+        _reset_counts()
+        y = G * x
+        torch.cuda.synchronize()
+        counts = _counts()
+        err = relerr(y[:m], A_bell * x[:m])
+        log("[%s] %s: %s launches, rel err against phase 5's card form "
+            "%.3e" % (tag, label, counts[kernel], err))
+        if counts[kernel] != MESH_SHARDS or sum(counts.values()) != \
+                MESH_SHARDS or not err <= REL_BOUND[torch.float32]:
+            raise AssertionError("%s %s: launches %s, rel err %.3e"
+                                 % (tag, label, counts, err))
+        out[label] = {"launches": counts, "rel_err": err}
+        # each shard's rows: its kernel on its private x, bit for bit the
+        # plain version
+        for k, card in enumerate(G.cards):
+            xk = x[rows_k[k]]
+            _exact("%s, shard %d" % (label, k), product(card, xk),
+                   plain(card, xk), tag=tag)
+            if not torch.equal(product(card, xk), y[k * L:(k + 1) * L]):
+                raise AssertionError("%s %s: shard %d's rows are not its "
+                                     "kernel's product" % (tag, label, k))
+        del x, y
+
+    b = shard_vector(bell["b"], mesh)
+    ax64 = _coo_f64(coo_bell, m)
+    out["exchange"] = _gather_exchange(pt, tag, coo_bell, A_bell, bell, ax64)
+    pt.cg(G, b, maxiter=3)                                   # warm-up
+    res, secs, counts = _sharded_solve(tag, "cg", lambda: pt.solve(G, b),
+                                       "sell_spmv", lambda r: int(r.n_matvec))
+    n_iter = int(res.n_iter)
+    true_rel = _true_rel(b, ax64, res.x)
+    ms = 1e3 * secs / max(n_iter, 1)
+    log("[%s] cg: %d iterations (phase 5: %d), true relative residual (f64) "
+        "%.3e, %.4f ms per iteration (phase 5 unsharded: %.4f)"
+        % (tag, n_iter, bell["n_iter"], true_rel, ms,
+           1e3 * bell["solve_s"] / bell["n_iter"]))
+    if (int(res.istop) != 0 or not true_rel <= 1e-4
+            or abs(n_iter - bell["n_iter"]) > ITER_RTOL * bell["n_iter"]):
+        raise AssertionError("%s: %r, %d iterations against phase 5's %d, "
+                             "residual %.3e" % (tag, res, n_iter,
+                                                bell["n_iter"], true_rel))
+    prof = _profile_call("%s, cg" % tag, lambda: pt.cg(
+        G, b, maxiter=PIPE_PROFILE_ITERS), ms)
+    out["cg"] = {"kernel": "sell_spmv", "n_iter": n_iter,
+                 "n_matvec": int(res.n_matvec), "launches": counts,
+                 "solve_s": secs, "ms_per_iter": ms, "true_rel": true_rel,
+                 "phase5_ms_per_iter": 1e3 * bell["solve_s"] / bell["n_iter"],
+                 "profile": prof}
+
+    label = "cg(replace_every=50), verified shadow, maxiter=%d" \
+        % SHARD_FF_ITERS
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pt.cg(G, b, replace_every=50, maxiter=SHARD_FF_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    true_rel = _true_rel(b, ax64, res.x.double() + res.info["x_lo"].double())
+    claimed = float(res.resid_norm) / float(torch.linalg.vector_norm(
+        b.double()))
+    nrep = int(res.info["n_replacements"])
+    ms = 1e3 * secs / max(int(res.n_iter), 1)
+    log("[%s] %s: istop %d, %d iterations, %d replacements, launches %s, "
+        "verified relative residual %.3e, f64 %.3e, %.3f s, %.4f ms per "
+        "iteration" % (tag, label, int(res.istop), int(res.n_iter), nrep,
+                       counts, claimed, true_rel, secs, ms))
+    if (int(res.n_iter) != SHARD_FF_ITERS or int(res.istop) != 1
+            or nrep < SHARD_FF_ITERS // 50 or any(counts.values())
+            or not abs(claimed - true_rel) <= VER_AGREE * true_rel):
+        raise AssertionError("%s %s: %r, launches %s, claimed %.3e, f64 "
+                             "%.3e" % (tag, label, res, counts, claimed,
+                                       true_rel))
+    prof = _profile_call("%s, %s" % (tag, label), lambda: pt.cg(
+        G, b, replace_every=50, maxiter=VER_PROFILE_ITERS), ms)
+    out[label] = {"n_iter": int(res.n_iter), "launches": counts,
+                  "replacements": nrep, "solve_s": secs, "ms_per_iter": ms,
+                  "true_rel": true_rel, "profile": prof}
+    del G, b, res
+
+    A_se, coo_se, b_se = se
+    vals, rows, cols, shape = coo_se
+    t0 = time.perf_counter()
+    Gs = GatherBellOperator(F.coo_from_arrays(vals, rows, cols, shape,
+                                              device=None),
+                            mesh, with_transpose=True)
+    torch.cuda.synchronize()
+    out["se_build_s"] = time.perf_counter() - t0
+    log("[%s] state estimation %d x %d over %r, with_transpose: built in "
+        "%.2f s, pad %d x %d, comm entries %d a product"
+        % (tag, shape[0], shape[1], mesh, out["se_build_s"], Gs.pad,
+           Gs.pad_n, Gs.comm_entries_per_matvec))
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    for name, prod, ref_prod, width, bound in (
+            ("A", lambda v: Gs * v, lambda v: A_se * v, shape[1], 0.0),
+            ("A^T", lambda v: Gs.T * v, lambda v: A_se.T * v, shape[0],
+             REL_BOUND[torch.float64])):
+        for cols, kernel in ((None, "sell_spmv"), (KB, "sell_spmm")):
+            shp = (width,) if cols is None else (width, cols)
+            v = shard_vector(torch.randn(shp, generator=g, device=DEVICE,
+                                         dtype=torch.float64), mesh)
+            _reset_counts()
+            y = prod(v)
+            torch.cuda.synchronize()
+            counts = _counts()
+            err = relerr(y, ref_prod(v))
+            label = "%s v (f64 v)" % name if cols is None \
+                else "%s V (f64 V, K=%d)" % (name, cols)
+            log("[%s] %s: %d %s launches, rel err against phase 10's "
+                "unsharded card form %.3e (bound %.0e)"
+                % (tag, label, counts[kernel], kernel, err, bound))
+            if counts[kernel] != MESH_SHARDS or \
+                    sum(counts.values()) != MESH_SHARDS or not err <= bound:
+                raise AssertionError("%s %s: launches %s, rel err %.3e"
+                                     % (tag, label, counts, err))
+            out["state estimation " + label] = {"launches": counts,
+                                                "rel_err": err}
+    bs = shard_vector(b_se, mesh)
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0,
+            "itnlim": SHARD_LLS_ITERS}
+    pt.lsqr(Gs, bs, **dict(opts, itnlim=3))                  # warm-up
+    label = "lsqr, with_transpose, itnlim=%d" % SHARD_LLS_ITERS
+    res, secs, counts = _sharded_solve(
+        tag, label, lambda: pt.lsqr(Gs, bs, **opts), "sell_spmv",
+        lambda r: int(r.n_matvec) + _initial_launch(r))
+    ref = pt.lsqr(A_se, b_se, **opts)
+    ctrl = pt.lsqr(_perturbed_twin(pt, A_se), b_se, **opts)
+
+    def rel(x, y):
+        return (torch.linalg.vector_norm(x - y)
+                / torch.linalg.vector_norm(y)).item()
+    x_rel, ctrl_rel = rel(res.x, ref.x), rel(ctrl.x, ref.x)
+    r_rel = abs(float(res.resid_norm) - float(ref.resid_norm)) \
+        / float(ref.resid_norm)
+    ms = 1e3 * secs / max(int(res.n_iter), 1)
+    log("[%s] %s: istop %d and %d (unsharded), %d iterations, ||r|| %.6e "
+        "and %.6e (%.3e apart); x against the unsharded capped LSQR's "
+        "%.3e relative, the control's (A'u perturbed by 1e-16) %.3e; %.4f "
+        "ms per iteration" % (tag, label, int(res.istop), int(ref.istop),
+                              int(res.n_iter), float(res.resid_norm),
+                              float(ref.resid_norm), r_rel, x_rel, ctrl_rel,
+                              ms))
+    if (int(res.n_iter) != int(ref.n_iter) or int(res.istop) != 7
+            or not r_rel <= SHARD_LLS_RTOL or not x_rel <= SHARD_LLS_XTOL):
+        raise AssertionError("%s %s: %r against %r, ||r|| %.3e apart, x "
+                             "%.3e apart" % (tag, label, res, ref, r_rel,
+                                             x_rel))
+    prof = _profile_call("%s, %s" % (tag, label), lambda: pt.lsqr(
+        Gs, bs, **dict(opts, itnlim=LLS_PROFILE_ITERS // 5)), ms)
+    out[label] = {"kernel": "sell_spmv", "n_iter": int(res.n_iter),
+                  "launches": counts, "solve_s": secs, "ms_per_iter": ms,
+                  "x_rel": x_rel, "control_x_rel": ctrl_rel,
+                  "resid_rel": r_rel, "profile": prof}
+    del Gs, bs
+    out["transposed exchange"] = _transposed_exchange(pt, tag, se, opts)
+    return out
+
+
+def phase_stencils(pt, A_dia, dia):
+    """19c: the matrix-free products over MESH_SHARDS slots on the card:
+    ``HaloStencilPoisson3DOperator`` (a z-slab a shard) and
+    ``Halo2DPoissonOperator`` on a 2 x 2 mesh (bricks) at n = N, f32, CG
+    on phase 4's b (brick-ordered for the 2-D mesh) within 2 iterations
+    of phase 4's count, the true relative residual in f64 through phase
+    4's matrix at most 1e-4, no kernel launch; ``TallSkinnyOperator`` of a
+    dense f32 TALL_M x TALL_N matrix (standard normal, seed 19): LSQR on
+    an f32 b to atol = btol = LLS_TOL, istop 1 or 2, the optimality
+    certificate ``||A'r|| / (||A||_F ||r||)`` in f64 at most CERT_BOUND.
+    Each solve with a profiled window."""
+    from pykrylov_tpu_torch import parallel as par
+
+    tag = "19c matrix-free and tall"
+    out = {}
+    b = dia["b"]
+    ax64 = _dia_f64(A_dia)
+    mesh = _mesh_of(pt)
+    rz, ry = 2, MESH_SHARDS // 2
+    mesh2 = par.make_mesh2d(rz, ry, device=DEVICE)
+    for label, op, rhs, back in (
+            ("HaloStencilPoisson3DOperator, %d z-slabs" % MESH_SHARDS,
+             par.HaloStencilPoisson3DOperator(N, mesh, dtype=torch.float32),
+             par.shard_vector(b, mesh), lambda x: x),
+            ("Halo2DPoissonOperator, %d x %d bricks" % (rz, ry),
+             par.Halo2DPoissonOperator(N, mesh2, dtype=torch.float32),
+             par.shard_vector_2d(par.to_bricks(b, N, rz, ry), mesh2),
+             lambda x: par.from_bricks(x, N, rz, ry))):
+        pt.cg(op, rhs, maxiter=3)                            # warm-up
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pt.cg(op, rhs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        n_iter = int(res.n_iter)
+        true_rel = _true_rel(b, ax64, back(res.x))
+        ms = 1e3 * secs / max(n_iter, 1)
+        log("[%s] cg, %s: istop %d, %d iterations (phase 4: %d), true "
+            "relative residual (f64) %.3e, launches %s, %.3f s, %.4f ms per "
+            "iteration" % (tag, label, int(res.istop), n_iter, dia["n_iter"],
+                           true_rel, counts, secs, ms))
+        if (int(res.istop) != 0 or abs(n_iter - dia["n_iter"]) > 2
+                or not true_rel <= 1e-4 or any(counts.values())):
+            raise AssertionError("%s %s: %r, residual %.3e, launches %s"
+                                 % (tag, label, res, true_rel, counts))
+        prof = _profile_call("%s, %s" % (tag, label), lambda: pt.cg(
+            op, rhs, maxiter=PIPE_PROFILE_ITERS), ms)
+        out[label] = {"n_iter": n_iter, "launches": counts, "solve_s": secs,
+                      "ms_per_iter": ms, "true_rel": true_rel,
+                      "profile": prof}
+        del op, rhs, res
+
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    a = torch.randn(TALL_M, TALL_N, generator=g, device=DEVICE)
+    t0 = time.perf_counter()
+    T = par.TallSkinnyOperator(a, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bt = par.shard_vector(torch.randn(TALL_M, generator=g, device=DEVICE),
+                          mesh)
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL}
+    pt.lsqr(T, bt, itnlim=3, **opts)                         # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pt.lsqr(T, bt, **opts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    a64 = a.double()
+    r = bt.double() - a64 @ res.x.double()
+    cert = (torch.linalg.vector_norm(a64.T @ r)
+            / (torch.linalg.vector_norm(a64) * torch.linalg.vector_norm(r))
+            ).item()
+    del a64, r
+    n_iter = int(res.n_iter)
+    ms = 1e3 * secs / max(n_iter, 1)
+    label = "TallSkinnyOperator, dense f32 %d x %d, lsqr" % (TALL_M, TALL_N)
+    log("[%s] %s (built in %.2f s): istop %d, %d iterations, certificate "
+        "||A'r||/(||A||_F ||r||) (f64) %.3e, launches %s, %.3f s, %.4f ms "
+        "per iteration" % (tag, label, build_s, int(res.istop), n_iter, cert,
+                           counts, secs, ms))
+    if int(res.istop) not in (1, 2) or not cert <= CERT_BOUND \
+            or any(counts.values()):
+        raise AssertionError("%s %s: %r, certificate %.3e, launches %s"
+                             % (tag, label, res, cert, counts))
+    prof = _profile_call("%s, %s" % (tag, label),
+                         lambda: pt.lsqr(T, bt, **opts), ms)
+    out[label] = {"n_iter": n_iter, "launches": counts, "solve_s": secs,
+                  "ms_per_iter": ms, "certificate": cert, "build_s": build_s,
+                  "profile": prof}
+    return out
+
+
+# --------------------------------------------------------------------------
 # 6. timing
 # --------------------------------------------------------------------------
 
@@ -3752,7 +4697,13 @@ def main():
                      ("17a", lambda: phase_chebyshev(pt, A_dia, dia)),
                      ("17b", lambda: phase_complex(pt)),
                      ("17c", lambda: phase_operators(pt, A_dia, dia, A_bell,
-                                                     bell))):
+                                                     bell)),
+                     ("18a", lambda: phase_checkpoint(pt, A_dia, dia)),
+                     ("18b", lambda: phase_trace(pt, A_bell, bell)),
+                     ("19a", lambda: phase_halo(pt, A_dia, dia)),
+                     ("19b", lambda: phase_gather_bell(
+                         pt, A_bell, coo_bell, bell, keep["se"])),
+                     ("19c", lambda: phase_stencils(pt, A_dia, dia))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
     keep.clear()
@@ -3852,7 +4803,8 @@ def main():
             **{key: {k: v["launches"] for k, v in new_s[key][0].items()
                      if isinstance(v, dict) and "launches" in v}
                for key in ("9", "9b", "10", "10b", "11", "12", "13", "14",
-                           "15", "16a", "16b", "16c", "17a", "17b", "17c")}}
+                           "15", "16a", "16b", "16c", "17a", "17b", "17c",
+                           "18a", "18b", "19a", "19b", "19c")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -3971,6 +4923,16 @@ def main():
                                  v["backward_s"])
                      for label, v in p16["16c"][0].items()),
            p16["17b"][0]["fmt"]))
+    p18 = {key: new_s[key] for key in ("18a", "18b", "19a", "19b", "19c")}
+    log("[7 result] phases 18-19 (%s): %s"
+        % (", ".join("%s %.1f s" % (k, v[1]) for k, v in p18.items()),
+           "; ".join("%s %s: %d it., %.4f ms per it., idle %.1f%%, %s"
+                     % (key, label, v["n_iter"], v["ms_per_iter"],
+                        100 * v["profile"]["idle"],
+                        {k: c for k, c in v["launches"].items() if c})
+                     for key, (out, _) in p18.items()
+                     for label, v in out.items()
+                     if isinstance(v, dict) and "profile" in v)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

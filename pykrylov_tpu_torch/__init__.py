@@ -23,6 +23,12 @@ block of right-hand sides goes to ``cg_batched``, ``bicgstab_batched`` or
 ``lsqr_batched`` by the same shapes, or to ``method=``'s batched twin.
 The differentiable solves (``solvers.cg_solve``, ``bicgstab_solve``,
 ``lsqr_solve``) carry gradients through a solve by one adjoint solve.
+``parallel`` shards a system's rows over a mesh of shard slots (several
+may share one card): halo-exchange DIA operators and gather-scheduled
+general sparsity through the kernels, one launch a shard, stencils and
+tall operators; ``utils`` checkpoints long solves and traces them with
+``torch.profiler``; ``io`` also writes MatrixMarket files and reads them
+partitioned over shards.
 """
 
 from .version import __version__
@@ -35,6 +41,7 @@ from . import io
 from . import gallery
 from . import convert
 from . import compat
+from . import parallel
 # the import-path modules named like solvers load before the solver
 # functions are bound below, so the package's ``cg`` is the function (a
 # later import of ``pykrylov_tpu_torch.cg`` finds the module loaded and
@@ -77,4 +84,4 @@ __all__ = ["__version__", "solve", "ShapeError", "BaseLinearOperator",
            "tfqmr", "lsqr", "lsmr", "craig", "craigmr", "machine_epsilon",
            "roots_quadratic", "check_symmetric", "check_positive_definite",
            "utils", "ops", "solvers", "sparse", "io", "gallery", "convert",
-           "compat"]
+           "compat", "parallel"]

@@ -42,9 +42,16 @@ class CholeskyOperator(LinearOperator):
         if A.ndim != 2 or A.shape[0] != A.shape[1]:
             raise ValueError("CholeskyOperator requires a square matrix")
         c = torch.linalg.cholesky(A)
+        # the factor in each promoted dtype a product has asked for: an f32
+        # factor solves an f64 vector in f64 on its exactly widened copy,
+        # as the JAX package's promoting triangular solves do
+        factors = {c.dtype: c}
 
         def mm(X):
-            return torch.cholesky_solve(X.to(c.dtype), c)
+            ct = torch.promote_types(c.dtype, X.dtype)
+            if ct not in factors:
+                factors[ct] = c.to(ct)
+            return torch.cholesky_solve(X.to(ct), factors[ct])
 
         super().__init__(A.shape[0], A.shape[0],
                          matvec=lambda x: mm(x[:, None])[:, 0], matmat=mm,

@@ -75,6 +75,18 @@ def _stored(data):
     return [k for k in _order(data.insert, data.s.shape[0]) if valid[k]]
 
 
+def _promoted(data, v):
+    """``data`` with its pairs and scalars in the promoted dtype of the
+    pairs and ``v``: an f32 history applied to an f64 vector computes in
+    f64 on the exactly widened pairs, as the JAX package's dtype promotion
+    does (the same record when no widening is needed)."""
+    ct = torch.promote_types(data.s.dtype, v.dtype)
+    if ct == data.s.dtype:
+        return data
+    return data._replace(s=data.s.to(ct), y=data.y.to(ct),
+                         ys=data.ys.to(ct), gamma=data.gamma.to(ct))
+
+
 def lbfgs_store(data: LBFGSData, s, y, scaling: bool = True) -> LBFGSData:
     """Insert a pair if its curvature ``s.y`` exceeds the threshold
     (``InverseLBFGSOperator.store``, ``lbfgs.py:70-87``); a rejected pair
@@ -103,6 +115,7 @@ def lbfgs_restart(data: LBFGSData) -> LBFGSData:
 def inverse_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     """Two-loop recursion: the inverse-Hessian approximation H applied to
     v (``InverseLBFGSOperator.lbfgs_matvec``, ``lbfgs.py:97-127``)."""
+    data = _promoted(data, v)
     order = _stored(data)
     q = v
     alphas = {}
@@ -121,6 +134,7 @@ def forward_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     (``LBFGSOperator.lbfgs_matvec``, ``lbfgs.py:140-173``): from B0 =
     I/gamma, the BFGS update of each stored pair, oldest first, with each
     ``B_i s_i`` recomputed through the earlier updates."""
+    data = _promoted(data, v)
     order = _stored(data)
 
     def apply_B(upto, w):
@@ -184,7 +198,9 @@ def compact_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     (``CompactLBFGSOperator.lbfgs_matvec``, ``lbfgs.py:188-254``):
     ``B = B0 - [B0 S  Y] W^{-1} [B0 S  Y]^T``, W the 2m x 2m "minimat"
     ``[[S^T B0 S, L], [L^T, -D]]``, with an empty slot's rows and columns
-    of W replaced by the identity's, as in the JAX package."""
+    of W replaced by the identity's, as in the JAX package.  W is built in
+    the pairs' dtype and only the products with v are promoted, so an f32
+    history applied to an f64 vector rounds as the JAX package's does."""
     mem = data.s.shape[0]
     order = _order(data.insert, mem)
     S, Y = data.s[order], data.y[order]
@@ -199,8 +215,10 @@ def compact_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     mask2 = torch.cat([valid, valid])
     Wm = torch.where(mask2[:, None] & mask2[None, :], W,
                      torch.eye(2 * mem, dtype=W.dtype, device=W.device))
+    ct = torch.promote_types(W.dtype, v.dtype)
+    S, Y = S.to(ct), Y.to(ct)
     rhs = torch.cat([theta * (S @ v), Y @ v]) * mask2
-    coef = torch.linalg.solve(Wm, rhs) * mask2
+    coef = torch.linalg.solve(Wm.to(ct), rhs) * mask2
     corr = theta * (S.T @ coef[:mem]) + Y.T @ coef[mem:]
     return theta * v - corr
 

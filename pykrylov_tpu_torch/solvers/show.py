@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["print_minres", "print_lsqr", "lsqr_preamble",
            "print_lsmr", "lsmr_preamble", "craig_preamble",
-           "print_craig_final"]
+           "print_craig_final", "ISTOP_MSG_MINRES", "ISTOP_MSG_LSQR"]
 
 
 def _host(t):
@@ -201,3 +201,51 @@ def print_craig_final(res, out=print):
     out("itn   =%8g   r2norm =%8.1e" % (int(res.n_iter),
                                         float(res.info["r2norm"])))
     out(" ")
+
+
+# the MINRES and LSQR message tables under the JAX package's module-level
+# names; read lazily, since the solvers' modules import this one
+def _msgs():
+    from .lsqr import ISTOP_MSG as LM
+    from .minres import ISTOP_MSG as MM
+    return MM, LM
+
+
+class _LazyMsg(dict):
+    """A read-only view of one solver's ``ISTOP_MSG``: ``get``, ``[]``,
+    ``in``, ``len`` and iteration go through the solver's table."""
+
+    def __init__(self, idx):
+        super().__init__()
+        self._idx = idx
+
+    def _table(self):
+        return _msgs()[self._idx]
+
+    def get(self, k, default=""):
+        return self._table().get(k, default)
+
+    def __getitem__(self, k):
+        return self._table()[k]
+
+    def __contains__(self, k):
+        return k in self._table()
+
+    def __iter__(self):
+        return iter(self._table())
+
+    def __len__(self):
+        return len(self._table())
+
+    def items(self):
+        return self._table().items()
+
+    def keys(self):
+        return self._table().keys()
+
+    def values(self):
+        return self._table().values()
+
+
+ISTOP_MSG_MINRES = _LazyMsg(0)
+ISTOP_MSG_LSQR = _LazyMsg(1)

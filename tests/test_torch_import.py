@@ -27,6 +27,10 @@ def test_import_loads_no_jax():
         "import pykrylov_tpu_torch.ops.complex_eq\n"
         "import pykrylov_tpu_torch.solvers.pipelined\n"
         "import pykrylov_tpu_torch.solvers.diff\n"
+        "import pykrylov_tpu_torch.parallel\n"
+        "import pykrylov_tpu_torch.parallel.bell_sharded\n"
+        "import pykrylov_tpu_torch.utils.checkpoint\n"
+        "import pykrylov_tpu_torch.utils.observe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pykrylov_tpu'))\n"
         "assert not bad, bad\n")
@@ -47,19 +51,35 @@ def test_source_does_not_import_jax(path):
 
 
 @pytest.mark.parametrize("module", ["ops", "solvers.diff",
-                                    "solvers.pipelined", ""])
+                                    "solvers.pipelined", "parallel",
+                                    "utils", "io", "solvers.show", ""])
 def test_public_names_match_the_jax_package(module):
-    # every name of the JAX package's ops, diff and pipelined modules and of
-    # its package root has its counterpart under the same name
+    # every name of the JAX package's ops, diff, pipelined, parallel, utils,
+    # io and show modules and of its package root has its counterpart under
+    # the same name
     import importlib
     jax_mod = importlib.import_module(("pykrylov_tpu." + module).rstrip("."))
     port = importlib.import_module(("pykrylov_tpu_torch." + module)
                                    .rstrip("."))
     names = list(jax_mod.__all__) if module else [
         n for n in dir(jax_mod) if not n.startswith("_")
-        and n not in ("annotations", "parallel", "native", "version")]
+        and n not in ("annotations", "native", "version")]
     missing = [n for n in names if not hasattr(port, n)]
     assert not missing, missing
+
+
+def test_every_module_imports_without_jax():
+    # each module of the package, imported on its own in one process
+    mods = [p[:-3].replace("/", ".").replace(".__init__", "")
+            for p in SOURCES]
+    code = ("import sys, importlib\n"
+            "for m in %r:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pykrylov_tpu'))\n"
+            "assert not bad, bad\n" % (mods,))
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
@@ -124,13 +144,20 @@ def test_public_entry_points_default_to_the_card():
     # the entry points named in the port's docs are among those checked
     assert {"operator_from_coo", "sparse_operator", "jacobi_preconditioner",
             "LinearOperator", "poisson3d_operator", "coo_from_arrays",
-            "from_numpy", "bell_operator", "bell_from_coo"} <= names
+            "from_numpy", "bell_operator", "bell_from_coo", "make_mesh",
+            "default_mesh", "initialize_multihost", "make_mesh2d"} <= names
     bad = [(n, d) for n, d in found if d != "cuda"]
     assert not bad, bad
     # nothing falls back to the CPU: without a card the default raises
     import torch
     from pykrylov_tpu_torch.gallery import poisson1d_coo
     from pykrylov_tpu_torch.sparse import operator_from_coo
+    from pykrylov_tpu_torch.parallel import make_mesh, make_mesh2d
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             operator_from_coo(*poisson1d_coo(8))
+        # a mesh on the card without one raises too
+        for build in (make_mesh, lambda: make_mesh(4),
+                      lambda: make_mesh2d(2, 2)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()

@@ -15,7 +15,8 @@ import jax.numpy as jnp
 import pykrylov_tpu.ops as jops
 from pykrylov_tpu_torch.ops import (CompactLBFGSOperator,
                                     InverseLBFGSOperator, LBFGSOperator,
-                                    StructuredLBFGSOperator, lbfgs_init,
+                                    StructuredLBFGSOperator,
+                                    forward_lbfgs_matvec, lbfgs_init,
                                     lbfgs_restart, lbfgs_store)
 from pykrylov_tpu_torch.utils import check_positive_definite, check_symmetric
 
@@ -166,3 +167,46 @@ def test_structured_rejects_bad_pair_and_restarts(rng):
     assert bool(S.data["valid"].any())
     S.restart()
     assert not bool(S.data["valid"].any())
+
+
+def _integer_pairs(rng, count=3):
+    """(s, y) pairs of small integers with s.y > 0: their f32 dot products
+    are exact, so both packages store the same f32 ys and gamma."""
+    out = []
+    while len(out) < count:
+        s = rng.integers(-3, 4, size=N).astype(np.float32)
+        y = s + rng.integers(-1, 2, size=N).astype(np.float32)
+        if float(np.dot(s, y)) > 0:
+            out.append((s, y))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["inverse", "compact"])
+def test_f32_pairs_promote_f64_vector(kind, rng):
+    t = CLASSES[kind][0](N, NPAIRS, dtype=torch.float32, device=DEV)
+    j = CLASSES[kind][1](N, NPAIRS, dtype=np.float32)
+    for s, y in _integer_pairs(rng):
+        t.store(s, y)
+        j.store(jnp.asarray(s), jnp.asarray(y))
+    np.testing.assert_array_equal(t.data.ys.numpy(), np.asarray(j.data.ys))
+    x = rng.standard_normal(N)
+    yt = t * torch.from_numpy(x)
+    yj = np.asarray(j * jnp.asarray(x))
+    assert yt.dtype == torch.float64 and yj.dtype == np.float64
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=RTOL, atol=1e-14)
+
+
+def test_forward_f32_pairs_promote_f64_vector(rng):
+    # the JAX package's forward operator raises here (a TypeError in its
+    # scan carry); the port promotes as its other L-BFGS operators do, to
+    # the product over the same pairs and scalars widened to f64
+    t32 = LBFGSOperator(N, NPAIRS, dtype=torch.float32, device=DEV)
+    for s, y in _integer_pairs(rng):
+        t32.store(s, y)
+    d = t32.data
+    wide = d._replace(s=d.s.double(), y=d.y.double(), ys=d.ys.double(),
+                      gamma=d.gamma.double())
+    x = torch.from_numpy(rng.standard_normal(N))
+    y32 = t32 * x
+    assert y32.dtype == torch.float64
+    assert torch.equal(y32, forward_lbfgs_matvec(wide, x))

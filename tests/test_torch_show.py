@@ -239,3 +239,18 @@ def test_table_rows_follow_the_iteration(solver, capsys):
     assert "show_table" not in plain(
         MatrixOperator(torch.eye(3, dtype=torch.float64), symmetric=True,
                        device=DEV), torch.ones(3, dtype=torch.float64)).info
+
+
+@pytest.mark.parametrize("name", ["ISTOP_MSG_MINRES", "ISTOP_MSG_LSQR"])
+def test_module_level_message_tables(name):
+    # the JAX package's lazy tables: ``get`` reads the solver's ISTOP_MSG
+    import pykrylov_tpu.solvers.show as jshow
+    import pykrylov_tpu_torch.solvers.show as tshow
+    from pykrylov_tpu_torch.solvers.lsqr import ISTOP_MSG as LM
+    from pykrylov_tpu_torch.solvers.minres import ISTOP_MSG as MM
+    ours, ref = getattr(tshow, name), getattr(jshow, name)
+    table = MM if name.endswith("MINRES") else LM
+    for code in list(table) + [99]:
+        assert ours.get(code) == ref.get(code) == table.get(code, "")
+    assert ours.get(99, "none") == "none"
+    assert dict(ours.items()) == table and len(ours) == len(table)
