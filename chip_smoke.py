@@ -35,12 +35,16 @@ pipelined CG and its block twin, the differentiable solves, the Chebyshev
 preconditioner, a complex system through its real equivalent and the
 block-diagonal, L-BFGS and Cholesky operators; and a checkpointed and a
 traced solve, and the sharded operators on a mesh of shard slots that
-share the card, each shard's product one kernel launch.
+share the card, each shard's product one kernel launch; and the native
+host pipeline (the C++ MatrixMarket parser, DIA fill and BELL planners)
+held against the NumPy path at full size, and the port's examples.
 
 Phases, in order:
 
   1. device: torch/CUDA versions, card name and power limit, TF32 off;
-  2. build: the four kernel libraries from source at once, the compiler's
+  2. build: the four kernel libraries from source at once, the native
+     host library (g++, ``native/native.cpp``) beside them (the phase
+     fails without g++ or if the library does not load), the compiler's
      registers and spills per kernel, the card's published peaks
      (``PEAKS``), which set the bounds below, and its copy rate (a large
      ``copy_``), which sets the achievable times beside them;
@@ -221,6 +225,27 @@ Phases, in order:
      ``Halo2DPoissonOperator`` (2 x 2 bricks) at n = 240, CG within 2 of
      phase 4's count; ``TallSkinnyOperator`` of a dense f32 2^20 x 256
      matrix, LSQR's f64 certificate at most 1e-5;
+  20a. the native host pipeline at full size, against the port's NumPy
+     path in the same process (the library bypassed, no environment
+     switch): phase 5's tiled 1138bus and phase 10's state-estimation
+     matrix with its transpose, which those phases packed through the
+     native planner, against the NumPy path in the window mode each
+     product holds: the window planner on the whole matrix native and
+     NumPy (arrays equal, both times logged), the levels packed again
+     with the library bypassed (every level's arrays forward and backward
+     and every SELL card form equal), one SELL SpMV and one (n, 8) SpMM
+     on each card form of each packing bit for bit; tiled 1138bus written
+     by the port's MatrixMarket writer and parsed by ``mm_parse_native``
+     and by the NumPy parser, the arrays equal and equal to what was
+     written;
+     the f64 3-D Poisson matrix at n = 160 (4,096,000 rows) filled into
+     DIA by ``dia_fill_native`` and by NumPy, equal, one DIA SpMV on each
+     bit for bit;
+  20b. the examples through their ``main``: ``bmark`` (f64, jpwh_991),
+     without and with ``--precon``, within 4 of 82/84/84 and 70/70/64
+     matvecs; ``demo_chebyshev`` at n = 64 (262,144 rows, ``cuda-dia``)
+     and ``demo_general`` at 63,424 rows (``bell``), each converged with
+     its kernel's launches counted;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -242,7 +267,7 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-19,
+     (each with its launches in every run of phases 8-20,
      ``launches_by_phase``, and the verified solves of phases 14-15 that
      ran through it, ``verified_solves``; the SpMMs with their K = 16
      f64-block times, ``k16_f64_block``; the SpMV kernels with their
@@ -256,13 +281,14 @@ Phases, in order:
      and spill bytes), then the result line ``{"ok": true, "device":
      {...}}``.
 
-Phases 8-19 run after 5b and before 6; each resets every launch count
+Phases 8-20 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
 Any failure raises and the script exits non-zero without the result line.
 Without a CUDA device, or without the package beside it, it exits 2.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -303,6 +329,7 @@ BMARK_TILES = 1024  # jpwh_991 tiles of the bmark path (9b)
 # the reference's bmark on jpwh_991 (examples/bmark.py): matvecs to rtol
 # 1e-8 from x0 = 1 + arange(n), unpreconditioned and with Jacobi floor=1
 BMARK = {"cgs": (82, 70), "tfqmr": (84, 70), "bicgstab": (84, 64)}
+BMARK_BOUND = 4     # matvecs off that table (9b, 20b)
 
 # max|y - y_ref| / max|y_ref|, where an output is held against another
 # product that sums in another order: the SELL card form against the BELL
@@ -358,14 +385,39 @@ def phase_device():
 
 
 def phase_build():
-    from pykrylov_tpu_torch import _build
+    import shutil
+    import threading
+    from pykrylov_tpu_torch import _build, native
+
+    if shutil.which("g++") is None:
+        raise AssertionError("g++ not found on PATH: nvcc's host compiler "
+                             "builds the native host pipeline")
+    built = {}
+
+    def build_native():
+        # g++ beside the nvcc compiles; _load raises g++'s report
+        t0 = time.perf_counter()
+        try:
+            native._load()
+        except RuntimeError as exc:
+            built["error"] = exc
+        built["s"] = time.perf_counter() - t0
+
+    gxx = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    gxx.start()
     libs = _build.build()   # one nvcc per source, all started together
     for name in libs:
         _build.load(name)
-    log("[2 build] %s in %.3f s" % (", ".join(
-        os.path.basename(p) for p in libs.values()),
-        time.perf_counter() - t0))
+    nvcc_s = time.perf_counter() - t0
+    gxx.join()
+    if "error" in built:
+        raise AssertionError("native build failed: %s" % built["error"])
+    if not native.available():
+        raise AssertionError("the native library does not load")
+    log("[2 build] %s in %.3f s; %s (g++) in %.3f s beside them" % (
+        ", ".join(os.path.basename(p) for p in libs.values()), nvcc_s,
+        os.path.basename(native.library_path()), built["s"]))
     regs = {}
     for name, lib in libs.items():
         fn = None
@@ -1695,7 +1747,8 @@ def phase_bmark(pt):
                 lambda: fn(A, b, x0=x0, M=M if jac else None, rtol=1e-8,
                            matvec_max=2 * 991),
                 "sell_spmv", expect=lambda r: int(name != "bicgstab"))
-            if not bool(res.converged) or abs(int(res.n_matvec) - ref) > 4:
+            if not bool(res.converged) or \
+                    abs(int(res.n_matvec) - ref) > BMARK_BOUND:
                 raise AssertionError("%s %s: %r against %d matvecs"
                                      % (tag, name, res, ref))
             out["%s%s" % (name, "_jacobi" if jac else "")] = {
@@ -4305,6 +4358,364 @@ def phase_stencils(pt, A_dia, dia):
 
 
 # --------------------------------------------------------------------------
+# 20. the native host pipeline; the examples on the card
+# --------------------------------------------------------------------------
+
+POISSON_FILL_N = 160    # 3-D Poisson grid of the DIA fill check (20a)
+CHEB_N = 64             # demo_chebyshev's grid on a card (20b)
+GENERAL_N = 63424       # demo_general's rows on a card (20b)
+
+
+@contextlib.contextmanager
+def native_bypassed():
+    """Within the block the native library is bypassed in this process:
+    every native entry returns None and each caller takes its NumPy path
+    (the port's ``_plan_bands_sorted``, ``_plan_blocks_py``, NumPy parser
+    and fills), as where the library is unavailable."""
+    from pykrylov_tpu_torch import native
+    saved = native._lib
+    native._lib = "bypassed by chip_smoke"
+    try:
+        if native.available():
+            raise AssertionError("the native library is still in use")
+        yield
+    finally:
+        native._lib = saved
+
+
+def _same_arrays(label, a, b):
+    """Two packings' fields equal: tensors and arrays element for element
+    with the same dtype, everything else by ``==``."""
+    if isinstance(a, (torch.Tensor, np.ndarray)):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else b
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a, b):
+            raise AssertionError("%s: the packings differ" % label)
+        return 1
+    if isinstance(a, (tuple, list)) and not hasattr(a, "_fields"):
+        if len(a) != len(b):
+            raise AssertionError("%s: %d against %d parts"
+                                 % (label, len(a), len(b)))
+        return sum(_same_arrays("%s[%d]" % (label, i), x, y)
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if hasattr(a, "_fields"):
+        return sum(_same_arrays("%s.%s" % (label, f), getattr(a, f),
+                                getattr(b, f)) for f in a._fields)
+    if a != b:
+        raise AssertionError("%s: %r against %r" % (label, a, b))
+    return 0
+
+
+def _planners(label, coo, window):
+    """The window planner of ``bell_from_coo`` on the whole of ``coo``
+    (the first level's, spill cost ``_SPILL_BYTES``), native and NumPy:
+    the arrays equal, and each one's seconds.  Window 1: the fused sort
+    and plan against the lexsort, ``_plan_bands_sorted`` and the ordinal
+    pass; window 2: ``bell_plan_native`` against ``_plan_blocks_py`` on
+    the same (row, col)-sorted arrays."""
+    from pykrylov_tpu_torch import native
+    from pykrylov_tpu_torch.sparse import bell as B
+    rows = np.asarray(coo.row).astype(np.int64)
+    cols = np.asarray(coo.col).astype(np.int64)
+    L = B.LANES
+    nblocks = max(1, -(-coo.shape[0] // L))
+    sc = B._SPILL_BYTES
+    if window == 1:
+        t0 = time.perf_counter()
+        nat = native.bell_sort_plan_w1_native(rows, cols, nblocks, sc)
+        t1 = time.perf_counter()
+        order = np.lexsort((cols, rows, cols // L, rows // L))
+        rs, cs = rows[order], cols[order]
+        _, woff, cap, dpb, gfirst = B._plan_bands_sorted(
+            rs, cs // L, rs // L, nblocks, sc)
+        k = np.arange(len(rs)) - np.repeat(gfirst,
+                                           np.diff(np.r_[gfirst, len(rs)]))
+        ref = (order, rs, cs, woff, cap, k, dpb)
+    else:
+        order = np.lexsort((cols, rows))
+        rs, cs = rows[order], cols[order]
+        bounds = np.searchsorted(rs // L, np.arange(nblocks + 1))
+        t0 = time.perf_counter()
+        nat = native.bell_plan_native(rs, cs, nblocks, sc)
+        t1 = time.perf_counter()
+        ref = B._plan_blocks_py(rs, cs, cs // L, bounds, nblocks, sc)
+    t2 = time.perf_counter()
+    held = _same_arrays("%s planner" % label, tuple(nat), tuple(ref))
+    return held, t1 - t0, t2 - t1
+
+
+def _repack(tag, label, A, coo):
+    """Each product of the native-built operator ``A`` against the NumPy
+    path in the window mode ``A`` holds (the window rule plans window 2
+    only with the library or below 100,000 nonzeros, so the paths are
+    compared per mode): the window planner on the whole matrix, native
+    and NumPy (:func:`_planners`), and the levels packed again from
+    ``coo`` with the library bypassed.  Every level's arrays equal ``A``'s,
+    forward and backward; the NumPy packing's card forms equal
+    ``A.cards``; one SELL SpMV and one (n, KB) SpMM on each card form of
+    each packing, bit for bit.  Returns the numbers for this matrix."""
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.sparse import sell as S
+    m, n = A.shape
+    host = F.coo_from_arrays(*coo, device=None)
+    dirs = {"fwd": (host, m, n)}
+    if "bwd" in A.cards:
+        dirs["bwd"] = (F.transpose_coo(host), n, m)
+    if set(A.cards) != set(dirs) or A._args["split"] is not None \
+            or A._args["perm"] is not None:
+        raise AssertionError("%s %s: cards %s, split or permutation"
+                             % (tag, label, sorted(A.cards)))
+    out = {}
+    g = torch.Generator(device=DEVICE).manual_seed(20)
+    for key, (c, rows_out, n_in) in dirs.items():
+        window = A._args[key][0].window
+        held, plan_native_s, plan_numpy_s = _planners(
+            "%s %s" % (label, key), c, window)
+        with native_bypassed():
+            t0 = time.perf_counter()
+            levels = B._pack_levels(c, B.NB_MAX, B._SPILL_BYTES, 2,
+                                    device=None, window=window)
+            pack_s = time.perf_counter() - t0
+        levels = B._levels_on(levels, DEVICE)
+        held += _same_arrays("%s %s levels" % (label, key), levels,
+                             A._args[key])
+        card_np = S.sell_from_levels(levels, rows_out)
+        held += _same_arrays("%s %s card form" % (label, key), card_np,
+                             A.cards[key])
+        x = torch.randn(n_in, device=DEVICE, generator=g)
+        X = torch.randn(n_in, KB, device=DEVICE, generator=g)
+        _reset_counts()
+        for what, y, y_np in (
+                ("SpMV", S.sell_matvec(A.cards[key], x),
+                 S.sell_matvec(card_np, x)),
+                ("(n, %d) SpMM" % KB, S.sell_matmat(A.cards[key], X),
+                 S.sell_matmat(card_np, X))):
+            torch.cuda.synchronize()
+            if not torch.equal(y, y_np) or not torch.isfinite(y).all():
+                raise AssertionError("%s %s %s %s: the packings' products "
+                                     "differ" % (tag, label, key, what))
+        counts = _counts()
+        if counts["sell_spmv"] != 2 or counts["sell_spmm"] != 2:
+            raise AssertionError("%s %s %s: launches %s"
+                                 % (tag, label, key, counts))
+        log("[%s] %s %s: window %d, %d level(s); the window planner on the "
+            "whole matrix %.3f s native, %.3f s NumPy; the NumPy packing "
+            "%.2f s; %d arrays equal (both planners, the operator's levels "
+            "and the NumPy packing's, the card forms); one SELL SpMV and one "
+            "(n, %d) SpMM on each packing's card form bit for bit (%s)"
+            % (tag, label, key, window, len(levels), plan_native_s,
+               plan_numpy_s, pack_s, held, KB, counts))
+        out[key] = {"window": window, "plan_native_s": plan_native_s,
+                    "plan_numpy_s": plan_numpy_s, "numpy_pack_s": pack_s,
+                    "arrays_equal": held, "launches": counts}
+        del levels, card_np
+    return out
+
+
+def phase_native(pt, A_bell, coo_bell, bell, se, se_build_s):
+    """20a: the native host pipeline at full size, against the port's
+    NumPy path in the same process (:func:`native_bypassed`).
+
+    1. Phase 5's tiled 1138bus and phase 10's state-estimation matrix
+       (with its transpose), which those phases built through the native
+       planner, against the NumPy path in the window mode each product
+       holds (:func:`_repack`): both planners' arrays, every level's
+       arrays forward and backward, and the SELL card forms equal; one
+       SELL SpMV and one (n, KB) SpMM on each card form of each packing,
+       bit for bit.
+    2. Tiled 1138bus (lower triangle, symmetric) written by the port's
+       MatrixMarket writer, read back by ``mm_parse_native`` and by the
+       NumPy parser: the arrays equal, and equal to what was written.
+    3. The f64 3-D Poisson matrix at n = POISSON_FILL_N filled into DIA
+       storage by ``dia_fill_native`` and by the NumPy fill: the arrays
+       equal; one DIA SpMV on each, bit for bit, and against the plain
+       product."""
+    import tempfile
+    from pykrylov_tpu_torch import native
+    from pykrylov_tpu_torch.gallery import poisson3d_coo, tiled_general_coo
+    from pykrylov_tpu_torch.io import matrix_market as MM
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
+    tag = "20a native"
+    if not native.available():
+        raise AssertionError("%s: the native library is not in use" % tag)
+    out = {}
+    for label, A, coo, build_s in (
+            ("tiled 1138bus", A_bell, coo_bell, bell["build_s"]),
+            ("state estimation", se[0], se[1], se_build_s)):
+        out[label] = _repack(tag, label, A, coo)
+        out[label]["operator_build_s"] = build_s
+        out[label]["launches"] = {
+            k: sum(d["launches"][k] for d in out[label].values()
+                   if isinstance(d, dict)) for k, *_ in COUNTERS}
+
+    # the MatrixMarket round trip
+    vals, rows, cols, shape = tiled_general_coo("1138bus", tiles=TILES,
+                                                coupling=0)
+    low = rows >= cols
+    vals, rows, cols = vals[low].astype(np.float64), rows[low], cols[low]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    path = os.path.join(tmp, "tiled_1138bus.mtx")
+    try:
+        t0 = time.perf_counter()
+        MM.write_matrix_market(path, vals, rows, cols, shape,
+                               symmetry="symmetric")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = native.mm_parse_native(path)
+        parse_native_s = time.perf_counter() - t0
+        with native_bypassed():
+            t0 = time.perf_counter()
+            v_np, r_np, c_np, shape_np, info = MM.read_matrix_market(
+                path, expand_symmetric=False)
+            parse_numpy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = MM.read_matrix_market(path)
+        read_native_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    if raw is None or raw[3:] != (shape_np, info.field, info.symmetry):
+        raise AssertionError("%s: mm_parse_native gave %r" % (
+            tag, None if raw is None else raw[3:]))
+    for a, b, name in ((raw[0], v_np, "values"), (raw[1], r_np, "rows"),
+                       (raw[2], c_np, "cols")):
+        if not np.array_equal(a, b):
+            raise AssertionError("%s: native and NumPy %s differ"
+                                 % (tag, name))
+    if not (np.array_equal(v_np, vals) and np.array_equal(r_np, rows)
+            and np.array_equal(c_np, cols)):
+        raise AssertionError("%s: the file read back is not what was "
+                             "written" % tag)
+    if len(whole[0]) != 2 * len(vals) - int((rows == cols).sum()):
+        raise AssertionError("%s: the symmetric expansion gave %d entries"
+                             % (tag, len(whole[0])))
+    log("[%s] MatrixMarket: tiled 1138bus, %d stored entries, %d bytes, "
+        "written in %.2f s; parsed in %.3f s native, %.3f s NumPy: arrays "
+        "equal and equal to what was written; read_matrix_market (native, "
+        "expanded to %d) %.3f s"
+        % (tag, len(vals), size, write_s, parse_native_s, parse_numpy_s,
+           len(whole[0]), read_native_s))
+    out["matrix_market"] = {"entries": len(vals), "bytes": size,
+                            "write_s": write_s,
+                            "parse_native_s": parse_native_s,
+                            "parse_numpy_s": parse_numpy_s,
+                            "read_native_s": read_native_s}
+    del raw, v_np, r_np, c_np, whole
+
+    # the DIA fill
+    t0 = time.perf_counter()
+    coo = F.coo_from_arrays(*poisson3d_coo(POISSON_FILL_N), device=None)
+    coo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dia = F.dia_from_coo(coo, device=None)
+    fill_native_s = time.perf_counter() - t0
+    with native_bypassed():
+        t0 = time.perf_counter()
+        dia_np = F.dia_from_coo(coo, device=None)
+        fill_numpy_s = time.perf_counter() - t0
+    held = _same_arrays("DIA fill", dia, dia_np)
+    data = torch.from_numpy(dia.data).to(DEVICE)
+    data_np = torch.from_numpy(dia_np.data).to(DEVICE)
+    x = torch.randn(data.shape[1], dtype=torch.float64, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(21))
+    _reset_counts()
+    y = K.dia_matvec(data, dia.offsets, x)
+    y_np = K.dia_matvec(data_np, dia_np.offsets, x)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts["dia_spmv"] != 2 or not torch.equal(y, y_np):
+        raise AssertionError("%s: DIA SpMV on the fills: %s, equal %s"
+                             % (tag, counts, torch.equal(y, y_np)))
+    _exact("DIA SpMV on the native fill", y,
+           K.dia_matvec_plain(data, dia.offsets, x), tag=tag)
+    log("[%s] DIA fill: f64 3-D Poisson n=%d, %d rows, %d diagonals, %d "
+        "entries (COO in %.2f s): filled in %.3f s native, %.3f s NumPy, "
+        "%d arrays equal; one DIA SpMV on each bit for bit"
+        % (tag, POISSON_FILL_N, data.shape[1], data.shape[0],
+           len(coo.data), coo_s, fill_native_s, fill_numpy_s, held))
+    out["dia_fill"] = {"rows": int(data.shape[1]),
+                       "fill_native_s": fill_native_s,
+                       "fill_numpy_s": fill_numpy_s, "launches": counts}
+    del coo, dia, dia_np, data, data_np
+    return out
+
+
+def phase_examples(pt):
+    """20b: the port's examples on the card, through their ``main``:
+    ``bmark`` (f64, jpwh_991) without and with ``--precon``, each matvec
+    count within BMARK_BOUND of the reference's published table;
+    ``demo_chebyshev`` at CHEB_N (the kernel DIA format) and
+    ``demo_general`` at GENERAL_N rows (BELL), each with its kernel's
+    launches counted from 0 and its printed results converged."""
+    from pykrylov_tpu_torch.examples import bmark, demo_chebyshev
+    from pykrylov_tpu_torch.examples import demo_general
+
+    tag = "20b examples"
+    out = {}
+    for precon in (False, True):
+        label = "bmark%s" % (" --precon" if precon else "")
+        _reset_counts()
+        t0 = time.perf_counter()
+        runs = bmark.main(["--device", DEVICE]
+                          + (["--precon"] if precon else []))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        got = {}
+        for ks, name in zip(runs, ("cgs", "tfqmr", "bicgstab")):
+            ref = BMARK[name][precon]
+            got[name] = ks.nMatvec
+            if not ks.converged or abs(ks.nMatvec - ref) > BMARK_BOUND:
+                raise AssertionError("%s %s %s: %d matvecs, converged %s, "
+                                     "against %d" % (tag, label, name,
+                                                     ks.nMatvec,
+                                                     ks.converged, ref))
+        log("[%s] %s: matvecs %s (published %s, bound %d), fmt %s, %.3f s"
+            % (tag, label, got, {k: v[precon] for k, v in BMARK.items()},
+               BMARK_BOUND, runs[0].op.fmt, secs))
+        out[label] = {"n_matvec": got, "fmt": runs[0].op.fmt,
+                      "solve_s": secs, "launches": counts}
+
+    for label, run, fmt, kernel in (
+            ("demo_chebyshev",
+             lambda: demo_chebyshev.main([str(CHEB_N), "--device", DEVICE]),
+             "cuda-dia", "dia_spmv"),
+            ("demo_general",
+             lambda: demo_general.main([str(GENERAL_N), "--device",
+                                        DEVICE]),
+             "bell", "sell_spmv")):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        A = res["A"] if isinstance(res, dict) else res[0]
+        results = ([v for k, v in res.items() if k != "A"]
+                   if isinstance(res, dict) else [r for r in res[1:]])
+        if A.fmt != fmt or counts[kernel] == 0:
+            raise AssertionError("%s %s: fmt %r (want %r), %s"
+                                 % (tag, label, A.fmt, fmt, counts))
+        conv = [bool(r.converged) for r in results]
+        if not all(conv):
+            raise AssertionError("%s %s: converged %s" % (tag, label, conv))
+        log("[%s] %s: %d rows, fmt %s, returned in %.2f s, %d %s launches "
+            "(%s)" % (tag, label, A.shape[0], A.fmt, secs, counts[kernel],
+                      kernel, counts))
+        out[label] = {"rows": A.shape[0], "fmt": A.fmt, "seconds": secs,
+                      "launches": counts}
+    return out
+
+
+# --------------------------------------------------------------------------
 # 6. timing
 # --------------------------------------------------------------------------
 
@@ -4703,7 +5114,11 @@ def main():
                      ("19a", lambda: phase_halo(pt, A_dia, dia)),
                      ("19b", lambda: phase_gather_bell(
                          pt, A_bell, coo_bell, bell, keep["se"])),
-                     ("19c", lambda: phase_stencils(pt, A_dia, dia))):
+                     ("19c", lambda: phase_stencils(pt, A_dia, dia)),
+                     ("20a", lambda: phase_native(
+                         pt, A_bell, coo_bell, bell, keep["se"],
+                         new_s["10"][0]["build_s"])),
+                     ("20b", lambda: phase_examples(pt))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
     keep.clear()
@@ -4804,7 +5219,8 @@ def main():
                      if isinstance(v, dict) and "launches" in v}
                for key in ("9", "9b", "10", "10b", "11", "12", "13", "14",
                            "15", "16a", "16b", "16c", "17a", "17b", "17c",
-                           "18a", "18b", "19a", "19b", "19c")}}
+                           "18a", "18b", "19a", "19b", "19c", "20a",
+                           "20b")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -4933,6 +5349,27 @@ def main():
                      for key, (out, _) in p18.items()
                      for label, v in out.items()
                      if isinstance(v, dict) and "profile" in v)))
+    nat, ex = new_s["20a"][0], new_s["20b"][0]
+    log("[7 result] phases 20a (%.1f s), 20b (%.1f s): planners native / "
+        "NumPy: %s; MatrixMarket parse %.3f / %.3f s; DIA fill %.3f / %.3f "
+        "s; bmark %s, with --precon %s; demo_chebyshev %s in %.2f s, "
+        "demo_general %s in %.2f s; other builds: 5 %.2f s, 10 %.2f s, 19b "
+        "%.2f and %.2f s"
+        % (new_s["20a"][1], new_s["20b"][1],
+           ", ".join("%s %s (window %d) %.3f / %.3f s, NumPy pack %.2f s"
+                     % (k, key, d["window"], d["plan_native_s"],
+                        d["plan_numpy_s"], d["numpy_pack_s"])
+                     for k, v in nat.items() if "operator_build_s" in v
+                     for key, d in v.items()
+                     if isinstance(d, dict) and "window" in d),
+           nat["matrix_market"]["parse_native_s"],
+           nat["matrix_market"]["parse_numpy_s"],
+           nat["dia_fill"]["fill_native_s"], nat["dia_fill"]["fill_numpy_s"],
+           ex["bmark"]["n_matvec"], ex["bmark --precon"]["n_matvec"],
+           ex["demo_chebyshev"]["fmt"], ex["demo_chebyshev"]["seconds"],
+           ex["demo_general"]["fmt"], ex["demo_general"]["seconds"],
+           bell["build_s"], se["build_s"], new_s["19b"][0]["build_s"],
+           new_s["19b"][0]["se_build_s"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,11 @@ may share one card): halo-exchange DIA operators and gather-scheduled
 general sparsity through the kernels, one launch a shard, stencils and
 tall operators; ``utils`` checkpoints long solves and traces them with
 ``torch.profiler``; ``io`` also writes MatrixMarket files and reads them
-partitioned over shards.
+partitioned over shards.  ``native`` is the host pipeline in C++
+(MatrixMarket parsing, the ELL and DIA fills, the BELL packer's planners),
+compiled by ``g++`` at first use; ``examples`` holds the reference's
+scripts and the demos, each run as ``python -m
+pykrylov_tpu_torch.examples.<name>``.
 """
 
 from .version import __version__

@@ -1,13 +1,16 @@
 """MatrixMarket reading and writing.
 
-Counterpart of ``pykrylov_tpu/io/matrix_market.py`` (its NumPy path; the
-native C++ parser is not ported).  The reader supports the coordinate and
-array formats with real / integer / complex / pattern fields and general /
-symmetric / skew-symmetric / hermitian qualifiers, and returns COO
-triples with 0-based indices; symmetric-family storage is expanded to the
-full pattern (strictly-off-diagonal entries mirrored).  The partitioned
+Counterpart of ``pykrylov_tpu/io/matrix_market.py``.  The reader parses
+a plain coordinate file with the native C++ parser (:mod:`..native`)
+where its library is available, else with NumPy; both give the same
+arrays.  It supports the coordinate and array formats with real /
+integer / complex / pattern fields and general / symmetric /
+skew-symmetric / hermitian qualifiers, and returns COO triples with
+0-based indices; symmetric-family storage is expanded to the full
+pattern (strictly-off-diagonal entries mirrored).  The partitioned
 reader streams a coordinate file into the row blocks of a mesh of shards
-without building the whole COO; the writer emits coordinate files.
+without building the whole COO, with NumPy; the writer emits coordinate
+files.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import gzip
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..native import mm_parse_native
 
 __all__ = ["MMInfo", "read_matrix_market", "mm_to_coo",
            "read_matrix_market_partitioned", "write_matrix_market"]
@@ -43,6 +48,15 @@ def read_matrix_market(path, expand_symmetric=True, dtype=None):
     When ``expand_symmetric`` (default), symmetric / skew-symmetric /
     hermitian storage is expanded to the full pattern.
     """
+    try:
+        out = mm_parse_native(path)
+    except OSError:
+        out = None  # a malformed file: the NumPy parser diagnoses it
+    if out is not None:
+        vals, rows, cols, shape, field, symmetry = out
+        info = MMInfo(shape, len(vals), "coordinate", field, symmetry)
+        return _finish(vals, rows, cols, info, expand_symmetric, dtype)
+
     with _open(path) as f:
         header = f.readline()
         if not header.startswith("%%MatrixMarket"):
@@ -94,18 +108,24 @@ def read_matrix_market(path, expand_symmetric=True, dtype=None):
             raise ValueError("unknown MatrixMarket format %r" % fmt)
 
     info = MMInfo((m, n), nnz, fmt, field, symmetry)
+    return _finish(vals, rows, cols, info, expand_symmetric, dtype)
+
+
+def _finish(vals, rows, cols, info, expand_symmetric, dtype):
+    """Both parsers' post-processing: int64 indices, the value dtype and
+    the symmetric expansion."""
     vals = np.asarray(vals)
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     if dtype is not None:
         vals = vals.astype(dtype)
-    if expand_symmetric and symmetry in ("symmetric", "skew-symmetric",
-                                         "hermitian"):
-        mv, mr, mc = _mirror(vals, rows, cols, symmetry)
+    if expand_symmetric and info.symmetry in ("symmetric", "skew-symmetric",
+                                              "hermitian"):
+        mv, mr, mc = _mirror(vals, rows, cols, info.symmetry)
         rows = np.concatenate([rows, mr])
         cols = np.concatenate([cols, mc])
         vals = np.concatenate([vals, mv])
-    return vals, rows, cols, (m, n), info
+    return vals, rows, cols, info.shape, info
 
 
 def mm_to_coo(path, dtype=np.float64):

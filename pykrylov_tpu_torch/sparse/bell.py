@@ -41,8 +41,10 @@ does not have.  The TPU kernels' one-hot staging modes (``stage=``,
 (``_to_band_major``) and the K chunking of wide blocks (``_mm_kmax``,
 ``lax.map``) have no counterpart.
 
-The planners run in NumPy; ``device=None`` keeps a container's arrays in
-NumPy, any other device gives tensors there.
+The planners run in the native C++ pipeline (:mod:`..native`) where its
+library is available, else in NumPy, with the same plan array for array;
+``device=None`` keeps a container's arrays in NumPy, any other device
+gives tensors there.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ import numpy as np
 import torch
 
 from . import formats as F
+from ..native import available as native_available
+from ..native import bell_plan_native, bell_sort_plan_w1_native
 from .sell import sell_bytes, sell_from_levels, sell_matmat, sell_matvec
 from ..ops.base import LinearOperator
 from ..utils.types import as_dtype, to_tensor
@@ -489,12 +493,23 @@ def bell_from_coo(coo: F.COO, nblk=None, nb_max: int = NB_MAX,
         # Single-sort pipeline: order by (block, band, row, col) so
         # (block, band) windows AND (row, window) ordinal groups are
         # both contiguous runs — no np.unique, no second lexsort, no
-        # ordinal scatter-back (each costs seconds at 1M rows).
-        order = np.lexsort((cols, rows, band, rows // LANES))
-        rs, cs, bs, vs = (rows[order], cols[order], band[order],
-                          vals[order])
-        e_base, e_woff, e_cap, depth_per_block, gfirst = \
-            _plan_bands_sorted(rs, bs, rs // LANES, nblocks, spill_cost)
+        # ordinal scatter-back.  The native planner fuses the sort, the
+        # caps and the ordinals in one C++ pass.
+        plan = bell_sort_plan_w1_native(rows, cols, nblocks, spill_cost)
+        if plan is not None:
+            order, rs, cs, e_woff, e_cap, k, depth_per_block = plan
+            e_base = bs = cs // LANES
+            vs = vals[order]
+        else:
+            order = np.lexsort((cols, rows, band, rows // LANES))
+            rs, cs, bs, vs = (rows[order], cols[order], band[order],
+                              vals[order])
+            e_base, e_woff, e_cap, depth_per_block, gfirst = \
+                _plan_bands_sorted(rs, bs, rs // LANES, nblocks, spill_cost)
+            # (row, window) groups are contiguous; the planner returned
+            # their start offsets
+            gsizes = np.diff(np.r_[gfirst, len(rs)])
+            k = np.arange(len(rs)) - np.repeat(gfirst, gsizes)
         blks = bs_blk = rs // LANES
         bounds = np.searchsorted(bs_blk, np.arange(nblocks + 1))
         # 4-align block depths so scatter groups never straddle blocks
@@ -506,8 +521,10 @@ def bell_from_coo(coo: F.COO, nblk=None, nb_max: int = NB_MAX,
         rs, cs, bs, vs = rows[order], cols[order], band[order], vals[order]
         blks = bs_blk = rs // LANES
         bounds = np.searchsorted(bs_blk, np.arange(nblocks + 1))
-        e_base, e_woff, e_cap, depth_per_block = _plan_blocks_py(
-            rs, cs, bs, bounds, nblocks, spill_cost)
+        plan = bell_plan_native(rs, cs, nblocks, spill_cost)
+        if plan is None:
+            plan = _plan_blocks_py(rs, cs, bs, bounds, nblocks, spill_cost)
+        e_base, e_woff, e_cap, depth_per_block = plan
         depth_per_block = np.maximum(depth_per_block, 1)
         # 4-align so the grouped scatter applies to band-pair windows
         # too (window caps stay exact; only block TOTALS pad)
@@ -515,13 +532,8 @@ def bell_from_coo(coo: F.COO, nblk=None, nb_max: int = NB_MAX,
 
     # --- per-entry depth ordinal within (row, window) -----------------
     # Entries whose ordinal reaches the window's capped depth spill to
-    # the COO remainder.
-    if window == 1:
-        # already sorted so (row, window) groups are contiguous; the
-        # planner returned their start offsets
-        gsizes = np.diff(np.r_[gfirst, len(rs)])
-        k = np.arange(len(rs)) - np.repeat(gfirst, gsizes)
-    else:
+    # the COO remainder.  The window-1 planners gave them above.
+    if window != 1:
         # entries are (row, col)-sorted; within a row, same-window
         # entries are consecutive in this order only per band pair —
         # order by (row, window) explicitly
@@ -1131,18 +1143,22 @@ def _levels_on(lv, device):
 
 def _pack_window_auto(coo, nb_max, spill_cost, levels, device="cuda"):
     """Pack with both window modes (host-side) and keep the one the cost
-    model predicts faster.  Both modes are always planned, as the JAX
-    package does where its native planner is built."""
+    model predicts faster.  The window-2 pair-DP packing is planned only
+    when window 1 fails, when the native planner is available, or below
+    100,000 nonzeros: the JAX package's rule, kept so that both packages
+    pick the same packing wherever they run."""
     try:
         lv1 = _pack_levels(coo, nb_max, spill_cost, levels, device=None,
                            window=1)
     except SpanError:
         lv1 = None
-    try:
-        lv2 = _pack_levels(coo, nb_max, spill_cost, levels, device=None,
-                           window=2)
-    except SpanError:
-        lv2 = None
+    lv2 = None
+    if lv1 is None or native_available() or coo.data.shape[0] < 100_000:
+        try:
+            lv2 = _pack_levels(coo, nb_max, spill_cost, levels,
+                               device=None, window=2)
+        except SpanError:
+            lv2 = None
     if lv1 is None and lv2 is None:
         raise SpanError("neither window mode fits the band budget; "
                         "RCM-reorder or use the ELL path")

@@ -10,7 +10,9 @@ formats and the same layouts:
   * :class:`DIA`   — diagonal storage for banded/stencil matrices: a sum of
     shifted products, no indices at all.
 
-The builders run in NumPy on the host.  ``device=None`` keeps the fields as
+The builders run on the host: the ELL and DIA fills of float64 values in
+the native C++ pipeline (:mod:`..native`) where its library is available,
+else in NumPy, with the same arrays.  ``device=None`` keeps the fields as
 NumPy arrays (for intermediate containers); any other value gives tensors
 on that device.  Index tensors are int64.
 """
@@ -22,6 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..native import dia_fill_native, ell_fill_native
 from ..utils.types import to_tensor
 
 __all__ = ["COO", "CSR", "ELL", "DIA",
@@ -125,14 +128,18 @@ def ell_from_coo(coo: COO, pad_to: int = 1, assume_sorted=False,
     if not assume_sorted:
         order = np.lexsort((cols, rows))
         rows, cols, data = rows[order], cols[order], data[order]
-    # slot k of row r = position of the entry within its row
-    starts = np.zeros(m + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    slots = np.arange(len(rows), dtype=np.int64) - starts[rows]
-    ed = np.zeros((m, K), dtype=data.dtype)
-    ec = np.zeros((m, K), dtype=np.int32)
-    ed[rows, slots] = data
-    ec[rows, slots] = cols
+    filled = ell_fill_native(rows, cols, data, m, K)
+    if filled is not None:
+        ed, ec = filled
+    else:
+        # slot k of row r = position of the entry within its row
+        starts = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        slots = np.arange(len(rows), dtype=np.int64) - starts[rows]
+        ed = np.zeros((m, K), dtype=data.dtype)
+        ec = np.zeros((m, K), dtype=np.int32)
+        ed[rows, slots] = data
+        ec[rows, slots] = cols
     return ELL(_values(ed, device), _index(ec, device), (m, n))
 
 
@@ -157,11 +164,13 @@ def dia_from_coo(coo: COO, max_diags: int = 4096, device="cuda") -> DIA:
     if len(offs) > max_diags:
         raise ValueError("matrix has %d distinct diagonals (> %d): use ELL"
                          % (len(offs), max_diags))
-    # one bincount over the flat slot index k*m + row: np.add.at is orders
-    # of magnitude slower at 10^8 entries
-    k = np.searchsorted(offs, cols - rows)
-    dd = _bincount_into(k * m + rows, data, len(offs) * m)
-    dd = dd.astype(data.dtype).reshape(len(offs), m)
+    dd = dia_fill_native(rows, cols, data, m, offs)
+    if dd is None:
+        # one bincount over the flat slot index k*m + row (np.add.at is
+        # far slower); like the native fill, it sums in f64 in entry order
+        k = np.searchsorted(offs, cols - rows)
+        dd = _bincount_into(k * m + rows, data, len(offs) * m)
+        dd = dd.astype(data.dtype).reshape(len(offs), m)
     return DIA(_values(dd, device), tuple(int(o) for o in offs), (m, n))
 
 

@@ -136,8 +136,9 @@ def operator_from_coo(vals, rows, cols, shape, symmetric=False,
     general matrix of at least ``BELL_MIN_ROWS`` rows on a CUDA device,
     tries the BELL kernel (:func:`_try_bell`).  ``bell`` and ``bell-rcm``
     (RCM-reordered first) give a :class:`~.bell.BellOperator` whatever
-    the packing.  The containers are built on the host in NumPy and moved
-    to ``device`` once.
+    the packing.  The containers are built on the host (the native host
+    pipeline where its library is available, else NumPy) and moved to
+    ``device`` once.
     """
     coo = F.coo_from_arrays(vals, rows, cols, shape, dtype=dtype,
                             device=None)

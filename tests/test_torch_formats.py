@@ -173,6 +173,29 @@ def test_io_and_gallery_match(tmp_path):
         jgal.poisson_eigenvalue_bounds(7, 3)
 
 
+@pytest.mark.parametrize("symmetry", ["general", "symmetric"])
+def test_port_writer_round_trips_through_both_readers(tmp_path, rng,
+                                                      symmetry):
+    # the port's writer, read back by the port's reader (native where its
+    # library builds) and by the JAX package's
+    vals, rows, cols, shape = random_coo(rng, 40, 40, density=0.1)
+    if symmetry == "symmetric":
+        low = rows >= cols
+        vals, rows, cols = vals[low], rows[low], cols[low]
+    path = os.path.join(tmp_path, "w.mtx")
+    tio.write_matrix_market(path, vals, rows, cols, shape,
+                            symmetry=symmetry)
+    port = tio.read_matrix_market(path)
+    ref = jio.read_matrix_market(path)
+    for a, b in zip(port[:3], ref[:3]):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert port[3] == ref[3] == shape
+    n_stored = len(vals)
+    assert port[4].nnz_stored == ref[4].nnz_stored == n_stored
+    np.testing.assert_array_equal(port[0][:n_stored], vals)
+
+
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_matrix_free_poisson_matches(dim, rng):
     n = {1: 30, 2: 6, 3: 4}[dim]

@@ -31,6 +31,8 @@ def test_import_loads_no_jax():
         "import pykrylov_tpu_torch.parallel.bell_sharded\n"
         "import pykrylov_tpu_torch.utils.checkpoint\n"
         "import pykrylov_tpu_torch.utils.observe\n"
+        "import pykrylov_tpu_torch.native\n"
+        "import pykrylov_tpu_torch.examples.bmark\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pykrylov_tpu'))\n"
         "assert not bad, bad\n")
@@ -52,18 +54,19 @@ def test_source_does_not_import_jax(path):
 
 @pytest.mark.parametrize("module", ["ops", "solvers.diff",
                                     "solvers.pipelined", "parallel",
-                                    "utils", "io", "solvers.show", ""])
+                                    "utils", "io", "solvers.show", "native",
+                                    ""])
 def test_public_names_match_the_jax_package(module):
     # every name of the JAX package's ops, diff, pipelined, parallel, utils,
-    # io and show modules and of its package root has its counterpart under
-    # the same name
+    # io, show and native modules and of its package root has its
+    # counterpart under the same name
     import importlib
     jax_mod = importlib.import_module(("pykrylov_tpu." + module).rstrip("."))
     port = importlib.import_module(("pykrylov_tpu_torch." + module)
                                    .rstrip("."))
     names = list(jax_mod.__all__) if module else [
         n for n in dir(jax_mod) if not n.startswith("_")
-        and n not in ("annotations", "native", "version")]
+        and n not in ("annotations", "version")]
     missing = [n for n in names if not hasattr(port, n)]
     assert not missing, missing
 
