@@ -22,12 +22,12 @@ and, with one right-hand side, the indefinite and nonsymmetric paths:
 the CG→MINRES fallback and SYMMLQ on a Helmholtz-shifted Poisson matrix
 at n = 240 (DIA), MINRES's Jacobi golden on tiled 1138bus (SELL),
 BiCGSTAB, CGS and TFQMR on a 4.2M-row convection-diffusion matrix (DIA),
-and the reference's bmark on jpwh_991 tiled 1024 times (SELL, f64); and
+and the reference's bmark on jpwh_991 tiled 256 times (SELL, f64); and
 the least-squares path, whose solvers apply A and A^T: LSMR (``solve``'s
 rectangular branch) and LSQR on a 2.67M x 1.17M power-system
 state-estimation matrix (SELL in both directions), and LSQR, LSMR, CRAIG
 and CRAIG-MR on the convection-diffusion matrix (DIA in both
-directions); and, with a block of K = 8, the nine batched solvers on the
+directions); and, with blocks of K = 2, the nine batched solvers on the
 same operators, through the SpMM kernels on A and A^T; and every
 verified route (``solve(verified=True)``, ff-CG, ff-MINRES and the
 verified block twins) on the same operators, with f32 storage; and
@@ -99,7 +99,7 @@ Phases, in order:
      ``solve`` (BiCGSTAB), CGS, TFQMR and BiCGSTAB with an f64 Jacobi M,
      each istop 0, DIA launches = matvecs, true relative residual at most
      1e-4; one profiled BiCGSTAB;
-  9b. the reference's bmark: jpwh_991 tiled 1024 times in f64 through
+  9b. the reference's bmark: jpwh_991 tiled 256 times in f64 through
      ``fmt="auto"`` (logged whether ``_try_bell`` accepts it; else
      ``fmt="bell"``), x0 = tile(1 + arange(991)), rtol 1e-8, matvec_max =
      2 * 991: CGS, TFQMR and BiCGSTAB within 4 of 82, 84 and 84 matvecs
@@ -124,13 +124,13 @@ Phases, in order:
      the damped optimality certificate at most 1e-5 and CRAIG's and
      CRAIG-MR's SQD certificates at most 1e-8 in f64, one profiled run
      each; both directions' SpMV timed;
-  11. unsymmetric blocks: phase 9's operator with an (n, 8) f64 block
-     whose column 0 is phase 9's b and the other seven standard normal
+  11. unsymmetric blocks: phase 9's operator with an (n, 2) f64 block
+     whose column 0 is phase 9's b and the other standard normal
      from seed 0: ``solve(A, B)`` (``bicgstab_batched``), CGS and TFQMR,
      every block product through the DIA SpMM (launches = the solver's
      block products, no SpMV launch), every column's true relative
      residual in f64 at most 1e-4, column 0's count within 10% of phase
-     9's (25% for CGS and TFQMR), a profile of the first 50 block
+     9's (25% for CGS and TFQMR), a profile of the first 25 block
      iterations of each, and BiCGSTAB capped at 100 block iterations
      through the plain products: x bit for bit;
   12. indefinite blocks: phase 8's operator and b, the same way:
@@ -160,13 +160,13 @@ Phases, in order:
      1e-2 plus the verifier's own rounding, a profiled window of at most
      40 iterations, the earlier phase's unverified time beside; one
      capped run of each through the plain products, bit for bit;
-  15. verified blocks, K = 8, column 0 the single phase's b, seven
+  15. verified blocks, K = 2, column 0 the single phase's b, the other
      standard normal (seed 0) (:func:`phase_verified_blocks`): ff
-     ``cg_batched`` on Poisson (f32; (n, 8) products and (n, 16)
+     ``cg_batched`` on Poisson (f32; (n, 2) products and (n, 4)
      replacements through the DIA SpMM), ``refined_solve_batched`` with
      BiCGSTAB legs on convection-diffusion (f32 where 14b's f32 passed,
      rerun in f64 if it stops short; legs capped at phase 11's count),
-     ff ``minres_batched`` on tiled 1138bus with Jacobi (f64; one (n, 16)
+     ff ``minres_batched`` on tiled 1138bus with Jacobi (f64; one (n, 4)
      SELL SpMM an iteration); the checks of 14 per column; then both
      SpMMs at K = 16 with an f64 block timed against their bound and
      torch's CSR SpMM in f64;
@@ -246,6 +246,29 @@ Phases, in order:
      matvecs; ``demo_chebyshev`` at n = 64 (262,144 rows, ``cuda-dia``)
      and ``demo_general`` at 63,424 rows (``bell``), each converged with
      its kernel's launches counted;
+  21a. a mesh of ranks (:func:`phase_ranks`): RANKS spawned processes
+     sharing the card in a gloo world, ``transport="host"`` (CUDA tensors
+     staged through pinned host buffers), every rank building only its
+     own shard: halo DIA CG on phase 4's Poisson matrix (each rank's rows
+     from ``sharded_poisson3d``; each rank's product of phase 4's x_true
+     bit for bit phase 4's b; within 3 of phase 4's count, true residual
+     at most 1e-4 in f64), gather-SELL CG on phase 5's tiled 1138bus
+     (each rank's rows from its ``keep=rank`` part of the MatrixMarket
+     file 20a wrote; within 10% of phase 5's count, true residual at most
+     1e-4), LSQR on phase 10's state-estimation matrix with transposed
+     shards (x within 1e-4 of the unsharded LSQR at 500 iterations); on
+     every rank the same counts and stop codes, one kernel launch a
+     product, ms per iteration, all-reduces per iteration and their share
+     of the wall, and the idle share (a profiled window), beside phase
+     19's mesh of slots and the unsharded phase; a control: the halo CG
+     on one gloo rank with the same host staging;
+  21b. NCCL: a one-rank NCCL world runs the exchange layer's NCCL branch
+     on CUDA tensors (``all_reduce``, ``all_to_all_single``) and a halo CG;
+     with two cards or more, a world of one rank a card runs 21a's halo
+     CG;
+  21c. ``pykrylov_tpu_torch.dryrun.dryrun_multichip(RANKS)`` over RANKS
+     ranks on the card (gloo, host transport): the twelve legs of the JAX
+     package's dry run, every rank printing the same lines;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -267,7 +290,7 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-20,
+     (each with its launches in every run of phases 8-21,
      ``launches_by_phase``, and the verified solves of phases 14-15 that
      ran through it, ``verified_solves``; the SpMMs with their K = 16
      f64-block times, ``k16_f64_block``; the SpMV kernels with their
@@ -281,8 +304,13 @@ Phases, in order:
      and spill bytes), then the result line ``{"ok": true, "device":
      {...}}``.
 
-Phases 8-20 run after 5b and before 6; each resets every launch count
+Phases 8-21 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
+
+``python3 chip_smoke.py --nccl`` runs phases 1, 2 and 4 and then 21b's
+NCCL legs on the machine's cards: a world of one rank a card running the
+halo CG where there are two cards or more, or, on one card, a world of
+two NCCL ranks on it, which must be refused.
 
 Any failure raises and the script exits non-zero without the result line.
 Without a CUDA device, or without the package beside it, it exits 2.
@@ -292,6 +320,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -315,6 +344,9 @@ PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, "f32": 67e12,
 SLEEP_HZ = 2e9      # above the card's SM clock: a sleep of n cycles lasts
                     # at least n / SLEEP_HZ seconds
 KB = 8              # right-hand sides of the block paths (phases 4b, 5b)
+KB_CUT = 2          # right-hand sides of the blocks of phases 11-13 and
+                    # 15: a quarter of KB, their depth cut to keep the
+                    # smoke within its time
 SIGMAS = (256, 4096)  # SELL sorting windows held and timed
 DIA_MM_K = (1, 3, 8, 64)   # block widths of the DIA SpMM checks (3b)
 BELL_MM_K = (3, 8, 64)     # block widths of the BELL SpMM checks (3b)
@@ -325,7 +357,8 @@ HELM_RTOL = 1e-8    # rtol of the indefinite path (8): MINRES's test is
                     # relative to Anorm ynorm, so 1e-6 leaves the true
                     # residual near 1e-4 at this n
 CD_N = 2048         # convection-diffusion grid of the nonsymmetric path (9)
-BMARK_TILES = 1024  # jpwh_991 tiles of the bmark path (9b)
+BMARK_TILES = 256   # jpwh_991 tiles of the bmark path (9b; 1024 until the
+                    # smoke needed room: the build was 26 s of the phase)
 # the reference's bmark on jpwh_991 (examples/bmark.py): matvecs to rtol
 # 1e-8 from x0 = 1 + arange(n), unpreconditioned and with Jacobi floor=1
 BMARK = {"cgs": (82, 70), "tfqmr": (84, 70), "bicgstab": (84, 64)}
@@ -986,6 +1019,7 @@ def phase_dia_path(pt):
     from pykrylov_tpu_torch.gallery import poisson3d_coo
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import operator_from_coo
+    from pykrylov_tpu_torch.sparse.linop import SparseOperator
 
     t0 = time.perf_counter()
     coo = poisson3d_coo(N, dtype=np.float32)
@@ -1053,9 +1087,10 @@ def phase_dia_path(pt):
     del r, b64
     prof = _profile_solve(pt, "4 DIA path", A, b, secs)
 
+    # the plain DIA operator over the same container (the products of
+    # fmt="dia"), not built again from the triples
     t0 = time.perf_counter()
-    A_plain = operator_from_coo(*coo, symmetric=True, fmt="dia",
-                                device=DEVICE)
+    A_plain = SparseOperator(A.container, None, symmetric=True, fmt="dia")
     before = K.DIA_LAUNCHES
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2077,9 +2112,9 @@ def phase_lls_dia(pt, A, coo, rates):
 
 BLOCK_PLAIN_ITERS = 100     # block iterations of the plain-product runs
 # profiled block iterations a solve (the profiler's cost grows with the
-# events it keeps, ~40-100 kernels a block iteration; 50 keeps the whole
-# smoke, phases 14-15 included, within its time)
-BLOCK_PROFILE_ITERS = 50
+# events it keeps, ~40-100 kernels a block iteration; 25 keeps the whole
+# smoke, phases 14-15 and 21 included, within its time)
+BLOCK_PROFILE_ITERS = 25
 # block products a batched solve makes in k block iterations
 # (solvers/batched.py): the SpMM launches it must count, A and A^T
 BLOCK_PRODUCTS = {"bicgstab": lambda k: 2 * k, "cgs": lambda k: 2 * k,
@@ -2103,12 +2138,12 @@ CAP_OPTION = {"bicgstab": "maxiter", "cgs": "maxiter", "tfqmr": "maxiter",
               "cg_pipelined": "maxiter", "cg_cheb": "maxiter"}
 
 
-def _block_of(b):
-    """The (n, KB) f64 block of a block phase: column 0 is the single
-    phase's b, the other KB - 1 columns standard normal from seed 0
+def _block_of(b, k=KB):
+    """The (n, k) f64 block of a block phase: column 0 is the single
+    phase's b, the other k - 1 columns standard normal from seed 0
     (torch's generator on the device)."""
     g = torch.Generator(device=DEVICE).manual_seed(0)
-    rest = torch.randn((b.shape[0], KB - 1), generator=g, device=DEVICE,
+    rest = torch.randn((b.shape[0], k - 1), generator=g, device=DEVICE,
                        dtype=torch.float64)
     return torch.cat([b.double()[:, None], rest], dim=1)
 
@@ -2175,14 +2210,14 @@ def _block_solve(pt, tag, label, name, A, Bm, opts, kernel, single, check,
         "ms per block iteration, %.4f ms per column-iteration (single "
         "solve %.4f ms per iteration)"
         % (tag, label, k, res.istop.tolist(), key, cols, s_count,
-           counts[kernel], kernel, want, secs, ms, ms / KB, s_ms))
+           counts[kernel], kernel, want, secs, ms, ms / Bm.shape[1], s_ms))
     if counts[kernel] != want or want == 0:
         raise AssertionError("%s %s: %d %s launches for %d block products"
                              % (tag, label, counts[kernel], kernel, want))
     if any(v for kk, v in counts.items() if kk != kernel):
         raise AssertionError("%s %s: other kernels launched: %s"
                              % (tag, label, counts))
-    if (res.x.dtype != torch.float64 or res.x.shape[1] != KB
+    if (res.x.dtype != torch.float64 or res.x.shape[1] != Bm.shape[1]
             or not torch.isfinite(res.x).all()):
         raise AssertionError("%s %s: bad solution %s %s" % (
             tag, label, tuple(res.x.shape), res.x.dtype))
@@ -2209,7 +2244,8 @@ def _block_solve(pt, tag, label, name, A, Bm, opts, kernel, single, check,
     out[label] = {"kernel": kernel, "n_iter": k, "columns": cols,
                   "single": s_count,
                   "single_ms_per_iter": s_ms, "solve_s": secs,
-                  "ms_per_iter": ms, "ms_per_column_iter": ms / KB,
+                  "ms_per_iter": ms,
+                  "ms_per_column_iter": ms / Bm.shape[1],
                   "launches": counts, "profile": prof,
                   "istop": res.istop.tolist(),
                   "certificates": {c: max(v) for c, (v, _) in certs.items()}}
@@ -2245,7 +2281,7 @@ def _plain_equal(pt, tag, name, A, Bm, opts, out):
 
 def phase_block_nonsym(pt, A, coo, b, single):
     """11: phase 9's convection-diffusion operator (DIA, f32 storage) with
-    a K = KB f64 block whose column 0 is phase 9's b: ``solve(A, B)`` (the
+    a K = KB_CUT f64 block whose column 0 is phase 9's b: ``solve(A, B)`` (the
     default route, ``bicgstab_batched``), CGS and TFQMR at rtol 1e-6,
     every block product through the DIA SpMM kernel; each column's true
     relative residual in f64 at most 1e-4, column 0's matvecs against
@@ -2254,7 +2290,7 @@ def phase_block_nonsym(pt, A, coo, b, single):
 
     tag = "11 unsymmetric blocks"
     data, offsets = A.container.data, A.container.offsets
-    Bm = _block_of(b)
+    Bm = _block_of(b, KB_CUT)
 
     def true_rel(res):
         r = Bm - K.dia_matmat_plain(data.double(), offsets, res.x)
@@ -2278,8 +2314,8 @@ def phase_block_nonsym(pt, A, coo, b, single):
 
 def phase_block_indefinite(pt, A, b, single):
     """12: phase 8's Helmholtz-shifted Poisson operator (DIA, f32 storage,
-    one negative eigenvalue) with a K = KB f64 block whose column 0 is
-    phase 8's b: ``solve(A, B, method="minres")`` and SYMMLQ at
+    one negative eigenvalue) with a K = KB_CUT f64 block whose column 0
+    is phase 8's b: ``solve(A, B, method="minres")`` and SYMMLQ at
     HELM_RTOL through the DIA SpMM kernel; each column's true relative
     residual in f64 at most 1e-4, column 0's count against phase 8's
     MINRES (after CG's trip) and SYMMLQ; MINRES capped through the plain
@@ -2291,7 +2327,7 @@ def phase_block_indefinite(pt, A, b, single):
 
     tag = "12 indefinite blocks"
     data, offsets = A.container.data, A.container.offsets
-    Bm = _block_of(b)
+    Bm = _block_of(b, KB_CUT)
 
     def true_rel(res):
         r = Bm - K.dia_matmat_plain(data.double(), offsets, res.x)
@@ -2355,8 +2391,8 @@ def _spmm_transpose_timing(tag, kern, plain, csr, sizes, own, rates):
 
 def phase_block_lls(pt, se, cd, single_se, single_cd, rates):
     """13: the least-squares blocks.  Phase 10's state-estimation operator
-    (SELL card forms of A and A^T) with a K = KB f64 block whose column 0
-    is phase 10's b: ``solve(A, B)`` (the rectangular default,
+    (SELL card forms of A and A^T) with a K = KB_CUT f64 block whose
+    column 0 is phase 10's b: ``solve(A, B)`` (the rectangular default,
     ``lsqr_batched``) and LSMR at atol = btol = LLS_TOL, etol = 0, every
     product through the SELL SpMM kernel on ``cards["fwd"]`` and
     ``cards["bwd"]``; each column's ``||A'r||/(||A||_F ||r||)`` in f64
@@ -2374,7 +2410,7 @@ def phase_block_lls(pt, se, cd, single_se, single_cd, rates):
     A, coo, b = se
     m, n = A.shape
     fwd, bwd = A.cards["fwd"], A.cards["bwd"]
-    Bm = _block_of(b)
+    Bm = _block_of(b, KB_CUT)
     fro = float(np.sqrt((coo[0].astype(np.float64) ** 2).sum()))
 
     def certificate(res):
@@ -2408,7 +2444,7 @@ def phase_block_lls(pt, se, cd, single_se, single_cd, rates):
     m = A.shape[0]
     data, offsets = A.container.data, A.container.offsets
     t = K.dia_transpose(A.container)
-    Bm = _block_of(b)
+    Bm = _block_of(b, KB_CUT)
     bn = torch.linalg.vector_norm(Bm, dim=0)
 
     def ax(X):
@@ -2863,11 +2899,11 @@ def _k16_timing(tag, name, mm, plain_mm, coo, own_matrix, rates):
 
 def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
                           coo_bus, coo_cd, f64_cd):
-    """15: blocks of K = KB, column 0 the single phase's b and the others
-    standard normal from seed 0 (:func:`_block_of`).  15a Poisson n = N,
-    f32 block: ``solve(A, B, verified=True)`` (ff ``cg_batched``), its
-    iterations' (n, KB) products and its replacements' (n, 2 KB) through
-    the DIA SpMM.  15b convection-diffusion, f32 block (f64 where 14b's
+    """15: blocks of K = KB_CUT, column 0 the single phase's b and the
+    others standard normal from seed 0 (:func:`_block_of`).  15a Poisson
+    n = N, an f32 block: ``solve(A, B, verified=True)`` (ff
+    ``cg_batched``), its iterations' (n, K) products and its
+    replacements' (n, 2 K) through the DIA SpMM.  15b convection-diffusion, f32 block (f64 where 14b's
     f32 stopped at its floor): ``solve(A, B, verified=True)``
     (``refined_solve_batched`` with BiCGSTAB legs), the DIA SpMM.  15c
     tiled 1138bus with the f64 Jacobi M, f64 block: ``solve(A, B, M=M,
@@ -2886,7 +2922,7 @@ def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
     cap = VER_PROFILE_ITERS
 
     # ---- 15a: Poisson, f32 block ----------------------------------------
-    Bm = _block_of(dia["b"]).float()
+    Bm = _block_of(dia["b"], KB_CUT).float()
     ax_dia = _dia_f64(A_dia)
 
     tag_a = "15a verified blocks, Poisson"
@@ -2902,7 +2938,7 @@ def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
         "iterations, %.3f s, true relative residual up to %.3e"
         % (tag_a, int(un.n_iter), un_s, un_rel))
     del un
-    # iterations' (n, KB) products and one (n, 2 KB) a replacement event:
+    # iterations' (n, K) products and one (n, 2 K) a replacement event:
     # n_matvec = n_iter + 2 events
     _verified(tag_a, "solve(A, B, verified=True) (ff cg_batched)",
               lambda: pt.solve(A_dia, Bm, verified=True, rtol=VER_RTOL),
@@ -2921,7 +2957,7 @@ def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
 
     # ---- 15b: convection-diffusion --------------------------------------
     A_cd, _, b_cd = cd
-    B64 = _block_of(b_cd)
+    B64 = _block_of(b_cd, KB_CUT)
     s11 = single["11"]["solve (bicgstab_batched)"]
     cd_opts = {"rtol": VER_RTOL, "leg_maxiter": s11["n_iter"]}
     tag_b = "15b verified blocks, convection-diffusion"
@@ -2966,7 +3002,7 @@ def phase_verified_blocks(pt, dia, A_dia, A_bus, bus, cd, single, rates,
     # ---- 15c: tiled 1138bus, Jacobi, f64 block ---------------------------
     M, b_bus = bus
     card = A_bus.cards["fwd"]
-    Bm = _block_of(b_bus)
+    Bm = _block_of(b_bus, KB_CUT)
     ax_bus = _sell_f64(card)
 
     tag_c = "15c verified blocks, tiled 1138bus"
@@ -3023,7 +3059,8 @@ PIPE_RTOL = 1e-6        # rtol of the solves of phases 16-17
 # pipelined against classic CG on the same vectors and M, iterations (the
 # JAX package's claim for replace_every = 10, pipelined.py:166-169)
 PIPE_ITER_RTOL = 0.1
-PIPE_PROFILE_ITERS = 200    # profiled iterations of a single solve (16-17)
+PIPE_PROFILE_ITERS = 100    # profiled iterations of a single solve
+                            # (16-21)
 CHEB_DEGREE = 8         # Chebyshev preconditioner (17a): degree - 1 SpMVs
 CHEB_LANCZOS = 16       # Lanczos steps of its bounds
 CX_N = 160              # complex system (17b): 2 * 160^3 real rows
@@ -4577,10 +4614,9 @@ def phase_native(pt, A_bell, coo_bell, bell, se, se_build_s):
         whole = MM.read_matrix_market(path)
         read_native_s = time.perf_counter() - t0
         size = os.path.getsize(path)
-    finally:
-        for name in os.listdir(tmp):
-            os.unlink(os.path.join(tmp, name))
-        os.rmdir(tmp)
+    except BaseException:
+        shutil.rmtree(tmp)
+        raise
     if raw is None or raw[3:] != (shape_np, info.field, info.symmetry):
         raise AssertionError("%s: mm_parse_native gave %r" % (
             tag, None if raw is None else raw[3:]))
@@ -4644,6 +4680,8 @@ def phase_native(pt, A_bell, coo_bell, bell, se, se_build_s):
                        "fill_native_s": fill_native_s,
                        "fill_numpy_s": fill_numpy_s, "launches": counts}
     del coo, dia, dia_np, data, data_np
+    # the file stays for phase 21's ranks, which read their parts of it
+    out["mtx_path"] = path
     return out
 
 
@@ -4712,6 +4750,409 @@ def phase_examples(pt):
                       kernel, counts))
         out[label] = {"rows": A.shape[0], "fmt": A.fmt, "seconds": secs,
                       "launches": counts}
+    return out
+
+
+# --------------------------------------------------------------------------
+# 21. a mesh of ranks: spawned ranks sharing the card, NCCL, the dry run
+# --------------------------------------------------------------------------
+
+RANKS = 4               # ranks of 21a and 21c, all on the one card
+RANK_TIMEOUT = 300.0    # seconds a collective may wait: a lost rank fails
+                        # the others instead of hanging them
+RANK_DEADLINE = 600.0   # seconds a spawned world may take in all
+RANK_ITER_SLACK = 3     # 21a's halo CG against phase 4's count: its dots
+                        # are per-rank partials, all-reduced
+
+
+def _rank_solve(mesh, tag, label, fn, kernel, extra, capped):
+    """On a rank: ``fn()`` with the launch counts and the exchange layer's
+    counts set to 0 just before and read just after; ``kernel`` launches
+    once a product on this rank (``n_matvec + extra(res)`` products), no
+    other kernel launches; then ``capped()`` under the profiler for the
+    idle share.  Returns (result, record)."""
+    from pykrylov_tpu_torch.utils import ranks
+    comm = mesh.comm
+    comm.reset_counts()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    calls, comm_s = dict(comm.calls), comm.seconds
+    n = max(int(res.n_iter), 1)
+    want = int(res.n_matvec) + extra(res)
+    ms = 1e3 * secs / n
+    log("[%s] %s: istop %d, %d iterations, %d %s launches for %d products, "
+        "%.3f s, %.4f ms per iteration, %.2f all-reduces per iteration "
+        "(%.1f%% of the wall), exchanges %s"
+        % (tag, label, int(res.istop), int(res.n_iter), counts[kernel],
+           kernel, want, secs, ms, calls["all_reduce"] / n,
+           100 * comm_s / secs, calls))
+    if counts[kernel] != want or want == 0 or any(
+            v for k, v in counts.items() if k != kernel):
+        raise AssertionError("%s %s: launches %s for %d products"
+                             % (tag, label, counts, want))
+    if not torch.isfinite(ranks.plain(res.x)).all():
+        raise AssertionError("%s %s: non-finite rows" % (tag, label))
+    prof = _profile_call("%s, %s" % (tag, label), capped, ms)
+    return res, {"n_iter": int(res.n_iter), "istop": int(res.istop),
+                 "n_matvec": int(res.n_matvec), "launches": counts,
+                 "solve_s": secs, "ms_per_iter": ms,
+                 "all_reduces_per_iter": calls["all_reduce"] / n,
+                 "comm_share": comm_s / secs, "exchanges": calls,
+                 "idle": prof["idle"], "profile": prof,
+                 "resid_norm": float(res.resid_norm)}
+
+
+def _rank_halo(transport):
+    """21a's (and 21b's) halo DIA CG on one rank: this rank's rows of
+    phase 4's Poisson matrix from ``sharded_poisson3d``, its product of
+    phase 4's x_true (the parent holds it to phase 4's b bit for bit),
+    CG on that product."""
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch import parallel as par
+    from pykrylov_tpu_torch.utils import ranks
+
+    mesh = par.make_mesh(device=DEVICE, transport=transport)
+    r, R = mesh.rank, mesh.size
+    tag = "21 halo DIA, rank %d of %d (%s)" % (r, R, mesh.transport)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H, _, _, pad = par.sharded_poisson3d(N, mesh, dtype=np.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    L = H.nargout // R
+    x_true = np.random.default_rng(0).standard_normal(N ** 3).astype(
+        np.float32)[r * L:(r + 1) * L]
+    xs = par.shard_vector(torch.from_numpy(x_true).to(DEVICE), mesh,
+                          local=True)
+    _reset_counts()
+    b = H * xs
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts["dia_spmv"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError("%s: the product launched %s" % (tag, counts))
+    log("[%s] %r: %d rows built in %.2f s (pad %d, halo %d), the product "
+        "one DIA launch" % (tag, mesh, L, build_s, pad, H.halo_width))
+    pt.cg(H, b, maxiter=3)                                   # warm-up
+    res, rec = _rank_solve(mesh, tag, "cg", lambda: pt.cg(H, b),
+                           "dia_spmv", lambda res: 0,
+                           lambda: pt.cg(H, b, maxiter=PIPE_PROFILE_ITERS))
+    rec.update(build_s=build_s, b=ranks.plain(b).cpu().numpy(),
+               x=ranks.plain(res.x).cpu().numpy(),
+               info=par.device_mesh_info(mesh))
+    return rec
+
+
+def _rank_paths(mtx_path, b_bus_path, b_se_path):
+    """21a on one rank of the gloo world: the halo DIA CG
+    (:func:`_rank_halo`), gather-SELL CG on this rank's ``keep=rank`` part
+    of tiled 1138bus, LSQR on the state-estimation matrix with transposed
+    shards; this rank's rows of each x for the parent."""
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch import parallel as par
+    from pykrylov_tpu_torch.io.matrix_market import \
+        read_matrix_market_partitioned
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.utils import ranks
+
+    out = {"halo": _rank_halo("host")}
+    mesh = par.make_mesh(device=DEVICE, transport="host")
+    r, R = mesh.rank, mesh.size
+    tag = "21a gather SELL, rank %d of %d" % (r, R)
+    t0 = time.perf_counter()
+    parts, shape, _ = read_matrix_market_partitioned(mtx_path, R, keep=r,
+                                                     dtype=np.float32)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    G = par.GatherBellOperator(F.coo_from_arrays(*parts[0], shape,
+                                                 device=None),
+                               mesh, symmetric=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log("[%s] tiled 1138bus: %d entries of this rank's part read in %.2f "
+        "s, operator built in %.2f s, comm entries %d a product (true %d)"
+        % (tag, len(parts[0][0]), read_s, build_s,
+           G.comm_entries_per_matvec, G.comm_entries_true))
+    del parts
+    b = par.shard_vector(torch.from_numpy(np.load(b_bus_path)).to(DEVICE),
+                         mesh)
+    pt.cg(G, b, maxiter=3)                                   # warm-up
+    res, rec = _rank_solve(mesh, tag, "cg", lambda: pt.solve(G, b),
+                           "sell_spmv", lambda res: 0,
+                           lambda: pt.cg(G, b, maxiter=PIPE_PROFILE_ITERS))
+    rec.update(read_s=read_s, build_s=build_s,
+               x=ranks.plain(res.x).cpu().numpy())
+    out["gather"] = rec
+    del G, b, res
+
+    tag = "21a state estimation, rank %d of %d" % (r, R)
+    t0 = time.perf_counter()
+    Gs = par.GatherBellOperator(F.coo_from_arrays(*se_coo(SE_TILES),
+                                                  device=None),
+                                mesh, with_transpose=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log("[%s] %d x %d, with_transpose: this rank's rows built in %.2f s, "
+        "comm entries %d a product" % (tag, Gs.shape[0], Gs.shape[1],
+                                       build_s, Gs.comm_entries_per_matvec))
+    bs = par.shard_vector(torch.from_numpy(np.load(b_se_path)).to(DEVICE),
+                          mesh)
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0,
+            "itnlim": SHARD_LLS_ITERS}
+    short = pt.lsqr(Gs, bs, **dict(opts, itnlim=SHARD_XLLS_ITERS))
+    res, rec = _rank_solve(
+        mesh, tag, "lsqr, itnlim=%d" % SHARD_LLS_ITERS,
+        lambda: pt.lsqr(Gs, bs, **opts), "sell_spmv", _initial_launch,
+        lambda: pt.lsqr(Gs, bs, **dict(opts, itnlim=LLS_PROFILE_ITERS // 5)))
+    rec.update(build_s=build_s, x=ranks.plain(res.x).cpu().numpy(),
+               x_short=ranks.plain(short.x).cpu().numpy(),
+               short=(int(short.n_iter), float(short.resid_norm)))
+    out["lsqr"] = rec
+    return out
+
+
+def _rank_nccl():
+    """21b on a one-rank NCCL world: the exchange layer's NCCL branch on
+    CUDA tensors, then a halo CG at n = 64 on the one-rank mesh."""
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch import parallel as par
+    mesh = par.make_mesh(device=DEVICE)
+    comm = mesh.comm
+    info = par.device_mesh_info(mesh)
+    if info["transport"] != "nccl" or comm.backend != "nccl":
+        raise AssertionError("21b: transport %r, backend %r"
+                             % (info["transport"], comm.backend))
+    x = torch.arange(12, dtype=torch.float64, device=DEVICE)
+    s = comm.all_reduce(x)
+    a = comm.all_to_all(x.reshape(6, 2), [6], [6])
+    torch.cuda.synchronize()
+    if not (torch.equal(s, x) and torch.equal(a, x.reshape(6, 2))
+            and s.is_cuda and a.is_cuda):
+        raise AssertionError("21b: all_reduce %s, all_to_all %s" % (s, a))
+    H, b, e, _ = par.sharded_poisson3d(64, mesh, dtype=np.float32)
+    res = pt.cg(H, b)
+    err = float(pt.utils.ranks.norm(res.x - e))
+    if not (bool(res.converged) and err < 1e-2 * 64 ** 1.5):
+        raise AssertionError("21b: %r, error %.3e" % (res, err))
+    return {"info": info, "n_iter": int(res.n_iter), "err": err,
+            "calls": dict(comm.calls)}
+
+
+def _earlier(new_s, dia, bell):
+    """Phase 19's slot-mesh and the unsharded phases' ms per iteration of
+    21a's three legs: (mesh of slots, unsharded)."""
+    s19a, s19b, s10 = new_s["19a"][0], new_s["19b"][0], new_s["10"][0]
+    lsqr19 = s19b["lsqr, with_transpose, itnlim=%d" % SHARD_LLS_ITERS]
+    return {"halo": (s19a["cg"]["ms_per_iter"],
+                     1e3 * dia["solve_s"] / dia["n_iter"]),
+            "gather": (s19b["cg"]["ms_per_iter"],
+                       1e3 * bell["solve_s"] / bell["n_iter"]),
+            "lsqr": (lsqr19["ms_per_iter"],
+                     1e3 * s10["lsqr"]["solve_s"] / s10["lsqr"]["n_iter"])}
+
+
+def _nccl_cards(tag, dia, cards):
+    """21b's second leg: an NCCL world of one rank a card runs 21a's halo
+    CG; each rank's product rows are phase 4's b bit for bit, the count
+    within RANK_ITER_SLACK of phase 4's."""
+    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+    t0 = time.perf_counter()
+    recs = spawn_ranks(_rank_halo, cards, None, backend="nccl",
+                       timeout=RANK_TIMEOUT, deadline=RANK_DEADLINE)
+    b_nccl = torch.from_numpy(np.concatenate([h["b"] for h in recs]))
+    same_b = torch.equal(b_nccl.to(DEVICE), dia["b"])
+    log("[%s] 21b: halo CG over %d NCCL ranks, one a card (%s): each "
+        "rank's product rows phase 4's b bit for bit: %s; %d iterations "
+        "(phase 4: %d), %.4f ms per iteration, %.2f all-reduces per "
+        "iteration (%.1f%% of the wall), idle %.1f%%, %.1f s"
+        % (tag, cards, recs[0]["info"]["transport"], same_b,
+           recs[0]["n_iter"], dia["n_iter"], recs[0]["ms_per_iter"],
+           recs[0]["all_reduces_per_iter"], 100 * recs[0]["comm_share"],
+           100 * recs[0]["idle"], time.perf_counter() - t0))
+    if (not same_b or len({r["n_iter"] for r in recs}) != 1
+            or abs(recs[0]["n_iter"] - dia["n_iter"]) > RANK_ITER_SLACK):
+        raise AssertionError("%s 21b: %d NCCL ranks, bit for bit %s, %d "
+                             "iterations" % (tag, cards, same_b,
+                                             recs[0]["n_iter"]))
+    return {"21b halo rank %d" % r: {k: v for k, v in rec.items()
+                                     if k not in ("x", "b", "profile",
+                                                  "info")}
+            for r, rec in enumerate(recs)}
+
+
+def phase_ranks(pt, A_dia, dia, coo_bell, bell, se, mtx_path, earlier):
+    """21: the mesh of ranks (21a-21c in the module docstring).
+    ``earlier`` holds phase 19's slot-mesh ms per iteration and the
+    unsharded phases' beside which 21a's are logged."""
+    from pykrylov_tpu_torch import dryrun
+    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+
+    tag = "21 mesh of ranks"
+    out = {}
+    tmp = os.path.dirname(mtx_path)
+    A_se, coo_se, b_se = se
+    b_bus_path = os.path.join(tmp, "b_bus.npy")
+    b_se_path = os.path.join(tmp, "b_se.npy")
+    np.save(b_bus_path, bell["b"].cpu().numpy())
+    np.save(b_se_path, b_se.cpu().numpy())
+
+    # ---- 21a: four ranks sharing the card, gloo, host transport --------
+    log("[%s] 21a: %d ranks on %s, gloo, transport='host' (CUDA tensors "
+        "staged through pinned host buffers)"
+        % (tag, RANKS, torch.cuda.get_device_name(0)))
+    t0 = time.perf_counter()
+    worlds = spawn_ranks(_rank_paths, RANKS, mtx_path, b_bus_path,
+                         b_se_path, backend="gloo", timeout=RANK_TIMEOUT,
+                         deadline=RANK_DEADLINE)
+    out["21a_s"] = time.perf_counter() - t0
+    for leg in ("halo", "gather", "lsqr"):
+        recs = [w[leg] for w in worlds]
+        same = {(r["n_iter"], r["istop"], r["n_matvec"], r["resid_norm"])
+                for r in recs}
+        if len(same) != 1:
+            raise AssertionError("%s %s: the ranks disagree: %s"
+                                 % (tag, leg, same))
+    halo = [w["halo"] for w in worlds]
+    b_ranks = torch.from_numpy(np.concatenate([h["b"] for h in halo])).to(
+        DEVICE)
+    same_b = torch.equal(b_ranks, dia["b"])
+    x = torch.from_numpy(np.concatenate([h["x"] for h in halo])).to(DEVICE)
+    halo_rel = _true_rel(dia["b"], _dia_f64(A_dia), x)
+    n_h = halo[0]["n_iter"]
+    log("[%s] halo DIA: each rank's product rows of phase 4's x_true bit "
+        "for bit phase 4's b: %s; cg %d iterations (phase 4: %d), true "
+        "relative residual (f64) %.3e" % (tag, same_b, n_h, dia["n_iter"],
+                                          halo_rel))
+    if (not same_b or abs(n_h - dia["n_iter"]) > RANK_ITER_SLACK
+            or not halo_rel <= 1e-4 or halo[0]["istop"] != 0):
+        raise AssertionError("%s halo: bit for bit %s, %d iterations, "
+                             "residual %.3e" % (tag, same_b, n_h, halo_rel))
+    del b_ranks, x
+    gat = [w["gather"] for w in worlds]
+    m = bell["b"].shape[0]
+    x = torch.from_numpy(np.concatenate([g["x"] for g in gat])).to(DEVICE)
+    gat_rel = _true_rel(bell["b"], _coo_f64(coo_bell, m), x[:m])
+    n_g = gat[0]["n_iter"]
+    log("[%s] gather SELL: cg %d iterations (phase 5: %d), true relative "
+        "residual (f64) %.3e" % (tag, n_g, bell["n_iter"], gat_rel))
+    if (abs(n_g - bell["n_iter"]) > ITER_RTOL * bell["n_iter"]
+            or not gat_rel <= 1e-4 or gat[0]["istop"] != 0):
+        raise AssertionError("%s gather: %d iterations, residual %.3e"
+                             % (tag, n_g, gat_rel))
+    # LSQR: the ranks' dots are all-reduced partials, which round unlike
+    # the unsharded whole-vector dots, and this system's LSQR moves x by
+    # ~1e-3 at 500 iterations for a 1e-16 rounding of A'u (19b's
+    # control): held as 19b's exchange leg holds its cut partition, x and
+    # the residual norm at SHARD_XLLS_ITERS, and at SHARD_LLS_ITERS the
+    # count, stop code and residual norm, x beside the control's
+    lsq = [w["lsqr"] for w in worlds]
+    n = A_se.shape[1]
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0,
+            "itnlim": SHARD_LLS_ITERS}
+
+    def rel(x, y):
+        return (torch.linalg.vector_norm(x - y)
+                / torch.linalg.vector_norm(y)).item()
+    checks = {}
+    for key, its, xtol, rtol in (
+            ("x_short", SHARD_XLLS_ITERS, SHARD_XLLS_XTOL, SHARD_XLLS_RTOL),
+            ("x", SHARD_LLS_ITERS, None, SHARD_LLS_RTOL)):
+        x = torch.from_numpy(np.concatenate([q[key] for q in lsq])).to(
+            DEVICE)
+        ref = pt.lsqr(A_se, b_se, **dict(opts, itnlim=its))
+        ctrl = pt.lsqr(_perturbed_twin(pt, A_se), b_se,
+                       **dict(opts, itnlim=its))
+        n_it, rn = lsq[0]["short"] if key == "x_short" else (
+            lsq[0]["n_iter"], lsq[0]["resid_norm"])
+        x_rel, ctrl_rel = rel(x[:n], ref.x), rel(ctrl.x, ref.x)
+        r_rel = abs(rn - float(ref.resid_norm)) / float(ref.resid_norm)
+        log("[%s] lsqr with transposed shards, itnlim=%d: %d iterations "
+            "(unsharded %d, istop %d); ||r|| %.3e apart; x against the "
+            "unsharded LSQR's %.3e relative, the control's (A'u perturbed "
+            "by 1e-16) %.3e" % (tag, its, n_it, int(ref.n_iter),
+                                int(ref.istop), r_rel, x_rel, ctrl_rel))
+        if (n_it != int(ref.n_iter) or not r_rel <= rtol or x[n:].any()
+                or (xtol is not None and not x_rel <= xtol)):
+            raise AssertionError("%s lsqr itnlim=%d: %d iterations "
+                                 "against %d, ||r|| %.3e apart, x %.3e "
+                                 "apart" % (tag, its, n_it,
+                                            int(ref.n_iter), r_rel, x_rel))
+        checks["itnlim %d" % its] = {"x_rel": x_rel,
+                                     "control_x_rel": ctrl_rel,
+                                     "resid_rel": r_rel}
+    if lsq[0]["istop"] != 7:
+        raise AssertionError("%s lsqr: istop %d" % (tag, lsq[0]["istop"]))
+    checks = {"halo": {"bit_for_bit": same_b, "true_rel": halo_rel},
+              "gather": {"true_rel": gat_rel}, "lsqr": checks}
+    for leg in ("halo", "gather", "lsqr"):
+        for r, w in enumerate(worlds):
+            rec = {k: v for k, v in w[leg].items()
+                   if k not in ("x", "x_short", "b", "profile", "info")}
+            rec.update(checks[leg], slot_mesh_ms=earlier[leg][0],
+                       unsharded_ms=earlier[leg][1])
+            out["21a %s rank %d" % (leg, r)] = rec
+            log("[%s] %s, rank %d: %.4f ms per iteration (phase 19's %d "
+                "slots: %.4f, unsharded: %.4f), %.2f all-reduces per "
+                "iteration, %.1f%% of the wall in exchanges, idle %.1f%%, "
+                "launches %s" % (tag, leg, r, rec["ms_per_iter"],
+                                 MESH_SHARDS, earlier[leg][0],
+                                 earlier[leg][1],
+                                 rec["all_reduces_per_iter"],
+                                 100 * rec["comm_share"], 100 * rec["idle"],
+                                 {k: c for k, c in rec["launches"].items()
+                                  if c}))
+    del worlds, x
+    # the control: the same halo CG on one rank of a gloo world with the
+    # same host staging, no card shared between processes
+    one = spawn_ranks(_rank_halo, 1, "host", backend="gloo",
+                      timeout=RANK_TIMEOUT, deadline=RANK_DEADLINE)[0]
+    if not torch.equal(torch.from_numpy(one["b"]).to(DEVICE), dia["b"]):
+        raise AssertionError("%s control: the one-rank product is not "
+                             "phase 4's b" % tag)
+    log("[%s] control: halo DIA CG on one gloo rank, host staging: %d "
+        "iterations, %.4f ms per iteration, %.2f all-reduces per iteration "
+        "(%.1f%% of the wall), idle %.1f%%"
+        % (tag, one["n_iter"], one["ms_per_iter"],
+           one["all_reduces_per_iter"], 100 * one["comm_share"],
+           100 * one["idle"]))
+    out["21a halo control, one rank"] = {
+        k: v for k, v in one.items() if k not in ("x", "b", "profile",
+                                                  "info")}
+
+    # ---- 21b: NCCL -------------------------------------------------------
+    t0 = time.perf_counter()
+    one = spawn_ranks(_rank_nccl, 1, backend="nccl", timeout=RANK_TIMEOUT,
+                      deadline=RANK_DEADLINE)[0]
+    log("[%s] 21b: a one-rank NCCL world: %s, all_reduce and "
+        "all_to_all_single on CUDA tensors exact, halo CG at n = 64 in %d "
+        "iterations (error %.2e), exchanges %s, %.1f s"
+        % (tag, one["info"], one["n_iter"], one["err"], one["calls"],
+           time.perf_counter() - t0))
+    out["21b one rank"] = {"n_iter": one["n_iter"], "calls": one["calls"]}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out.update(_nccl_cards(tag, dia, cards))
+    else:
+        log("[%s] 21b: one card: a world of one rank a card needs two "
+            "cards or more (NCCL takes one rank a card)" % tag)
+
+    # ---- 21c: the dry run over four ranks --------------------------------
+    t0 = time.perf_counter()
+    runs = spawn_ranks(dryrun._rank_run, RANKS, RANKS, DEVICE, "host",
+                       backend="gloo", timeout=RANK_TIMEOUT,
+                       deadline=RANK_DEADLINE)
+    lines = runs[0][1]
+    if any(r != runs[0] for r in runs[1:]) or len(lines) != 12:
+        raise AssertionError("%s 21c: the ranks disagree or ran %d legs"
+                             % (tag, len(lines)))
+    for line in lines:
+        log("[%s] 21c: %s" % (tag, line))
+    out["21c_s"] = time.perf_counter() - t0
+    out["21c"] = runs[0][0]
     return out
 
 
@@ -5034,6 +5475,42 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rates,
     return curve
 
 
+def main_nccl(pt):
+    """``python3 chip_smoke.py --nccl``: phases 1, 2 and 4, then NCCL
+    worlds on this machine's cards.  With two cards or more, 21b's world
+    of one rank a card runs the halo CG (:func:`_nccl_cards`); on one
+    card, a world of two NCCL ranks on it must be refused (NCCL takes one
+    rank a card), and the refusal is logged."""
+    from pykrylov_tpu_torch.parallel.launch import RankFailure, spawn_ranks
+    tag = "21b NCCL"
+    t0 = time.perf_counter()
+    card = phase_device()
+    phase_build()
+    _, _, dia = phase_dia_path(pt)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out = _nccl_cards(tag, dia, cards)
+        log("[%s] %s" % (tag, json.dumps(out)))
+    else:
+        try:
+            spawn_ranks(_rank_nccl, 2, backend="nccl", timeout=60.0,
+                        deadline=RANK_DEADLINE)
+        except RankFailure as exc:
+            why = str(exc)
+            if "Duplicate GPU" not in why:
+                raise
+            log("[%s] two NCCL ranks on the one card: refused (%s)"
+                % (tag, why.strip().splitlines()[-1]))
+        else:
+            raise AssertionError("%s: two NCCL ranks shared one card" % tag)
+    log("[%s] %s, %d card(s), %.1f s" % (tag, card, cards,
+                                        time.perf_counter() - t0))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5051,6 +5528,8 @@ def main():
         print("chip_smoke: imported %s, not this checkout's package"
               % pt.__file__, file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--nccl"]:
+        return main_nccl(pt)
 
     t_start = time.perf_counter()
     card = phase_device()
@@ -5118,9 +5597,14 @@ def main():
                      ("20a", lambda: phase_native(
                          pt, A_bell, coo_bell, bell, keep["se"],
                          new_s["10"][0]["build_s"])),
-                     ("20b", lambda: phase_examples(pt))):
+                     ("20b", lambda: phase_examples(pt)),
+                     ("21", lambda: phase_ranks(
+                         pt, A_dia, dia, coo_bell, bell, keep["se"],
+                         new_s["20a"][0]["mtx_path"], _earlier(new_s, dia,
+                                                               bell)))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
+    shutil.rmtree(os.path.dirname(new_s["20a"][0]["mtx_path"]))
     keep.clear()
     dia_best, dia_b = phase_dia_timing(A_dia, coo_dia, rates)
 
@@ -5220,7 +5704,7 @@ def main():
                for key in ("9", "9b", "10", "10b", "11", "12", "13", "14",
                            "15", "16a", "16b", "16c", "17a", "17b", "17c",
                            "18a", "18b", "19a", "19b", "19c", "20a",
-                           "20b")}}
+                           "20b", "21")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -5308,7 +5792,7 @@ def main():
                         100 * v["profile"]["idle"])
                      for k, v in lls.items() if "ref" in v)))
     log("[7 result] phase 11 (%.1f s), 12 (%.1f s), 13 (%.1f s), K=%d: %s"
-        % (new_s["11"][1], new_s["12"][1], new_s["13"][1], KB,
+        % (new_s["11"][1], new_s["12"][1], new_s["13"][1], KB_CUT,
            "; ".join("%s: %d block it. (column 0 %d, single %d), %.4f ms per "
                      "block it., %.4f per column-it. (single %.4f), idle "
                      "%.1f%%" % (k, v["n_iter"], v["columns"][0], v["single"],
@@ -5370,6 +5854,17 @@ def main():
            ex["demo_general"]["fmt"], ex["demo_general"]["seconds"],
            bell["build_s"], se["build_s"], new_s["19b"][0]["build_s"],
            new_s["19b"][0]["se_build_s"]))
+    p21 = new_s["21"][0]
+    log("[7 result] phase 21 (%.1f s; 21a %.1f s, 21c %.1f s), %d ranks: %s"
+        % (new_s["21"][1], p21["21a_s"], p21["21c_s"], RANKS,
+           "; ".join("%s: %d it., %.4f ms per it. (slots %.4f, unsharded "
+                     "%.4f), %.2f all-reduces per it. (%.1f%% of the "
+                     "wall), idle %.1f%%"
+                     % (k, v["n_iter"], v["ms_per_iter"], v["slot_mesh_ms"],
+                        v["unsharded_ms"], v["all_reduces_per_iter"],
+                        100 * v["comm_share"], 100 * v["idle"])
+                     for k, v in p21.items()
+                     if k.startswith("21a ") and "control" not in k)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,6 +127,28 @@ def poisson3d_coo(n, dtype=np.float64):
     return _stencil_coo(n, 3, dtype)
 
 
+def poisson3d_dia_rows(n, lo, hi, dtype=np.float64):
+    """Rows ``[lo, hi)`` of the 3-D Poisson matrix (``n**3`` rows) in DIA
+    storage: ``(data, offsets)`` with ``data[d, r - lo] = A[r, r +
+    offsets[d]]`` (zero where the neighbour is off the grid) and the
+    offsets ``(-n^2, -n, -1, 0, 1, n, n^2)``; rows past ``n**3`` are zero.
+    Equal, column for column, to ``dia_from_coo`` of
+    :func:`poisson3d_coo` (one rank's rows of a mesh of ranks, built
+    without the whole matrix)."""
+    N = n ** 3
+    r = np.arange(lo, hi, dtype=np.int64)
+    x, y, z = r % n, (r // n) % n, r // (n * n)
+    live = r < N
+    offsets = (-n * n, -n, -1, 0, 1, n, n * n)
+    ok = (z > 0, y > 0, x > 0, np.ones_like(live), x < n - 1, y < n - 1,
+          z < n - 1)
+    data = np.zeros((7, hi - lo), dtype=dtype)
+    for d, o in enumerate(ok):
+        data[d] = np.where(o & live, -1.0, 0.0)
+    data[3] = np.where(live, 6.0, 0.0)
+    return data, offsets
+
+
 def poisson_eigenvalue_bounds(n, dim=1):
     """Analytic extreme eigenvalues of the d-D Poisson matrix on an n-grid.
 

@@ -38,6 +38,7 @@ import numbers
 import numpy as np
 import torch
 
+from ..utils.ranks import rows
 from ..utils.types import as_dtype, result_type, to_tensor
 
 __all__ = [
@@ -287,16 +288,16 @@ class LinearOperator(BaseLinearOperator):
 
     def _apply(self, fn, x, in_dim, out_dim):
         x = self._as_tensor(x)
-        if x.ndim not in (1, 2) or x.shape[0] != in_dim:
+        if x.ndim not in (1, 2) or rows(x) != in_dim:
             raise ShapeError(
                 "operator %s cannot be applied to array of shape %s"
                 % (repr(self), (tuple(x.shape),)))
         self._nMatvec += 1
         y = _apply_fn(fn, x) if x.ndim == 1 else _block_apply(self, fn, x)
-        if y.shape[0] != out_dim:
+        if rows(y) != out_dim:
             raise ShapeError(
                 "operator %s produced array of leading dim %d, expected %d"
-                % (repr(self), y.shape[0], out_dim))
+                % (repr(self), rows(y), out_dim))
         return y
 
     def matvec(self, x):
@@ -535,7 +536,7 @@ class DiagonalOperator(LinearOperator):
         diag = to_tensor(diag, device=device).ravel()
         is_complex = diag.dtype.is_complex
         conj = diag.conj().resolve_conj() if is_complex else None
-        super().__init__(diag.shape[0], diag.shape[0],
+        super().__init__(rows(diag), rows(diag),
                          matvec=lambda x: diag * x,
                          matvec_adj=(lambda x: conj * x) if is_complex
                          else None,

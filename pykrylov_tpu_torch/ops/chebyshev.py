@@ -12,7 +12,8 @@ and host reads each of them pays, drop by about the degree.
 
 Spectral bounds come from :func:`lanczos_bounds`: k Lanczos steps with
 their scalars kept on the device (no host read until the k x k
-tridiagonal's eigenvalues), widened by safety factors for the Ritz
+tridiagonal's eigenvalues; on a mesh of ranks each scalar is one
+``all_reduce``), widened by safety factors for the Ritz
 values' underestimate of the extremes.
 """
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .base import LinearOperator, _apply_any
+from ..utils import ranks
 from ..utils.types import to_tensor
 
 __all__ = ["lanczos_bounds", "ChebyshevOperator",
@@ -32,15 +34,15 @@ def _lanczos_tridiag(A, v0, k):
     """k-step Lanczos: (alphas, betas) of the tridiagonal projection T_k,
     as (k,) tensors on the device (no reorthogonalization: the extremal
     Ritz values are what is needed, and they converge first)."""
-    v = v0 / torch.linalg.vector_norm(v0)
+    v = v0 / ranks.norm(v0)
     v_prev = torch.zeros_like(v)
     beta = torch.zeros((), dtype=v.dtype, device=v.device)
     alphas, betas = [], []
     for _ in range(k):
         w = A._mv(v) - beta * v_prev
-        alpha = torch.vdot(v, w).real.to(v.dtype)
+        alpha = ranks.vdot_real(v, w).to(v.dtype)
         w = w - alpha * v
-        beta = torch.linalg.vector_norm(w)
+        beta = ranks.norm(w)
         v_next = torch.where(beta > 0, w / torch.where(beta == 0, 1, beta),
                              w)
         v_prev, v = v, v_next
@@ -74,6 +76,11 @@ def lanczos_bounds(A, *, k=16, seed=0, safety=0.05, v0=None):
     if v0 is None:
         v0 = np.random.default_rng(seed).standard_normal(n)
     v0 = to_tensor(v0, device=A.device).to(A.dtype)
+    mesh = getattr(A, "mesh", None)
+    if mesh is not None and mesh.ranked:
+        # this rank's rows of the same start vector
+        from ..parallel.sharded import shard_vector
+        v0 = shard_vector(v0, mesh)
     k = int(min(k, n))
     alphas, betas = _lanczos_tridiag(A, v0, k)
     # an exact breakdown (beta_j == 0: the Krylov space exhausted in j < k

@@ -18,9 +18,12 @@ slots (devices, which may repeat: P shards can share one card):
   * a tall operator's ``A^T`` sums the shards' partial products in shard
     order (:class:`TallSkinnyOperator`).
 
-A mesh across processes (one rank per card) is not ported:
-:func:`initialize_multihost` starts ``torch.distributed`` and
-:func:`make_mesh` then raises.
+Across processes, after :func:`initialize_multihost` starts a world of
+``torch.distributed``, :func:`make_mesh` gives a mesh of ranks: one
+shard a rank, each operator building and computing only its own shard,
+the exchanges through :mod:`.comm` and the solvers' reductions
+all-reduced (:mod:`..utils.ranks`); :mod:`.launch` spawns such a world
+on one host.
 """
 
 from .mesh import (Mesh, make_mesh, default_mesh, device_mesh_info,

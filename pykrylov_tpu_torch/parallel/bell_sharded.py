@@ -14,21 +14,22 @@ sell_from_levels`) on its slot, and every product is one
 for an (n, K) block) launch per shard.  ``with_transpose=True`` packs
 each shard's transposed local block too and runs the reversed exchange:
 each shard's private partials are summed into their owners' rows in
-shard order.
+shard order.  On a mesh of ranks each rank packs its own block only, from
+its own rows (:class:`~.gather.RankGather`'s schedule), and launches one
+SELL kernel a product on its card, forward and transposed.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.base import LinearOperator
 from ..sparse import formats as F
 from ..sparse.bell import (LANES, _pack_idx, _unpack_idx, bell_from_coo,
                            bell_to_device)
 from ..sparse.sell import sell_from_levels, sell_matmat, sell_matvec
-from ..utils.types import to_tensor
-from .gather import (ScheduledGather, comm_attrs, ell_ff, pad_ell,
-                     sharded_ell)
+from .gather import comm_attrs, ell_ff, plan_gather, shard_rows
 from .mesh import ROW_AXIS
 from .sharded import assemble
 
@@ -122,9 +123,13 @@ def _pack_local_blocks(data, cols_local, d, L, width, nblk,
 
 
 def _cards(bells, mesh, rows_out):
-    """Each shard's SELL card form, built on its slot."""
-    return [sell_from_levels((bell_to_device(b, slot),), rows_out)
-            for b, slot in zip(bells, mesh.slots)]
+    """Each shard's SELL card form, built on its slot (``bells`` holds the
+    shards of :meth:`~.mesh.Mesh.shards`; the others are None)."""
+    cards = [None] * mesh.size
+    for b, k in zip(bells, mesh.shards()):
+        cards[k] = sell_from_levels((bell_to_device(b, mesh.slots[k]),),
+                                    rows_out)
+    return cards
 
 
 class GatherBellOperator(LinearOperator):
@@ -151,17 +156,19 @@ class GatherBellOperator(LinearOperator):
     def __init__(self, ell, mesh, axis=ROW_AXIS, symmetric=False,
                  nblk=64, interpret=None, with_transpose=False,
                  verified_shadow=False, **kwargs):
-        data, cols, m, n = pad_ell(ell)
-        if symmetric and m != n:
+        if symmetric and ell.shape[0] != ell.shape[1]:
             raise ValueError("symmetric requires a square operator")
-        d = mesh.shape[axis]
-        dp, cols_local, sendidx, lens, mp, np_, Lrow, Lx = sharded_ell(
-            data, cols, d, m, n)
-        width = Lx + sum(s.shape[1] for s in sendidx)
-        sched = ScheduledGather(mesh, sendidx, d, Lx, Lrow)
+        d = mesh.shape[axis] if not mesh.ranked else mesh.size
+        (dp, cols_local, sendidx, lens, round_lens, mp, np_, Lrow, Lx,
+         width, sched, m, n) = plan_gather(ell, mesh, d)
+        # the shards this process packs: every one, or this rank's rows
+        nloc = 1 if mesh.ranked else d
 
-        bells = _local_bells(dp, cols_local, d, Lrow, width, nblk)
+        bells = _local_bells(dp, cols_local, nloc, Lrow, width, nblk)
         nsteps, GS = _common_dims(bells)[:2]
+        if mesh.ranked:
+            dims = mesh.comm.all_gather(torch.tensor([nsteps, GS]))
+            nsteps, GS = (int(v) for v in dims.max(0).values)
         cards = _cards(bells, mesh, Lrow)
 
         def mv(x):
@@ -176,7 +183,7 @@ class GatherBellOperator(LinearOperator):
         if symmetric:
             rmv, rmm = mv, mm
         elif with_transpose:
-            cards_t = _cards(_local_bells(dp, cols_local, d, Lrow, width,
+            cards_t = _cards(_local_bells(dp, cols_local, nloc, Lrow, width,
                                           nblk, transpose=True),
                              mesh, width)
             rmv = sched.transposed(
@@ -191,11 +198,8 @@ class GatherBellOperator(LinearOperator):
             # the card form has no compensated product: keep the remapped
             # ELL arrays the packer consumed as a shadow for the verified
             # residuals (about 12 B a slot beside the card's 8 B a nonzero)
-            shadow = ([to_tensor(dp[k * Lrow:(k + 1) * Lrow], device=s)
-                       for k, s in enumerate(mesh.slots)],
-                      [to_tensor(cols_local[k * Lrow:(k + 1) * Lrow]
-                                 .astype(np.int64), device=s)
-                       for k, s in enumerate(mesh.slots)])
+            shadow = (shard_rows(dp, mesh, Lrow),
+                      shard_rows(cols_local.astype(np.int64), mesh, Lrow))
             from ..solvers.ffmv import register_ff_matvec
             register_ff_matvec(mv, ell_ff(sched, *shadow, width))
 
@@ -205,7 +209,8 @@ class GatherBellOperator(LinearOperator):
                          symmetric=symmetric,
                          hermitian=symmetric and not is_complex,
                          dtype=dp.dtype, device=mesh.home,
-                         params=tuple(c.vals for c in cards), **kwargs)
+                         params=tuple(c.vals for c in cards if c is not None),
+                         **kwargs)
         self.pad = mp - m
         self.pad_n = np_ - n
         self.mesh = mesh
@@ -213,7 +218,7 @@ class GatherBellOperator(LinearOperator):
         self.cards_t = cards_t
         self.schedule = (cols_local, sendidx, lens)
         self._container = (cards, sendidx, cards_t, shadow)
-        comm_attrs(self, d, sendidx, lens, Lx)
+        comm_attrs(self, d, sendidx, lens, Lx, round_lens)
         self.slots_per_device = int(nsteps * GS * LANES)
 
     @property

@@ -15,6 +15,15 @@ schedule's order) copied to its slot.  The transpose runs the schedule
 backwards: each shard's private partials go back to the rows that own
 them, summed into y in shard order.
 
+On a mesh of ranks each rank holds only its own rows and knows only their
+columns, so the schedule comes from one exchange when the operator is
+built (:class:`RankGather`): an ``all_gather`` of every rank's request
+counts (which also gives each round's padded width, so each rank's
+private address space is the slot mesh's), then an ``all_to_all`` of
+the request lists, so each rank learns what it sends.  A product is one
+``all_to_all`` of the requested rows; the transpose sends each rank's
+private partials back the same way and adds them in rank order.
+
 Zero-padding slots of the ELL container (data == 0) map to local index
 0: they multiply by zero and must not request remote rows.  The traffic
 of the schedule is ``comm_entries_per_matvec`` (padded to each round's
@@ -28,6 +37,7 @@ import torch
 
 from ..ops.base import LinearOperator
 from ..sparse import formats as F
+from ..utils import ranks
 from ..utils.types import to_tensor
 from .mesh import ROW_AXIS
 from .sharded import assemble, host, pad_to_multiple
@@ -46,9 +56,10 @@ def gather_ell_from_mtx(path, mesh, symmetric=False, axis=ROW_AXIS,
     one built from :func:`~..io.read_matrix_market` (the ELL conversion
     sorts the entries).  ``symmetric=None`` takes the file's symmetry."""
     from ..io.matrix_market import read_matrix_market_partitioned
-    d = mesh.shape[axis]
+    d = mesh.shape[axis] if not mesh.ranked else mesh.size
+    # on a mesh of ranks each rank parses the file and keeps its own part
     parts, shape, info = read_matrix_market_partitioned(
-        path, d, chunk_entries=chunk_entries, dtype=dtype)
+        path, d, keep=mesh.rank, chunk_entries=chunk_entries, dtype=dtype)
     vals = np.concatenate([p[0] for p in parts])
     rows = np.concatenate([p[1] for p in parts])
     cols = np.concatenate([p[2] for p in parts])
@@ -178,6 +189,109 @@ class ScheduledGather:
         return rule
 
 
+class RankGather:
+    """The gather schedule on a mesh of ranks, built from this rank's
+    rows alone.
+
+    ``data``/``cols`` are this rank's (Lrow, K) ELL arrays with global
+    column indices, ``Lx`` the x-side block size.  At construction: one
+    ``all_gather`` of the request counts (``counts[i, j]``: entries rank
+    i reads from rank j), one ``all_to_all`` of the request lists.  Then
+    ``cols_local`` remaps the columns into the private address space
+    ``[own x block | round-1 rows | ...]`` with the slot mesh's padded
+    round widths, and a product's private x is one ``all_to_all`` of the
+    requested rows.  ``lens`` are the true counts of each round, as
+    :func:`build_gather_schedule` gives them; ``round_widths`` the padded
+    ones.
+    """
+
+    def __init__(self, mesh, data, cols, Lx):
+        comm = self.comm = mesh.comm
+        self.mesh = mesh
+        d, r = mesh.size, mesh.rank
+        self.Lx = Lx
+        cols = np.asarray(cols, dtype=np.int64)
+        live = np.asarray(data) != 0
+        owner = cols // Lx
+        reqs = [np.unique(cols[live & (owner == j)]) % Lx if j != r
+                else np.zeros(0, np.int64) for j in range(d)]
+        mine = np.array([len(q) for q in reqs], dtype=np.int64)
+        counts = comm.all_gather(torch.from_numpy(mine)).numpy()
+        self.counts = counts
+        rounds = [[int(counts[i, (i + k) % d]) for i in range(d)]
+                  for k in range(1, d)]
+        self.lens = tuple(tuple(c) for c in rounds)
+        self.round_widths = tuple(max(c, default=0) for c in rounds)
+        offs = np.concatenate([[Lx], Lx + np.cumsum(self.round_widths,
+                                                    dtype=np.int64)])
+        self.width = int(offs[-1])
+        cl = np.zeros(cols.shape, dtype=np.int32)
+        own = live & (owner == r)
+        cl[own] = (cols[own] % Lx).astype(np.int32)
+        pidx = np.full(self.width, Lx + int(mine.sum()), dtype=np.int64)
+        pidx[:Lx] = np.arange(Lx)
+        base = Lx
+        for j in range(d):
+            if j == r:
+                continue
+            k = (j - r) % d
+            mask = live & (owner == j)
+            pos = np.searchsorted(reqs[j], cols[mask] % Lx)
+            cl[mask] = (offs[k - 1] + pos).astype(np.int32)
+            pidx[offs[k - 1]:offs[k - 1] + mine[j]] = base + np.arange(
+                mine[j])
+            base += int(mine[j])
+        self.cols_local = cl
+        self.recv_counts = [int(c) for c in mine]          # from each rank
+        self.send_counts = [int(c) for c in counts[:, r]]  # to each rank
+        req = np.concatenate([reqs[j] for j in range(d)]).astype(np.int64)
+        sent = comm.all_to_all(torch.from_numpy(req), self.recv_counts,
+                               self.send_counts)
+        self.send_idx = sent.to(mesh.home)
+        self.send_splits = np.cumsum([0] + self.send_counts)
+        self.pidx = torch.from_numpy(pidx).to(mesh.home)
+        self.private_offsets = offs
+
+    def private(self, k, x):
+        """This rank's private x: its own rows and the rows the schedule
+        sends it (one ``all_to_all``), zeros in the rounds' padding."""
+        x = ranks.plain(x)
+        got = self.comm.all_to_all(x[self.send_idx], self.send_counts,
+                                   self.recv_counts)
+        src = torch.cat([x, got, x.new_zeros((1,) + tuple(x.shape[1:]))])
+        return src[self.pidx]
+
+    def own(self, k, x):
+        return ranks.plain(x)
+
+    def transposed(self, local_t, n_out):
+        """``A^T x``: this rank's private partials go back to the ranks
+        that own their rows (one ``all_to_all``), added in rank order."""
+        d, r = self.mesh.size, self.mesh.rank
+        offs = self.private_offsets
+
+        def rule(x):
+            with self.mesh.on(r):
+                p = local_t(r, self.own(r, x))
+                back = [p[offs[(j - r) % d - 1]:
+                          offs[(j - r) % d - 1] + self.recv_counts[j]]
+                        for j in range(d) if j != r]
+                send = torch.cat(back) if back else p[:0]
+                got = self.comm.all_to_all(send, self.recv_counts,
+                                           self.send_counts)
+                y = p.new_zeros((self.Lx,) + tuple(p.shape[1:]))
+                for i in range(d):
+                    if i == r:
+                        y.index_add_(0, torch.arange(self.Lx,
+                                                     device=y.device),
+                                     p[:self.Lx])
+                    else:
+                        a, b = self.send_splits[i], self.send_splits[i + 1]
+                        y.index_add_(0, self.send_idx[a:b], got[a:b])
+                return ranks.shard(y)
+        return rule
+
+
 def ell_ff(sched, data, cols, width):
     """The compensated product over per-shard remapped ELL arrays: each
     shard's (hi, lo) private x through :func:`~..sparse.formats.
@@ -201,6 +315,35 @@ def pad_ell(ell):
     return host(ell.data), host(ell.cols).astype(np.int64), m, n
 
 
+def rank_ell(ell, mesh):
+    """This rank's rows of an ELL or COO container as ``(data, cols, m,
+    n, mp, np_, Lrow, Lx)``: (Lrow, K) host arrays with global column
+    indices (int64), zero rows past m.  A COO may hold this rank's
+    entries only (the partitioned reader's ``keep=rank`` part); its
+    shape is the whole matrix's."""
+    d, r = mesh.size, mesh.rank
+    m, n = ell.shape
+    mp, np_ = pad_to_multiple(m, d), pad_to_multiple(n, d)
+    Lrow, Lx = mp // d, np_ // d
+    lo = r * Lrow
+    if isinstance(ell, F.COO):
+        rr = host(ell.row).astype(np.int64)
+        keep = (rr >= lo) & (rr < lo + Lrow)
+        loc = F.coo_from_arrays(host(ell.data)[keep], rr[keep] - lo,
+                                host(ell.col).astype(np.int64)[keep],
+                                (Lrow, n), device=None)
+        e = F.ell_from_coo(loc, device=None)
+        return (host(e.data), host(e.cols).astype(np.int64), m, n, mp, np_,
+                Lrow, Lx)
+    data, cols = host(ell.data), host(ell.cols).astype(np.int64)
+    dp = np.zeros((Lrow, data.shape[1]), dtype=data.dtype)
+    cp = np.zeros((Lrow, data.shape[1]), dtype=np.int64)
+    hi = min(lo + Lrow, m)
+    if lo < hi:
+        dp[:hi - lo], cp[:hi - lo] = data[lo:hi], cols[lo:hi]
+    return dp, cp, m, n, mp, np_, Lrow, Lx
+
+
 def sharded_ell(data, cols, d, m, n):
     """Padded (mp, K) ELL arrays, their schedule and its sizes."""
     mp = pad_to_multiple(m, d)
@@ -215,9 +358,43 @@ def sharded_ell(data, cols, d, m, n):
     return dp, cols_local, sendidx, lens, mp, np_, Lrow, Lx
 
 
-def comm_attrs(op, d, sendidx, lens, Lx):
-    """The schedule's traffic attributes, as the JAX operators set them."""
-    round_lens = tuple(s.shape[1] for s in sendidx)
+def plan_gather(ell, mesh, d):
+    """The operator's shards and schedule: ``(dp, cols_local, sendidx,
+    lens, round_lens, mp, np_, Lrow, Lx, width, sched, m, n)``.  On a
+    mesh of slots ``dp``/``cols_local`` are every shard's rows and
+    ``sched`` a :class:`ScheduledGather`; on a mesh of ranks this rank's
+    rows, ``sched`` a :class:`RankGather` and ``sendidx`` None."""
+    if mesh.ranked:
+        dp, cp, m, n, mp, np_, Lrow, Lx = rank_ell(ell, mesh)
+        sched = RankGather(mesh, dp, cp, Lx)
+        return (dp, sched.cols_local, None, sched.lens, sched.round_widths,
+                mp, np_, Lrow, Lx, sched.width, sched, m, n)
+    data, cols, m, n = pad_ell(ell)
+    dp, cols_local, sendidx, lens, mp, np_, Lrow, Lx = sharded_ell(
+        data, cols, d, m, n)
+    width = Lx + sum(s.shape[1] for s in sendidx)
+    sched = ScheduledGather(mesh, sendidx, d, Lx, Lrow)
+    return (dp, cols_local, sendidx, lens, None, mp, np_, Lrow, Lx, width,
+            sched, m, n)
+
+
+def shard_rows(a, mesh, Lrow):
+    """Each shard's (Lrow, ...) block of ``a`` as a tensor on its slot:
+    every shard's on a mesh of slots (``a`` all rows), this rank's on a
+    mesh of ranks (``a`` its rows), None for the others."""
+    out = [None] * mesh.size
+    for k in mesh.shards():
+        blk = a if mesh.ranked else a[k * Lrow:(k + 1) * Lrow]
+        out[k] = to_tensor(np.ascontiguousarray(blk), device=mesh.slots[k])
+    return out
+
+
+def comm_attrs(op, d, sendidx, lens, Lx, round_lens=None):
+    """The schedule's traffic attributes, as the JAX operators set them
+    (``round_lens``: the rounds' padded widths, default from
+    ``sendidx``)."""
+    if round_lens is None:
+        round_lens = tuple(s.shape[1] for s in sendidx)
     op.comm_entries_per_matvec = int(sum(d * Lk for Lk in round_lens))
     op.comm_entries_true = int(sum(sum(t) for t in lens))
     op.allgather_entries_per_matvec = int(d * (d - 1) * Lx)
@@ -241,18 +418,14 @@ class GatherEllOperator(LinearOperator):
     """
 
     def __init__(self, ell, mesh, axis=ROW_AXIS, symmetric=False, **kwargs):
-        data, cols, m, n = pad_ell(ell)
-        if symmetric and m != n:
+        if symmetric and ell.shape[0] != ell.shape[1]:
             raise ValueError("symmetric requires a square operator")
-        d = mesh.shape[axis]
-        dp, cols_local, sendidx, lens, mp, np_, Lrow, Lx = sharded_ell(
-            data, cols, d, m, n)
-        width = Lx + sum(s.shape[1] for s in sendidx)
-        sched = ScheduledGather(mesh, sendidx, d, Lx, Lrow)
-        dat = [to_tensor(dp[k * Lrow:(k + 1) * Lrow], device=s)
-               for k, s in enumerate(mesh.slots)]
-        cl = [to_tensor(cols_local[k * Lrow:(k + 1) * Lrow].astype(np.int64),
-                        device=s) for k, s in enumerate(mesh.slots)]
+        d = mesh.shape[axis] if not mesh.ranked else mesh.size
+        plan = plan_gather(ell, mesh, d)
+        (dp, cols_local, sendidx, lens, round_lens, mp, np_, Lrow, Lx,
+         width, sched, m, n) = plan
+        dat = shard_rows(dp, mesh, Lrow)
+        cl = shard_rows(cols_local.astype(np.int64), mesh, Lrow)
 
         def mv(x):
             return assemble(mesh, lambda k: F.ell_matvec(
@@ -273,13 +446,14 @@ class GatherEllOperator(LinearOperator):
                          symmetric=symmetric,
                          hermitian=symmetric and not is_complex,
                          dtype=dp.dtype, device=mesh.home,
-                         params=tuple(dat), **kwargs)
+                         params=tuple(t for t in dat if t is not None),
+                         **kwargs)
         self.pad = mp - m
         self.pad_n = np_ - n
         self.mesh = mesh
         self.schedule = (cols_local, sendidx, lens)
         self._container = (dat, cl, sendidx)
-        comm_attrs(self, d, sendidx, lens, Lx)
+        comm_attrs(self, d, sendidx, lens, Lx, round_lens)
 
     @property
     def container(self):

@@ -10,6 +10,9 @@ Vector layout: brick order, global position ``((zi ry + yi) brick +
 (z_loc nyl + y_loc) n + x)``, so shard ``zi ry + yi`` of the flat vector
 is exactly its brick.  :func:`to_bricks` / :func:`from_bricks` convert;
 norms and dots do not see the permutation, so the solvers run unchanged.
+Under a world of ranks :func:`make_mesh2d` gives a mesh of ranks (rank
+``zi ry + yi`` holds brick ``(zi, yi)``) and the faces travel between
+ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from ..ops.base import LinearOperator
 from ..utils.types import as_dtype, to_tensor
-from .mesh import Mesh, _slots
+from ..utils import ranks
+from .mesh import Mesh, _slots, _world_up, rank_mesh
 from .stencil import brick_stencil
 
 __all__ = ["make_mesh2d", "Halo2DPoissonOperator", "shard_vector_2d",
@@ -46,9 +50,13 @@ def from_bricks(v, n, rz, ry):
     return _permuted(v, (rz, ry, n // rz, n // ry, n))
 
 
-def make_mesh2d(rz, ry, axis_names=("z", "y"), device="cuda"):
+def make_mesh2d(rz, ry, axis_names=("z", "y"), device="cuda",
+                transport=None):
     """An (rz x ry) mesh of shard slots (placed as :func:`~.mesh.make_mesh`
-    places rz ry of them, row-major)."""
+    places rz ry of them, row-major); under a world of ``rz ry`` ranks the
+    mesh of ranks of that shape (:func:`~.mesh.rank_mesh`)."""
+    if _world_up():
+        return rank_mesh((rz, ry), axis_names, device, transport)
     slots = _slots(rz * ry, device)
     return Mesh(np.asarray(slots, dtype=object).reshape(rz, ry),
                 axis_names)
@@ -56,8 +64,18 @@ def make_mesh2d(rz, ry, axis_names=("z", "y"), device="cuda"):
 
 def shard_vector_2d(x, mesh):
     """A flat brick-ordered grid vector as a sharded one (a tensor on the
-    home slot).  Convert natural-order vectors with :func:`to_bricks`
-    first and results back with :func:`from_bricks`."""
+    home slot; on a mesh of ranks this rank's brick).  Convert
+    natural-order vectors with :func:`to_bricks` first and results back
+    with :func:`from_bricks`."""
+    if mesh.ranked:
+        if isinstance(x, ranks.RankShard):
+            return x
+        x = to_tensor(x, device=mesh.home)
+        if x.shape[0] % mesh.size:
+            raise ValueError("length %d is not a multiple of the mesh's "
+                             "%d bricks" % (x.shape[0], mesh.size))
+        L = x.shape[0] // mesh.size
+        return ranks.shard(x[mesh.rank * L:(mesh.rank + 1) * L])
     x = to_tensor(x, device=mesh.home)
     if x.shape[0] % mesh.size:
         raise ValueError("length %d is not a multiple of the mesh's %d "

@@ -29,6 +29,7 @@ import torch
 
 from ..ops.base import LinearOperator
 from ..sparse import formats as F
+from ..utils import ranks
 from ..utils.types import to_tensor
 from .mesh import ROW_AXIS
 
@@ -40,9 +41,26 @@ def pad_to_multiple(n, d):
     return (n + d - 1) // d * d
 
 
-def shard_vector(x, mesh, axis=ROW_AXIS):
+def shard_vector(x, mesh, axis=ROW_AXIS, local=False):
     """A vector (or an (n, K) block) as a sharded one: a tensor on the
-    mesh's home slot whose length the mesh axis divides."""
+    mesh's home slot whose length the mesh axis divides.
+
+    On a mesh of ranks the result is this rank's rows, a
+    :class:`~..utils.ranks.RankShard`: ``x`` is the global array (its
+    rows ``[rank L, (rank+1) L)`` are taken), this rank's rows already
+    (``local=True``), or a rank-sharded tensor (kept)."""
+    if mesh.ranked:
+        if isinstance(x, ranks.RankShard):
+            return x
+        x = to_tensor(x, device=mesh.home)
+        if not local:
+            d = mesh.size
+            if x.shape[0] % d:
+                raise ValueError("length %d is not a multiple of the %d "
+                                 "ranks; pad it first" % (x.shape[0], d))
+            L = x.shape[0] // d
+            x = x[mesh.rank * L:(mesh.rank + 1) * L]
+        return ranks.shard(x)
     x = to_tensor(x, device=mesh.home)
     d = mesh.shape[axis]
     if x.shape[0] % d:
@@ -53,8 +71,46 @@ def shard_vector(x, mesh, axis=ROW_AXIS):
 
 def replicate(x, mesh):
     """An array every shard reads (a preconditioner's diagonal, the
-    n-side vectors of a tall operator): a tensor on the home slot."""
+    n-side vectors of a tall operator): a tensor on the home slot.  On a
+    mesh of ranks every rank holds the whole array: a rank-sharded
+    ``x`` (this rank's rows) is all-gathered (:func:`whole`)."""
+    if mesh.ranked and isinstance(x, ranks.RankShard):
+        return whole(x, mesh)
     return to_tensor(x, device=mesh.home)
+
+
+def whole(x, mesh):
+    """The global rows of a rank-sharded ``x`` on every rank (one
+    ``all_gather``), a plain tensor; on a mesh of slots ``x`` itself."""
+    if not mesh.ranked:
+        return x
+    g = mesh.comm.all_gather(ranks.plain(x))
+    return g.reshape((-1,) + tuple(g.shape[2:]))
+
+
+def halo_extend(x, w, mesh):
+    """This rank's rows of ``x`` (plain, L rows) with ``w`` rows of each
+    neighbour rank on either side, zeros past the global ends: the
+    neighbours' boundary rows are received in one exchange (``(w, K)``
+    slices for an (L, K) block)."""
+    comm = mesh.comm
+    r = mesh.rank
+    lo = r - 1 if r > 0 else None
+    hi = r + 1 if r < mesh.size - 1 else None
+    tail = tuple(x.shape[1:])
+    if w == 0:
+        return x
+    sends, recvs = [], []
+    if lo is not None:
+        sends.append((lo, x[:w]))
+        recvs.append((lo, (w,) + tail))
+    if hi is not None:
+        sends.append((hi, x[-w:]))
+        recvs.append((hi, (w,) + tail))
+    got = comm.sendrecv(sends, recvs, x)
+    below = got.pop(0) if lo is not None else x.new_zeros((w,) + tail)
+    above = got.pop(0) if hi is not None else x.new_zeros((w,) + tail)
+    return torch.cat([below, x, above])
 
 
 def rows_on(x, lo, hi, slot):
@@ -73,7 +129,11 @@ def rows_on(x, lo, hi, slot):
 
 def assemble(mesh, local):
     """The sharded result whose shard k's rows are ``local(k)``, each
-    computed with its slot current, gathered on the home slot."""
+    computed with its slot current, gathered on the home slot.  On a mesh
+    of ranks: this rank's ``local(rank)``, marked rank-sharded."""
+    if mesh.ranked:
+        with mesh.on(mesh.rank):
+            return ranks.shard(local(mesh.rank))
     pieces = []
     for k in range(mesh.size):
         with mesh.on(k):
@@ -108,6 +168,9 @@ def _shard_rows(a, mesh, mp, axis_rows=0):
     L = mp // mesh.size
     blocks = []
     for k, slot in enumerate(mesh.slots):
+        if k not in mesh.shards():
+            blocks.append(None)
+            continue
         idx[axis_rows] = slice(k * L, (k + 1) * L)
         blocks.append(to_tensor(np.ascontiguousarray(out[tuple(idx)]),
                                 device=slot))
@@ -137,20 +200,25 @@ class ShardedSparseOperator(LinearOperator):
                 cols = _shard_rows(host(c.cols).astype(np.int64), mesh, mp)
 
                 def mv(x):
+                    xw = whole(ranks.plain(x), mesh)
                     return assemble(mesh, lambda k: F.ell_matvec(
                         F.ELL(data[k], cols[k], (L, mp)),
-                        rows_on(x, 0, mp, mesh.slots[k])))
-                return mv, None, data + cols
+                        rows_on(xw, 0, mp, mesh.slots[k])))
+                return mv, None, [t for t in data + cols if t is not None]
             offsets = tuple(int(o) for o in c.offsets)
             w = max((abs(o) for o in offsets), default=0)
             data = _shard_rows(host(c.data), mesh, mp, axis_rows=1)
 
             def mm(x):
+                if mesh.ranked:
+                    xe = halo_extend(ranks.plain(x), w, mesh)
+                    return assemble(mesh, lambda k: dia_local(
+                        data[k], offsets, xe, w, L))
                 return assemble(mesh, lambda k: dia_local(
                     data[k], offsets,
                     rows_on(x, k * L - w, (k + 1) * L + w, mesh.slots[k]),
                     w, L))
-            return mm, mm, data
+            return mm, mm, [t for t in data if t is not None]
 
         mv, mm, params = rule(fwd)
         rmv = rmm = None
@@ -211,6 +279,18 @@ def sharded_poisson3d(n, mesh, dtype=np.float64, halo=True,
         op = HaloStencilPoisson3DOperator(n, mesh, dtype=dtype)
         e = shard_vector(torch.ones(n ** 3, dtype=op.dtype), mesh)
         return op, op * e, e, 0
+
+    if halo and mesh.ranked:
+        # this rank's rows only, never the whole matrix
+        from ..gallery.poisson import poisson3d_dia_rows
+        m = n ** 3
+        L = pad_to_multiple(m, mesh.size) // mesh.size
+        lo = mesh.rank * L
+        data, offsets = poisson3d_dia_rows(n, lo, lo + L, dtype=dtype)
+        op = HaloDiaOperator(F.DIA(data, offsets, (m, m)), mesh, local=True)
+        e = (np.arange(lo, lo + L) < m).astype(dtype)
+        e = shard_vector(e, mesh, local=True)
+        return op, op * e, e, op.pad
 
     vals, rows, cols, shape = poisson3d_coo(n, dtype=dtype)
     coo = F.coo_from_arrays(vals, rows, cols, shape, device=None)

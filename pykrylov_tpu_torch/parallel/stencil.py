@@ -8,7 +8,9 @@ z-planes of its neighbours (zeros at the global ends).
 Vector layout: the natural z-major flat ``(n^3,)`` order, whose z-slabs
 are contiguous, so :func:`~.sharded.shard_vector` shards it directly;
 ``n`` must be divisible by the mesh extent.  :mod:`.halo2d` splits y as
-well and shares the brick product below.
+well and shares the brick product below.  On a mesh of ranks each rank
+holds its brick and receives its neighbours' faces in one exchange
+(:meth:`~.comm.Comm.sendrecv`: up to four faces each way).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.base import LinearOperator
+from ..utils import ranks
 from ..utils.types import as_dtype
 from .mesh import ROW_AXIS
 from .sharded import assemble
@@ -51,7 +54,26 @@ def brick_stencil(mesh, n, rz, ry, scale):
     :func:`stencil7`."""
     nzl, nyl = n // rz, n // ry
 
+    def ranked(X):
+        """This rank's brick with its neighbours' faces, received."""
+        K = X.shape[1]
+        zi, yi = divmod(mesh.rank, ry)
+        u = ranks.plain(X).reshape(nzl, nyl, n, K)
+        peers = (((zi - 1) * ry + yi if zi > 0 else None, u[0]),
+                 ((zi + 1) * ry + yi if zi < rz - 1 else None, u[-1]),
+                 (zi * ry + yi - 1 if yi > 0 else None, u[:, 0]),
+                 (zi * ry + yi + 1 if yi < ry - 1 else None, u[:, -1]))
+        live = [(p, f) for p, f in peers if p is not None]
+        got = iter(mesh.comm.sendrecv(
+            live, [(p, f.shape) for p, f in live], u))
+        zlo, zhi, ylo, yhi = (next(got) if p is not None
+                              else u.new_zeros(f.shape) for p, f in peers)
+        return ranks.shard(stencil7(u, zlo, zhi, ylo, yhi,
+                                    scale.to(u.device)))
+
     def mm(X):
+        if mesh.ranked:
+            return ranked(X)
         K = X.shape[1]
         B = X.reshape(rz, ry, nzl, nyl, n, K)
 

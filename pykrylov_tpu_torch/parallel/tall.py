@@ -10,6 +10,11 @@ Counterpart of ``pykrylov_tpu/parallel/tall.py``.  A tall m x n system
     shard order on the home slot (the JAX package's ``psum``), the only
     reduction of an LSQR iteration.
 
+On a mesh of ranks each rank holds its own row block, the n-side vectors
+are plain tensors on every rank, and ``A' u``'s partials are
+all-gathered and summed in rank order on every rank: the slot mesh's
+shard-order sum, bit for bit, the same on every rank.
+
 The local product is a dense row-block product or an ELL gather/scatter
 for sparse tall systems.  The m side is padded to a mesh multiple with
 zero rows; the n side is not padded.
@@ -22,6 +27,7 @@ import torch
 
 from ..ops.base import LinearOperator
 from ..sparse import formats as F
+from ..utils import ranks
 from ..utils.types import to_tensor
 from .mesh import ROW_AXIS
 from .sharded import assemble, host, pad_to_multiple
@@ -30,7 +36,15 @@ __all__ = ["TallSkinnyOperator"]
 
 
 def _psum(mesh, local):
-    """``sum_k local(k)`` in shard order on the home slot."""
+    """``sum_k local(k)`` in shard order on the home slot (on a mesh of
+    ranks, of the all-gathered partials, on every rank)."""
+    if mesh.ranked:
+        with mesh.on(mesh.rank):
+            parts = mesh.comm.all_gather(local(mesh.rank))
+        acc = parts[0]
+        for k in range(1, mesh.size):
+            acc = acc + parts[k]
+        return acc
     acc = None
     for k in range(mesh.size):
         with mesh.on(k):
@@ -57,11 +71,19 @@ class TallSkinnyOperator(LinearOperator):
     The operator maps replicated length-n vectors to row-sharded
     length-``m + self.pad`` vectors: shard the rhs with
     :func:`~.sharded.shard_vector` (zero tail) and pass n-side vectors as
-    plain tensors on the home slot.
+    plain tensors on the home slot (on a mesh of ranks: the same whole
+    vector on every rank).
     """
 
     def __init__(self, source, mesh, axis=ROW_AXIS, **kwargs):
-        d = mesh.shape[axis]
+        d = mesh.shape[axis] if not mesh.ranked else mesh.size
+
+        def own(k, U):
+            """Shard k's rows of a row-side vector (this rank's: all of
+            them, unmarked)."""
+            if mesh.ranked:
+                return ranks.plain(U)
+            return U[k * L:(k + 1) * L]
         if isinstance(source, F.COO):
             source = F.ell_from_coo(source, device=None)
         if isinstance(source, F.ELL):
@@ -73,10 +95,10 @@ class TallSkinnyOperator(LinearOperator):
             cp = np.zeros((mp, K), dtype=np.int64)
             dp[:m], cp[:m] = data, cols
             L = mp // d
-            dat = [to_tensor(dp[k * L:(k + 1) * L], device=s)
-                   for k, s in enumerate(mesh.slots)]
-            cl = [to_tensor(cp[k * L:(k + 1) * L], device=s)
-                  for k, s in enumerate(mesh.slots)]
+            dat = [to_tensor(dp[k * L:(k + 1) * L], device=mesh.slots[k])
+                   if k in mesh.shards() else None for k in range(d)]
+            cl = [to_tensor(cp[k * L:(k + 1) * L], device=mesh.slots[k])
+                  if k in mesh.shards() else None for k in range(d)]
 
             def fwd(k, X):
                 a, Xs = _promoted(dat[k], X.to(mesh.slots[k]))
@@ -86,7 +108,7 @@ class TallSkinnyOperator(LinearOperator):
                 return torch.einsum("rw,rwk->rk", a, g)
 
             def adj(k, U):
-                a, Us = _promoted(dat[k], U[k * L:(k + 1) * L])
+                a, Us = _promoted(dat[k], own(k, U))
                 Us = Us.to(mesh.slots[k])
                 prods = a * Us[:, None] if U.ndim == 1 \
                     else a[:, :, None] * Us[:, None, :]
@@ -94,7 +116,7 @@ class TallSkinnyOperator(LinearOperator):
                 return out.index_add_(0, cl[k].reshape(-1),
                                       prods.reshape((-1,)
                                                     + tuple(U.shape[1:])))
-            params = tuple(dat)
+            params = tuple(t for t in dat if t is not None)
             dtype = dp.dtype
         else:
             a = host(source)
@@ -104,22 +126,22 @@ class TallSkinnyOperator(LinearOperator):
             m, n = a.shape
             mp = pad_to_multiple(m, d)
             L = mp // d
-            blocks = []
-            for k, s in enumerate(mesh.slots):
+            blocks = [None] * d
+            for k in mesh.shards():
                 blk = np.zeros((L, n), dtype=a.dtype)
                 lo, hi = k * L, min((k + 1) * L, m)
                 if lo < hi:
                     blk[:hi - lo] = a[lo:hi]
-                blocks.append(to_tensor(blk, device=s))
+                blocks[k] = to_tensor(blk, device=mesh.slots[k])
 
             def fwd(k, X):
                 blk, Xs = _promoted(blocks[k], X.to(mesh.slots[k]))
                 return blk @ Xs
 
             def adj(k, U):
-                blk, Us = _promoted(blocks[k], U[k * L:(k + 1) * L])
+                blk, Us = _promoted(blocks[k], own(k, U))
                 return blk.T @ Us.to(mesh.slots[k])
-            params = tuple(blocks)
+            params = tuple(b for b in blocks if b is not None)
             dtype = a.dtype
 
         def mv(x):

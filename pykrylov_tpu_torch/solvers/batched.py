@@ -48,8 +48,9 @@ from __future__ import annotations
 import torch
 
 from ..ops.base import ShapeError, _block_apply
-from .common import (as_operator, default_maxiter, history_init, promote_rhs,
-                     real_dtype, threshold_of)
+from .common import (as_operator, col_norms, col_vdots_real, default_maxiter,
+                     history_init, promote_rhs, real_dtype, rows, sum_rows,
+                     threshold_of)
 from .ffmv import resolve_ff_matmat
 from .result import SolveResult
 from ..utils.ff import (ff_add_ff, ff_div, ff_hypot, ff_mul, ff_sqrt,
@@ -102,7 +103,7 @@ def _apply_block_T(op, X):
 
 def _col_dot(A, B):
     """Per-column conjugated real inner products ``Re(a_k' b_k)``."""
-    return torch.linalg.vecdot(A, B, dim=0).real
+    return col_vdots_real(A, B)
 
 
 def _dotu_cols(A, B):
@@ -110,11 +111,11 @@ def _dotu_cols(A, B):
     (``bicgstab.py:103``): ``sum(a_k * b_k)``, not the inner product, for
     complex columns (``torch.linalg.vecdot`` conjugates its first
     argument)."""
-    return (A * B).sum(0)
+    return sum_rows(A * B)
 
 
 def _col_norm(X):
-    return torch.linalg.vector_norm(X, dim=0)
+    return col_norms(X)
 
 
 def _safe(x):
@@ -145,8 +146,8 @@ def _block_rhs(name, A, B, *ops, square=True):
         B = to_tensor(B, device=A.device)
     if B.ndim == 1:
         B = B[:, None]
-    rows = A.shape[1] if square else A.shape[0]
-    if (B.ndim != 2 or B.shape[0] != rows
+    need = A.shape[1] if square else A.shape[0]
+    if (B.ndim != 2 or rows(B) != need
             or (square and A.shape[0] != A.shape[1])):
         raise ShapeError("%s: operator %r with rhs block %s"
                          % (name, A, tuple(B.shape)))
@@ -211,7 +212,7 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     """
     A, B, M = _block_rhs("cg_batched", A, B, M)
     if maxiter is None:
-        maxiter = default_maxiter(B.shape[0], 1, matvec_max)
+        maxiter = default_maxiter(rows(B), 1, matvec_max)
     maxiter = int(maxiter)
     X0 = _check_x0(x0, B, "cg_batched")
     if replace_every:
@@ -320,7 +321,7 @@ def cg_pipelined_batched(A, B, *, x0=None, M=None, rtol=1.0e-6,
     """
     A, B, M = _block_rhs("cg_pipelined_batched", A, B, M)
     if maxiter is None:
-        maxiter = default_maxiter(B.shape[0], 1, matvec_max)
+        maxiter = default_maxiter(rows(B), 1, matvec_max)
     maxiter, replace_every = int(maxiter), int(replace_every)
     X0 = _check_x0(x0, B, "cg_pipelined_batched")
     dtype, dev = B.dtype, B.device
@@ -463,7 +464,7 @@ def bicgstab_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     """
     A, B, M = _block_rhs("bicgstab_batched", A, B, M)
     if maxiter is None:
-        maxiter = default_maxiter(B.shape[0], 2, matvec_max)
+        maxiter = default_maxiter(rows(B), 2, matvec_max)
     maxiter = int(maxiter)
     X0 = _check_x0(x0, B, "bicgstab_batched")
     dtype, dev = B.dtype, B.device
@@ -559,7 +560,7 @@ def cgs_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     """
     A, B, M = _block_rhs("cgs_batched", A, B, M)
     if matvec_max is None:
-        matvec_max = 2 * B.shape[0]
+        matvec_max = 2 * rows(B)
     matvec_max = int(matvec_max)
     if maxiter is None:
         maxiter = max(1, matvec_max // 2)
@@ -664,7 +665,7 @@ def tfqmr_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     """
     A, B, M = _block_rhs("tfqmr_batched", A, B, M)
     if maxiter is None:
-        maxiter = max(1, default_maxiter(B.shape[0], 2, matvec_max) + 1)
+        maxiter = max(1, default_maxiter(rows(B), 2, matvec_max) + 1)
     maxiter = int(maxiter)
     X0 = _check_x0(x0, B, "tfqmr_batched")
     dtype, dev = B.dtype, B.device
@@ -809,7 +810,7 @@ def minres_batched(A, B, *, M=None, shift=0.0, rtol=1.0e-12, etol=None,
         return _minres_batched_ff(
             A, B, M, float(shift), float(rtol),
             float(atol if atol is not None else 0.0),
-            int(itnlim if itnlim is not None else 5 * B.shape[0]),
+            int(itnlim if itnlim is not None else 5 * rows(B)),
             replace_every, resolve_ff_matmat(A))
     if atol is not None:
         raise ValueError("minres_batched: atol is only used by the verified "
@@ -817,7 +818,7 @@ def minres_batched(A, B, *, M=None, shift=0.0, rtol=1.0e-12, etol=None,
                          "estimate-stopping mode has no absolute test "
                          "(reference minres.py has none either)")
     A, B, M = _block_rhs("minres_batched", A, B, M)
-    itnlim = int(itnlim if itnlim is not None else 5 * B.shape[0])
+    itnlim = int(itnlim if itnlim is not None else 5 * rows(B))
     etol = float(etol if etol is not None else 1e-6)
     window = int(window if window is not None else 5)
     shift = float(shift)
@@ -994,7 +995,7 @@ def symmlq_batched(A, B, *, M=None, shift=0.0, rtol=1.0e-9, matvec_max=None,
     """
     A, B, M = _block_rhs("symmlq_batched", A, B, M)
     matvec_max = int(matvec_max if matvec_max is not None
-                     else 2 * B.shape[0] + 2)
+                     else 2 * rows(B) + 2)
     shift = float(shift)
     dtype, dev = B.dtype, B.device
     rdt = real_dtype(dtype)
@@ -1298,7 +1299,7 @@ def lsqr_batched(A, B, *, damp=0.0, M=None, N=None, atol=1.0e-9,
     bnorm = beta
     done = alpha * beta == 0            # the exact solution x = 0 (istop 0)
     hist = _history(store_history, itnlim + 1, beta)
-    X, W = torch.zeros((n, K), dtype=dtype, device=dev), v
+    X, W = torch.zeros_like(v, dtype=dtype), v
     rhobar, phibar = alpha, beta
     cs2, sn2, z = -torch.ones_like(zK), zK, zK
     xxnorm, ddnorm, res2 = zK, zK, zK
@@ -1449,7 +1450,7 @@ def lsmr_batched(A, B, *, damp=0.0, M=None, N=None, atol=1.0e-9,
     normb = beta
     done = alpha * beta == 0
     hist = _history(store_history, itnlim + 1, beta)
-    X, H = torch.zeros((n, K), dtype=dtype, device=dev), v
+    X, H = torch.zeros_like(v, dtype=dtype), v
     Hbar = torch.zeros_like(X)
     zetabar, alphabar = alpha * beta, alpha
     rho, rhobar, cbar, sbar = oneK, oneK, oneK, zK

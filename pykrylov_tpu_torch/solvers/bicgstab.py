@@ -30,9 +30,9 @@ import math
 
 import torch
 
-from .common import (apply_op, as_operator, attach_true_residual, dotu,
-                     fdiv, finite, history_from, promote_rhs, real_dtype,
-                     require_square)
+from .common import (apply_op, as_operator, attach_true_residual, dotu, fdiv,
+                     finite, history_from, norm, promote_rhs, real_dtype,
+                     require_square, rows)
 from .result import SolveResult
 from ..utils.types import to_tensor
 
@@ -63,7 +63,7 @@ def bicgstab(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     require_square(A, b, "bicgstab")
     dev = b.device
     if matvec_max is None:
-        matvec_max = 2 * b.shape[0]
+        matvec_max = 2 * rows(b)
     matvec_max = int(matvec_max)
 
     if x0 is None:
@@ -97,7 +97,7 @@ def bicgstab(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         alpha_t = rho / denom_t
         svec = torch.addcmul(r, alpha_t, v, value=-1)
         denom, alpha, resid_s = torch.stack(
-            [denom_t, alpha_t, torch.linalg.vector_norm(svec).to(
+            [denom_t, alpha_t, norm(svec).to(
                 denom_t.dtype)]).tolist()
         resid_s = abs(resid_s)
         if (denom == 0 or not finite(denom) or rho == 0
@@ -119,7 +119,7 @@ def bicgstab(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         r = torch.addcmul(svec, omega_t, t, value=-1)
         tt, omega, r0t, resid_r = torch.stack(
             [tt_t, omega_t, dotu(r0, t),
-             torch.linalg.vector_norm(r).to(tt_t.dtype)]).tolist()
+             norm(r).to(tt_t.dtype)]).tolist()
         resid_r = abs(resid_r)
         rho_next = -omega * r0t
         broken = tt == 0 or not math.isfinite(resid_r)

@@ -30,8 +30,9 @@ from __future__ import annotations
 import torch
 
 from .common import (apply_op, as_operator, attach_true_residual,
-                     default_maxiter, history_init, history_push,
-                     promote_rhs, require_square, threshold_of, vdot_real)
+                     default_maxiter, history_init, history_push, norm,
+                     promote_rhs, require_square, rows, threshold_of,
+                     vdot_real, vdots_norms)
 from .ffmv import resolve_ff_matvec
 from .result import SolveResult
 from ..utils.ff import ff_add_ff, two_prod, two_sum
@@ -92,7 +93,7 @@ def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
     b = promote_rhs(b, A, M)
     require_square(A, b, "cg")
     if maxiter is None:
-        maxiter = default_maxiter(b.shape[0], 1, matvec_max)
+        maxiter = default_maxiter(rows(b), 1, matvec_max)
     maxiter = int(maxiter)
     if replace_every:
         res = _cg_verified(A, b, x0, M, rtol, atol, maxiter,
@@ -216,8 +217,7 @@ def _cg_verified(A, b, x0, M, rtol, atol, maxiter, check_curvature,
     zero = torch.zeros_like(b)
     xl = rl = zero
     y = apply_op(M, r) if M is not None else r
-    ry = vdot_real(r, y)
-    resid0 = torch.linalg.vector_norm(r)
+    (ry,), (resid0,) = vdots_norms([(r, y)], [r])
     rdtype = resid0.dtype
     thresh = threshold_of(resid0, rtol, atol)
     hist = history_push(history_init(store_history, maxiter, rdtype, dev),
@@ -250,8 +250,7 @@ def _cg_verified(A, b, x0, M, rtol, atol, maxiter, check_curvature,
             qe = qe - alpha * Apl
         r2, rl2 = ff_add_ff(r, rl, qs, qe)
         y2 = apply_op(M, r2) if M is not None else r2
-        ry2 = vdot_real(r2, y2)
-        resid2 = torch.linalg.vector_norm(r2)
+        (ry2,), (resid2,) = vdots_norms([(r2, y2)], [r2])
         if check_curvature:
             pAp_h, resid2_h = torch.stack([pAp, resid2]).tolist()
             if pAp_h <= 0:
@@ -275,8 +274,7 @@ def _cg_verified(A, b, x0, M, rtol, atol, maxiter, check_curvature,
             d, de = two_sum(b, -sh)
             r2, rl2 = two_sum(d, de - sl)
             y2 = apply_op(M, r2) if M is not None else r2
-            ry2 = vdot_real(r2, y2)
-            resid2 = torch.linalg.vector_norm(r2)
+            (ry2,), (resid2,) = vdots_norms([(r2, y2)], [r2])
             resid2_h = leg_r0 = resid2.item()
             nrep += 1
             p2 = y2

@@ -30,9 +30,9 @@ import math
 
 import torch
 
-from .common import (apply_op, as_operator, attach_true_residual, dotu,
-                     finite, history_from, promote_rhs, real_dtype,
-                     require_square)
+from .common import (apply_op, as_operator, attach_true_residual, dotu, finite,
+                     history_from, norm, promote_rhs, real_dtype,
+                     require_square, rows)
 from .result import SolveResult
 from ..utils.types import to_tensor
 
@@ -62,7 +62,7 @@ def cgs(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     require_square(A, b, "cgs")
     dev = b.device
     if matvec_max is None:
-        matvec_max = 2 * b.shape[0]
+        matvec_max = 2 * rows(b)
     matvec_max = int(matvec_max)
     maxiter = max(1, matvec_max // 2)
 
@@ -95,7 +95,7 @@ def cgs(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         nmv += 2
         k += 1
         sigma, resid2, rho_next = torch.stack(
-            [sigma_t, torch.linalg.vector_norm(r).to(sigma_t.dtype),
+            [sigma_t, norm(r).to(sigma_t.dtype),
              dotu(r0, r)]).tolist()
         resid2 = abs(resid2)
         broken = (sigma == 0 or not finite(sigma)

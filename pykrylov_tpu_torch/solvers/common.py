@@ -1,6 +1,12 @@
 """Shared solver plumbing: operator coercion, thresholds, history buffers.
 
-Counterpart of ``pykrylov_tpu/solvers/common.py``.  Stopping-rule semantics
+Counterpart of ``pykrylov_tpu/solvers/common.py``.  The reductions over
+the rows (:func:`vdot_real`, :func:`dotu`, :func:`vdots_norms`,
+:func:`norm`, :func:`sum_rows`, :func:`col_norms`,
+:func:`col_vdots_real`) are the global ones of
+:mod:`..utils.ranks`: plain torch on plain tensors, one ``all_reduce`` of
+the local partials on a mesh of ranks, so no solver body knows about
+ranks; :func:`rows` is a vector's global length.  Stopping-rule semantics
 follow the reference square-system solvers: ``threshold = max(abstol,
 reltol * residNorm0)`` (``cg/cg.py:102``) with a matvec cap defaulting to
 2n (``cg/cg.py:97``).
@@ -14,10 +20,15 @@ import numpy as np
 import torch
 
 from ..ops.base import BaseLinearOperator, LinearOperator, MatrixOperator
+from ..utils import ranks
+from ..utils.ranks import (col_norms, col_vdots_real, norm, rows, sum_rows,
+                          vdots_norms)
 from ..utils.types import result_type, to_tensor
 
 __all__ = ["as_operator", "apply_op", "apply_op_T", "apply_op_H",
-           "vdot_real", "dotu", "fdiv", "finite", "real_dtype", "promote_rhs",
+           "vdot_real", "dotu", "vdots_norms", "norm", "sum_rows",
+           "col_norms", "col_vdots_real", "rows", "fdiv", "finite",
+           "real_dtype", "promote_rhs",
            "threshold_of", "default_maxiter", "history_init", "history_push",
            "history_from", "table_init", "table_push", "table_tensor",
            "require_square", "attach_true_residual",
@@ -53,7 +64,7 @@ def apply_op_H(op, x):
 def vdot_real(a, b):
     """Real part of the conjugated dot ``a^H b`` (CG's and the Lanczos
     solvers' inner products), a 0-d tensor on the vectors' device."""
-    return torch.vdot(a, b).real
+    return ranks.vdot_real(a, b)
 
 
 def dotu(a, b):
@@ -61,7 +72,7 @@ def dotu(a, b):
     (``bicgstab.py:103``, ``cgs.py:83``): for complex operands this is
     sum(a*b), not the inner product.  A 0-d tensor on the vectors' device.
     """
-    return torch.dot(a, b)
+    return ranks.dot(a, b)
 
 
 def fdiv(a, b):
@@ -193,7 +204,7 @@ def attach_true_residual(A, b, res, shift=0.0):
     rt = _certified_residual(A, b, res.x)
     if shift:
         rt = rt + shift * res.x
-    res.info["true_resid_norm"] = torch.linalg.vector_norm(rt)
+    res.info["true_resid_norm"] = norm(rt)
     return res
 
 
@@ -204,7 +215,7 @@ def require_square(A, b, solver_name):
         raise ValueError(
             "%s expects a square operator, got %dx%d (use lsqr/lsmr/craig "
             "for rectangular systems)" % (solver_name, m, n))
-    if b.ndim != 1 or b.shape[0] != n:
+    if b.ndim != 1 or rows(b) != n:
         raise ValueError("%s: rhs has shape %s, expected (%d,)"
                          % (solver_name, (tuple(b.shape),), n))
 
@@ -223,6 +234,5 @@ def attach_true_lls_residual(A, b, res, damp=0.0):
     ar = apply_op_T(A, rt)
     if damp:
         ar = ar - (damp * damp) * res.x
-    res.info["true_resid_norm"] = torch.linalg.vector_norm(rt)
-    res.info["true_normar"] = torch.linalg.vector_norm(ar)
+    res.info["true_resid_norm"], res.info["true_normar"] = norm(rt), norm(ar)
     return res

@@ -33,7 +33,7 @@ import math
 import torch
 
 from .common import (apply_op, apply_op_T, as_operator, history_from,
-                     history_init, history_push, promote_rhs, real_dtype)
+                     history_init, history_push, norm, promote_rhs, real_dtype)
 from .lls_common import gk_init, gk_read, gk_step
 from .result import SolveResult
 
@@ -152,7 +152,7 @@ def _craig(A, b, M, N, btol, etol, itnlim, window, store_history,
     def scalar(val):
         return torch.tensor(val, dtype=rdtype, device=dev)
 
-    info = {"r": torch.zeros(m, dtype=dtype, device=dev) if x_is_zero else r,
+    info = {"r": torch.zeros_like(b) if x_is_zero else r,
             "r1norm": scalar(math.sqrt(r1norm)),
             "r2norm": scalar(math.sqrt(rnorm)),
             "Arnorm": scalar(arnorm), "xnorm": scalar(xnorm),
@@ -162,7 +162,7 @@ def _craig(A, b, M, N, btol, etol, itnlim, window, store_history,
         info["iterates_p"] = ip
         info["iterates_d"] = idu
     return SolveResult(
-        x=torch.zeros(n, dtype=dtype, device=dev) if x_is_zero else x,
+        x=torch.zeros_like(v) if x_is_zero else x,
         converged=torch.tensor(optimal, device=dev),
         istop=torch.tensor(istop, dtype=torch.int32, device=dev),
         n_iter=torch.tensor(itn, dtype=torch.int32, device=dev),
@@ -223,6 +223,6 @@ def craig(A, b, *, M=None, N=None, atol=1.0e-9, btol=1.0e-9, etol=1.0e-6,
         d1 = (apply_op(M, d1) if M is not None else d1) - r
         d2 = apply_op_T(A, r)
         d2 = (apply_op(N, d2) if N is not None else d2) - res.x
-        res.info["true_dual_resid"] = torch.linalg.vector_norm(d1)
-        res.info["true_primal_resid"] = torch.linalg.vector_norm(d2)
+        res.info["true_dual_resid"] = norm(d1)
+        res.info["true_primal_resid"] = norm(d2)
     return res

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from .common import (apply_op, apply_op_T, as_operator, history_from,
+from .common import (apply_op, apply_op_T, as_operator, history_from, norm,
                      promote_rhs, real_dtype)
 from .lls_common import gk_init, gk_read, gk_step
 from .result import SolveResult
@@ -43,7 +43,6 @@ ISTOP_MSG = {
 def _craigmr(A, b, M, N, etol, itnlim, window, store_history):
     dtype, dev = b.dtype, b.device
     rdtype = real_dtype(dtype)
-    m = A.nargout
 
     u, Mu, v, Nv, alpha, beta = gk_init(A, b, M, N)
     x_is_zero = alpha * beta == 0
@@ -57,8 +56,8 @@ def _craigmr(A, b, M, N, etol, itnlim, window, store_history):
     alpha_tilde = alpha_hat
     theta = zeta = x_nrg2 = 0.0
     d = u / alpha_hat
-    dbar = torch.zeros(m, dtype=dtype, device=dev)
-    x = torch.zeros(m, dtype=dtype, device=dev)
+    dbar = torch.zeros_like(b)
+    x = torch.zeros_like(b)
 
     hist = [beta]
     d_err = [0.0] * window
@@ -162,5 +161,5 @@ def craigmr(A, b, *, M=None, N=None, etol=1.0e-6, window=5, itnlim=None,
         xn = apply_op(N, xn) if N is not None else xn
         d = b - apply_op(A, xn)
         d = (apply_op(M, d) if M is not None else d) - res.x
-        res.info["true_dual_resid"] = torch.linalg.vector_norm(d)
+        res.info["true_dual_resid"] = norm(d)
     return res

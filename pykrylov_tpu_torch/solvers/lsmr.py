@@ -39,6 +39,7 @@ import torch
 from .common import (as_operator, attach_true_lls_residual, fdiv,
                      history_from, promote_rhs, real_dtype, table_init,
                      table_push, table_tensor)
+from ..utils import ranks
 from .lls_common import gk_init, gk_read, gk_step, sym_ortho
 from .lsqr import stop_code
 from .result import SolveResult
@@ -99,8 +100,14 @@ def _lsmr(A, b, M, N, damp, atol, btol, conlim, etol, itnlim, window,
 
     # x, h and hbar as the rows of one tensor, whose Gram matrix gives the
     # new ||x|| in the iteration's one read
+    # on a mesh of ranks the rows are this rank's and the Gram matrix is
+    # all-reduced (one all_reduce of the 3x3 partials)
+    on_ranks = ranks.sharded(v)
+    n = v.shape[0]
     xhh, blocks = _gram_rows(n, dtype, dev)
     x, h, hbar = xhh[0, :n], xhh[1, :n], xhh[2, :n]
+    if on_ranks:
+        x, h, hbar = ranks.shard(x), ranks.shard(h), ranks.shard(hbar)
     h.copy_(v)
     zetabar, alphabar = alpha * beta, alpha
     rho = rhobar = cbar = 1.0
@@ -118,6 +125,8 @@ def _lsmr(A, b, M, N, damp, atol, btol, conlim, etol, itnlim, window,
     while not done and itn < itnlim:
         itn += 1
         gram = torch.bmm(blocks.conj(), blocks.transpose(1, 2)).sum(0)
+        if on_ranks:
+            gram = ranks.all_reduce(gram)
         (u, Mu, v, Nv), alpha, beta, g = gk_read(
             gk_step(A, M, N, v, Mu, Nv, alpha), (v, Nv, alpha), gram.real)
 

@@ -92,7 +92,6 @@ def _lsqr(A, b, M, N, damp, atol, btol, conlim, etol, itnlim, window,
           wantvar, store_history, store_table):
     dtype, dev = b.dtype, b.device
     rdtype = real_dtype(dtype)
-    n = A.nargin
     dampsq = damp * damp
     ctol = 1.0 / conlim if conlim > 0 else 0.0
 
@@ -109,9 +108,9 @@ def _lsqr(A, b, M, N, damp, atol, btol, conlim, etol, itnlim, window,
                      beta, beta, 1.0, 1.0 if x_is_zero else alpha / beta,
                      0.0, 0.0)
 
-    x = torch.zeros(n, dtype=dtype, device=dev)
+    x = torch.zeros_like(v, dtype=dtype)
     w = v
-    var = torch.zeros(n, dtype=dtype, device=dev) if wantvar else None
+    var = torch.zeros_like(v, dtype=dtype) if wantvar else None
     rhobar, phibar = alpha, beta
     cs2, sn2, z = -1.0, 0.0, 0.0
     xxnorm = ddnorm = res2 = anorm = acond = xnorm = x_nrg2 = 0.0

@@ -55,9 +55,9 @@ import math
 import torch
 
 from .common import (apply_op, as_operator, attach_true_residual, fdiv,
-                     history_from, history_init, history_push, promote_rhs,
-                     real_dtype, require_square, table_init, table_push,
-                     table_tensor, vdot_real)
+                     history_from, history_init, history_push, norm,
+                     promote_rhs, real_dtype, require_square, rows, table_init,
+                     table_push, table_tensor, vdot_real)
 from .ffmv import resolve_ff_matvec
 from .result import SolveResult
 from ..utils.ff import ff_add_ff, ff_div, ff_vdot, two_prod, two_sum
@@ -303,8 +303,8 @@ def _minres_verified(A, b, M, shift, rtol, etol, itnlim, window,
     y = apply_op(M, b) if M is not None else b
     yl = zero
     beta1_sq = vdot_real(b, y)
-    beta1_sq, bnorm = torch.stack([beta1_sq, torch.linalg.vector_norm(
-        b).to(beta1_sq.dtype)]).tolist()
+    beta1_sq, bnorm = torch.stack([beta1_sq,
+                                   norm(b).to(beta1_sq.dtype)]).tolist()
     zero_b = beta1_sq == 0
     istop = 9 if beta1_sq < 0 else 0
     beta1 = math.sqrt(max(beta1_sq, 0.0))
@@ -388,7 +388,7 @@ def _minres_verified(A, b, M, shift, rtol, etol, itnlim, window,
             d, de = two_sum(b, -sh2)
             d2, de2 = two_sum(d, ph2)
             rt = d2 + (de + de2 + pe2 + shift_t * xl - sl2)
-            rnt = torch.linalg.vector_norm(rt).item()
+            rnt = norm(rt).item()
             nrep += 1
             lastv = itn
             if istop == 0 and rnt <= vthresh:
@@ -492,7 +492,7 @@ def minres(A, b, *, M=None, shift=0.0, rtol=1.0e-12, etol=1.0e-6,
     b = promote_rhs(b, A, M)
     require_square(A, b, "minres")
     if itnlim is None:
-        itnlim = 5 * b.shape[0]
+        itnlim = 5 * rows(b)
     if check:
         if not check_symmetric(A):
             return _check_failed(7, b, store_history, store_iterates)

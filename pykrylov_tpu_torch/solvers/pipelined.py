@@ -38,8 +38,8 @@ import math
 import torch
 
 from .common import (apply_op, as_operator, default_maxiter, history_from,
-                     promote_rhs, real_dtype, require_square, threshold_of,
-                     vdot_real)
+                     promote_rhs, real_dtype, require_square, rows,
+                     threshold_of, vdot_real)
 from .result import SolveResult
 from ..utils.types import to_tensor
 
@@ -70,7 +70,7 @@ def cg_pipelined(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     b = promote_rhs(b, A, M)
     require_square(A, b, "cg_pipelined")
     if maxiter is None:
-        maxiter = default_maxiter(b.shape[0], 1, matvec_max)
+        maxiter = default_maxiter(rows(b), 1, matvec_max)
     maxiter, replace_every = int(maxiter), int(replace_every)
     dtype, dev = b.dtype, b.device
 

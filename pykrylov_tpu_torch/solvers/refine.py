@@ -37,8 +37,8 @@ import math
 import numpy as np
 import torch
 
-from .common import apply_op, apply_op_T, as_operator, promote_rhs, \
-    require_square
+from .common import (apply_op, apply_op_T, as_operator, col_norms, norm,
+                     promote_rhs, real_dtype, require_square, rows)
 from .ffmv import resolve_ff_matmat, resolve_ff_matvec
 from .result import SolveResult
 from ..utils.ff import ff_add, ff_add_ff, two_sum
@@ -203,7 +203,7 @@ def refined_solve(solver, A, b, *, rtol=1.0e-6, atol=0.0, x0=None, M=None,
         xh = torch.as_tensor(x0, device=b.device).to(b.dtype)
         r = _true_residual(A, b, xh, xl, ff)
         n_matvec += verify_cost
-    resid = torch.linalg.vector_norm(r)
+    resid = norm(r)
     resid_h = resid0_h = resid.item()
     resid0 = resid
     thresh = max(float(atol), float(rtol) * resid0_h)
@@ -247,7 +247,7 @@ def refined_solve(solver, A, b, *, rtol=1.0e-6, atol=0.0, x0=None, M=None,
         xh2, xl2 = _accumulate(xh, xl, res.x, (res.info or {}).get("x_lo"))
         r2 = _true_residual(A, b, xh2, xl2, ff)
         n_matvec += verify_cost
-        new_resid = torch.linalg.vector_norm(r2)
+        new_resid = norm(r2)
         new_h = new_resid.item()
         leg_resids.append(new_h)
         if emit:
@@ -355,7 +355,7 @@ def refined_lls(solver, A, b, *, atol=1.0e-5, btol=1.0e-6, x0=None,
     A = as_operator(A)
     b = promote_rhs(b, A, None)
     m, n = A.shape
-    if b.ndim != 1 or b.shape[0] != m:
+    if b.ndim != 1 or rows(b) != m:
         raise ValueError("refined_lls: rhs has shape %s, expected (%d,)"
                          % (tuple(b.shape), m))
     ff = resolve_ff_matvec(A)
@@ -365,18 +365,16 @@ def refined_lls(solver, A, b, *, atol=1.0e-5, btol=1.0e-6, x0=None,
 
     def verify(xh, xl):
         rt = _true_residual(A, b, xh, xl, ff)
-        return rt, torch.stack([torch.linalg.vector_norm(rt),
-                                torch.linalg.vector_norm(
-                                    apply_op_T(A, rt))])
+        return rt, torch.stack([norm(rt), norm(apply_op_T(A, rt))])
 
-    bnorm = torch.linalg.vector_norm(b).item()
+    bnorm = norm(b).item()
     n_matvec = 0
     xl = torch.zeros(n, dtype=b.dtype, device=b.device)
     if x0 is None:
         xh = torch.zeros_like(xl)
         r = b
-        norms = torch.stack([torch.linalg.vector_norm(b),
-                             torch.linalg.vector_norm(apply_op_T(A, b))])
+        norms = torch.stack([norm(b),
+                             norm(apply_op_T(A, b))])
         n_matvec += 1       # b - A*0 is known; only A'b is computed
     else:
         xh = torch.as_tensor(x0, device=b.device).to(b.dtype)
@@ -481,7 +479,7 @@ def refined_lls(solver, A, b, *, atol=1.0e-5, btol=1.0e-6, x0=None,
         istop = 0
 
     dev = b.device
-    rdtype = torch.linalg.vector_norm(b).dtype
+    rdtype = real_dtype(b.dtype)
 
     def scalar(v):
         return torch.tensor(v, dtype=rdtype, device=dev)
@@ -545,14 +543,14 @@ def refined_solve_batched(solver, A, B, *, rtol=1.0e-6, atol=0.0,
 
     def verify(Xh, Xl):
         R = _true_residual_block(A, B, Xh, Xl, ff_mm)
-        return R, torch.linalg.vector_norm(R, dim=0)
+        return R, col_norms(R)
 
     n_matvec = 0
     Xl = torch.zeros_like(B)
     if x0 is None:
         Xh = torch.zeros_like(B)
         R = B
-        Rnorm = torch.linalg.vector_norm(B, dim=0)
+        Rnorm = col_norms(B)
     else:
         # the initial iterate is the outer accumulator, verified before the
         # first leg (not every leg's inner guess)

@@ -34,8 +34,8 @@ import math
 import torch
 
 from .common import (apply_op, as_operator, attach_true_residual, fdiv,
-                     history_from, history_init, history_push, promote_rhs,
-                     real_dtype, require_square, vdot_real)
+                     history_from, history_init, history_push, norm,
+                     promote_rhs, real_dtype, require_square, rows, vdot_real)
 from .result import SolveResult
 from ..utils.utils import check_symmetric
 
@@ -185,7 +185,7 @@ def _symmlq(A, b, M, shift, rtol, matvec_max, store_history,
 
     if dead:
         x = torch.zeros_like(b)
-        rnorm = 0.0 if zero_b else torch.linalg.vector_norm(b).item()
+        rnorm = 0.0 if zero_b else norm(b).item()
         xnorm = 0.0
     else:
         # ---- move to the CG point if better (symmlq.py:356-365) ----------
@@ -201,8 +201,8 @@ def _symmlq(A, b, M, shift, rtol, matvec_max, store_history,
         if shift:
             ax = ax - shift * x
         nmv += 1
-        rnorm, xnorm = torch.stack([torch.linalg.vector_norm(b - ax),
-                                    torch.linalg.vector_norm(x)]).tolist()
+        rnorm, xnorm = torch.stack([norm(b - ax),
+                                    norm(x)]).tolist()
 
     info = {key: torch.tensor(val, dtype=rdtype, device=dev)
             for key, val in (("Anorm", anorm), ("Acond", acond),
@@ -252,7 +252,7 @@ def symmlq(A, b, *, M=None, shift=0.0, rtol=1.0e-9, matvec_max=None,
     b = promote_rhs(b, A, M)
     require_square(A, b, "symmlq")
     if matvec_max is None:
-        matvec_max = 2 * b.shape[0] + 2
+        matvec_max = 2 * rows(b) + 2
     if check:
         fail = None
         if not check_symmetric(A):

@@ -32,9 +32,9 @@ import math
 
 import torch
 
-from .common import (apply_op, as_operator, attach_true_residual, dotu,
-                     fdiv, finite, history_from, promote_rhs, real_dtype,
-                     require_square)
+from .common import (apply_op, as_operator, attach_true_residual, dotu, fdiv,
+                     finite, history_from, norm, promote_rhs, real_dtype,
+                     require_square, rows)
 from .result import SolveResult
 from ..utils.types import to_tensor
 
@@ -79,7 +79,7 @@ def tfqmr(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     require_square(A, b, "tfqmr")
     dev = b.device
     if matvec_max is None:
-        matvec_max = 2 * b.shape[0]
+        matvec_max = 2 * rows(b)
     matvec_max = int(matvec_max)
     maxiter = max(1, matvec_max // 2 + 1)
 
@@ -112,7 +112,7 @@ def tfqmr(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         w1 = torch.addcmul(w, alpha_t, u, value=-1)
         sigma, alpha, nw = torch.stack(
             [sigma_t, alpha_t,
-             torch.linalg.vector_norm(w1).to(sigma_t.dtype)]).tolist()
+             norm(w1).to(sigma_t.dtype)]).tolist()
         if (sigma == 0 or not finite(sigma) or rho == 0
                 or not math.isfinite(resid)):
             broken = True
@@ -137,7 +137,7 @@ def tfqmr(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         nmv += 1
         w2 = torch.addcmul(w, alpha_t, u, value=-1)
         nw, rho_next = torch.stack(
-            [torch.linalg.vector_norm(w2).to(sigma_t.dtype),
+            [norm(w2).to(sigma_t.dtype),
              dotu(r0, w2)]).tolist()
         w, d, x2, theta, eta, r2 = _rotate(w2, abs(nw), d, z, x1, alpha,
                                            theta, eta, r1)

@@ -15,12 +15,19 @@ multiply-adds, so nothing here may use ``addcmul``, ``addcdiv``, ``lerp``,
 6-flop version; TwoProd uses Dekker splitting (factor 2^12+1 for float32,
 2^27+1 for float64).  The arguments are tensors, 0-d ones for scalars.
 References: Dekker 1971; Ogita, Rump & Oishi 2005.
+
+On a mesh of ranks (rank-sharded operands, :mod:`.ranks`) the compensated
+reductions take each rank's (hi, lo) partial pair, all-gather them and
+combine them in rank order with TwoSum, so every rank holds the same pair
+and a one-rank world gives the plain pair bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import ranks
 
 __all__ = ["two_sum", "two_prod", "ff_add", "ff_add_ff", "ff_renorm",
            "ff_scale", "ff_div", "ff_mul", "ff_sqrt", "ff_hypot",
@@ -143,10 +150,27 @@ def _pairwise(p):
     return p[0], err
 
 
+def _across_ranks(h, l, corr=None):
+    """Every rank's (hi, lo) partial pair (and plain correction) combined
+    in rank order: one ``all_gather``, then TwoSum additions on every
+    rank."""
+    parts = [h, l] if corr is None else [h, l, corr]
+    g = ranks.gather_ranks(torch.stack(parts))
+    sh, sl = g[0, 0], g[0, 1]
+    c = None if corr is None else g[0, 2]
+    for k in range(1, g.shape[0]):
+        sh, sl = ff_add_ff(sh, sl, g[k, 0], g[k, 1])
+        if c is not None:
+            c = c + g[k, 2]
+    return (sh, sl) if corr is None else (sh, sl, c)
+
+
 def ff_sum(p):
     """Compensated sum of a real vector as an (hi, lo) pair: the pairwise
     TwoSum tree, about twofold working precision (Ogita-Rump Sum2's
     accuracy) at O(n) vector work with no serial scan."""
+    if ranks.sharded(p):
+        return _across_ranks(*ff_sum(ranks.plain(p)))
     if p.shape[0] == 0:
         z = p.new_zeros(())
         return z, z
@@ -160,15 +184,36 @@ def ff_vdot(ah, al, bh, bl):
     and the pairwise TwoSum tree; the product errors and first-order cross
     terms are folded through a plain sum (eps-level terms, so their
     rounding is second order)."""
+    if ranks.sharded(ah, al, bh, bl):
+        return _vdot_ranks(ff_vdot, ah, al, bh, bl)
     p, pe = two_prod(ah, bh)
     sh, sl = ff_sum(p)
     corr = (pe + ah * bl + al * bh).sum()
     return ff_add(sh, sl, corr)
 
 
+def _vdot_ranks(fn, ah, al, bh, bl):
+    """``fn`` (:func:`ff_vdot` or :func:`ff_vdot_cols`) over all ranks:
+    each rank's pair and correction before their final addition,
+    combined in rank order."""
+    ah, al, bh, bl = (ranks.plain(t) for t in (ah, al, bh, bl))
+    p, pe = two_prod(ah, bh)
+    total = ff_sum if fn is ff_vdot else ff_sum_cols
+    sh, sl = total(p)
+    corr = (pe + ah * bl + al * bh).sum(0)
+    return ff_add(*_across_ranks(sh, sl, corr))
+
+
 def ff_dot2(x, y):
     """Compensated dot product (Ogita-Rump-Oishi Dot2): the working-dtype
     value of x·y with the products' rounding errors folded in."""
+    if ranks.sharded(x, y):
+        p, s = two_prod(ranks.plain(x), ranks.plain(y))
+        g = ranks.gather_ranks(torch.stack([p.sum(), s.sum()]))
+        ps, ss = g[0, 0], g[0, 1]
+        for k in range(1, g.shape[0]):
+            ps, ss = ps + g[k, 0], ss + g[k, 1]
+        return ps + ss
     p, s = two_prod(x, y)
     return p.sum() + s.sum()
 
@@ -176,6 +221,8 @@ def ff_dot2(x, y):
 def ff_sum_cols(p):
     """Per-column :func:`ff_sum`: compensated sums over axis 0 of an (n, K)
     block, as a (K,) (hi, lo) pair."""
+    if ranks.sharded(p):
+        return _across_ranks(*ff_sum_cols(ranks.plain(p)))
     if p.shape[0] == 0:
         z = p.new_zeros(p.shape[1:])
         return z, z
@@ -186,6 +233,8 @@ def ff_sum_cols(p):
 def ff_vdot_cols(ah, al, bh, bl):
     """Per-column :func:`ff_vdot`: compensated real dots of two (n, K)
     (hi, lo) block pairs, as a (K,) scalar pair."""
+    if ranks.sharded(ah, al, bh, bl):
+        return _vdot_ranks(ff_vdot_cols, ah, al, bh, bl)
     p, pe = two_prod(ah, bh)
     sh, sl = ff_sum_cols(p)
     corr = (pe + ah * bl + al * bh).sum(0)

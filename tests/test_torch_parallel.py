@@ -78,10 +78,14 @@ def padded(rng, n, pad, k=None):
 def test_mesh_info_matches_jax(P):
     jm, tm = meshes(P)
     ji, ti = jpar.device_mesh_info(jm), par.device_mesh_info(tm)
-    assert set(ti) == set(ji)
+    # the JAX keys, and the process index, count and transport
+    assert set(ti) == set(ji) | {"process_index", "process_count",
+                                 "transport"}
     for key in ("axis_names", "shape", "n_devices"):
         assert ti[key] == ji[key]
     assert ti["platform"] == "cpu"
+    assert (ti["process_index"], ti["process_count"]) == (0, 1)
+    assert ti["transport"] == "slots" and not tm.ranked
     assert tm.slots == (torch.device("cpu"),) * P and tm.home.type == "cpu"
 
 
@@ -123,10 +127,13 @@ def test_initialize_multihost_explicit_and_idempotent(monkeypatch):
         again = par.initialize_multihost("localhost:%d" % port, 1, 0,
                                          device=DEV)
         assert again == info
-        # a one-rank group still builds meshes; more ranks do not
-        assert par.make_mesh(2, device=DEV).size == 2
-        monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-        with pytest.raises(NotImplementedError, match="item 22"):
+        # under the world the mesh is the mesh of ranks: one shard a rank
+        mesh = par.make_mesh(device=DEV)
+        assert mesh.ranked and mesh.size == 1 and mesh.rank == 0
+        mi = par.device_mesh_info(mesh)
+        assert (mi["process_index"], mi["process_count"]) == (0, 1)
+        assert mi["transport"] == "host" and mi["n_devices"] == 1
+        with pytest.raises(ValueError, match="one shard a rank"):
             par.make_mesh(2, device=DEV)
     finally:
         monkeypatch.undo()
