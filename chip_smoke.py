@@ -24,7 +24,7 @@ at n = 240 (DIA), MINRES's Jacobi golden on tiled 1138bus (SELL),
 BiCGSTAB, CGS and TFQMR on a 4.2M-row convection-diffusion matrix (DIA),
 and the reference's bmark on jpwh_991 tiled 256 times (SELL, f64); and
 the least-squares path, whose solvers apply A and A^T: LSMR (``solve``'s
-rectangular branch) and LSQR on a 2.67M x 1.17M power-system
+rectangular branch) and LSQR on a 1.34M x 0.58M power-system
 state-estimation matrix (SELL in both directions), and LSQR, LSMR, CRAIG
 and CRAIG-MR on the convection-diffusion matrix (DIA in both
 directions); and, with blocks of K = 2, the nine batched solvers on the
@@ -106,8 +106,8 @@ Phases, in order:
      (70, 70 and 64 with Jacobi floor=1), one SELL launch a matvec (CGS
      and TFQMR launch one more, for the guess they do not count);
   10. the rectangular path: :func:`se_coo`, the DC state-estimation
-     measurement matrix of 1024 areas of the 1138bus grid (2,670,592 x
-     1,165,312, 7,149,568 nonzeros, f32): ``fmt="auto"`` must give SELL
+     measurement matrix of 512 areas of the 1138bus grid (1,335,296 x
+     582,656, 3,574,784 nonzeros, f32): ``fmt="auto"`` must give SELL
      card forms of A and of A^T (no ELL transpose, split or permutation),
      each kernel bit for bit its plain version (f32 and f64 x); b = A
      x_true + 1% noise in f64; ``solve`` (LSMR) and ``lsqr`` at atol =
@@ -263,12 +263,20 @@ Phases, in order:
      19's mesh of slots and the unsharded phase; a control: the halo CG
      on one gloo rank with the same host staging;
   21b. NCCL: a one-rank NCCL world runs the exchange layer's NCCL branch
-     on CUDA tensors (``all_reduce``, ``all_to_all_single``) and a halo CG;
-     with two cards or more, a world of one rank a card runs 21a's halo
-     CG;
+     on CUDA tensors (``all_reduce``, ``all_to_all_single``) and a halo CG
+     (the legs over several cards are ``--nccl``'s, below);
   21c. ``pykrylov_tpu_torch.dryrun.dryrun_multichip(RANKS)`` over RANKS
      ranks on the card (gloo, host transport): the twelve legs of the JAX
      package's dry run, every rank printing the same lines;
+  21d. in 21a's world, on 21a's halo operator and transposed shards: CG
+     preconditioned by an ``InverseLBFGSOperator`` over the mesh of
+     LBFGS_PAIRS pairs (s, H s); ``checkpointed_solve`` of the halo CG
+     stopped by ``keep_going`` after its first chunk and resumed from the
+     file (after each call the one file, written by rank 0, holds the
+     gathered iterate; DIA launches = ``total_matvec``); ``lsqr(show=True)``
+     capped at 20 iterations (rank 0 alone prints, every rank keeps the
+     same table, whose last x(1) is the whole x's first row); the same
+     lockstep, launch and residual checks as 21a;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -307,10 +315,22 @@ Phases, in order:
 Phases 8-21 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.
 
-``python3 chip_smoke.py --nccl`` runs phases 1, 2 and 4 and then 21b's
-NCCL legs on the machine's cards: a world of one rank a card running the
-halo CG where there are two cards or more, or, on one card, a world of
-two NCCL ranks on it, which must be refused.
+``python3 chip_smoke.py --nccl`` runs phases 1, 2 and 4 and then NCCL
+worlds on the machine's cards.  Where there are two cards or more:
+
+  21e. a probe of the exchanges (``NCCL_DEBUG=INFO`` into files, NCCL's
+     chosen transports logged): each rank's card and threads, the cards
+     each rank holds a context on (nvidia-smi), the round trip of a local
+     op, of an ``all_reduce`` and of a halo exchange, ``all_reduce`` calls
+     enqueued back to back, the halo exchange as the exchange layer's
+     ``batch_isend_irecv`` and as one ``all_to_all_single``, and the halo
+     CG in turns with each of them and with a 1/R share of the threads;
+
+then the unsharded references on the first card (phase 5's tiled 1138bus
+and its CG, 20a's MatrixMarket file, phase 10's state-estimation operator
+and LSQR), a world of one NCCL rank a card running every leg of 21a and
+21d with their checks, and the dry run's twelve legs (21c).  On one card
+a world of two NCCL ranks on it must be refused.
 
 Any failure raises and the script exits non-zero without the result line.
 Without a CUDA device, or without the package beside it, it exits 2.
@@ -666,7 +686,8 @@ CLASSES = {"power_law": gen_power_law,
            "permuted_blockdiag": gen_permuted_blockdiag}
 
 
-SE_TILES = 1024     # areas of the state-estimation matrix (phase 10)
+SE_TILES = 512      # areas of the state-estimation matrix (phase 10; 1024
+                    # until PR 14 cut it to keep the smoke inside its time)
 SE_PMU_EVERY = 100  # an angle (PMU) measurement at every 100th bus
 
 
@@ -1426,12 +1447,17 @@ def phase_bell_block(pt, A, coo, bell):
         % (tag, secs, per_iter, per_iter / KB, single_ms))
     _profile_solve(pt, tag, A, Bm, secs)
 
+    # the plain BELL product streams the container on the host's plan
+    # (25 ms a K = 8 block iteration): the first KB_CUT columns are enough
+    # to hold the kernel's counts to it
     before = (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES)
-    res_p, secs_p = _timed_block_solve(pt, A.plain(), Bm)
+    res_p, secs_p = _timed_block_solve(pt, A.plain(),
+                                       Bm[:, :KB_CUT].contiguous())
     n_p = int(res_p.n_iter)
-    log("[%s] plain BELL: converged=%s n_iter=%d, %.3f s, %.4f ms per "
-        "block iteration" % (tag, res_p.converged.tolist(), n_p, secs_p,
-                             1e3 * secs_p / max(n_p, 1)))
+    log("[%s] plain BELL, the first %d columns: converged=%s n_iter=%d, "
+        "%.3f s, %.4f ms per block iteration"
+        % (tag, KB_CUT, res_p.converged.tolist(), n_p, secs_p,
+           1e3 * secs_p / max(n_p, 1)))
     if (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES) != before:
         raise AssertionError("%s: the plain operator launched a kernel" % tag)
     cols_p = res_p.info["n_iter_columns"].tolist()
@@ -3647,10 +3673,13 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 def _trace_window(events, first, last):
     """From a Chrome trace: the host span ``first``'s start to the host
     span ``last``'s end; the device events (kernels, copies, fills) that
-    start inside it and their busy microseconds; the host kernel launches
-    matched by correlation id to their kernels, the least and greatest
-    (kernel start - launch start) in microseconds; and the host launches
-    whose kernel record is missing, before the window and inside it."""
+    start inside it and their busy microseconds; the kernels of the host
+    launches made inside it, matched by correlation id (the device
+    timeline's clock can run a millisecond off the host's, so a kernel
+    launched just after ``first`` starts may carry a device time before
+    it); the least and greatest (kernel start - launch start) in
+    microseconds; and the host launches whose kernel record is missing,
+    before the window and inside it."""
     spans = {e["name"]: e for e in events
              if e.get("cat") == "user_annotation"
              and e.get("name") in (first, last)}
@@ -3669,7 +3698,10 @@ def _trace_window(events, first, last):
               for e in launches if e["args"]["correlation"] in kernels]
     missing = [e["ts"] for e in launches
                if e["args"]["correlation"] not in kernels]
-    return {"device": device,
+    launched = [kernels[e["args"]["correlation"]] for e in launches
+                if lo <= e["ts"] <= hi
+                and e["args"]["correlation"] in kernels]
+    return {"device": device, "launched": launched,
             "busy_us": sum(min(e["ts"] + e.get("dur", 0), hi) - e["ts"]
                            for e in device),
             "delay_us": (min(delays, default=None),
@@ -3726,14 +3758,15 @@ def phase_trace(pt, A_bell, bell):
     if not set(spans) <= names:
         raise AssertionError("%s: the trace lacks the spans %s" % (tag, spans))
     win = _trace_window(events, *spans)
-    kernels = _kernel_events(win["device"], "sell_spmv_kernel")
+    kernels = _kernel_events(win["launched"], "sell_spmv_kernel")
     recorded = _device_calls(prof, "sell_spmv_kernel")
     busy = 1e-6 * win["busy_us"]
     stats = solve_stats(res, secs)
     ms = 1e3 * secs / max(n_iter, 1)
     idle = max(0.0, 1 - busy / secs)
     log("[%s] trace %s (%d bytes, %d events): spans %s; between them %d "
-        "SELL SpMV kernel events for %d launches counted (the profiler's "
+        "SELL SpMV kernel events of launches for %d launches counted "
+        "(the profiler's "
         "count, warm-up aside, %d); %d host launches, their kernels start "
         "%s to %s us after them, %d without a kernel record before the "
         "solve (of %d warm-up launches) and %d during it; %d iterations (the "
@@ -4757,12 +4790,15 @@ def phase_examples(pt):
 # 21. a mesh of ranks: spawned ranks sharing the card, NCCL, the dry run
 # --------------------------------------------------------------------------
 
-RANKS = 4               # ranks of 21a and 21c, all on the one card
+RANKS = 4               # ranks of 21a, 21c and 21d, all on the one card
 RANK_TIMEOUT = 300.0    # seconds a collective may wait: a lost rank fails
                         # the others instead of hanging them
 RANK_DEADLINE = 600.0   # seconds a spawned world may take in all
 RANK_ITER_SLACK = 3     # 21a's halo CG against phase 4's count: its dots
                         # are per-rank partials, all-reduced
+RANK_PROFILE_ITERS = 20  # profiled iterations of 21d's L-BFGS CG (12
+                         # all-reduces an iteration)
+PROBE_REPS = 200        # collectives each of 21e's timings averages
 
 
 def _rank_solve(mesh, tag, label, fn, kernel, extra, capped):
@@ -4775,6 +4811,7 @@ def _rank_solve(mesh, tag, label, fn, kernel, extra, capped):
     comm = mesh.comm
     comm.reset_counts()
     _reset_counts()
+    comm.barrier()                   # the ranks start together
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fn()
@@ -4807,16 +4844,15 @@ def _rank_solve(mesh, tag, label, fn, kernel, extra, capped):
                  "resid_norm": float(res.resid_norm)}
 
 
-def _rank_halo(transport):
-    """21a's (and 21b's) halo DIA CG on one rank: this rank's rows of
-    phase 4's Poisson matrix from ``sharded_poisson3d``, its product of
-    phase 4's x_true (the parent holds it to phase 4's b bit for bit),
-    CG on that product."""
+def _halo_leg(mesh):
+    """21a's halo DIA CG on one rank: this rank's rows of phase 4's
+    Poisson matrix from ``sharded_poisson3d``, its product of phase 4's
+    x_true (the parent holds it to phase 4's b bit for bit), CG on that
+    product.  Returns (operator, b, record)."""
     import pykrylov_tpu_torch as pt
     from pykrylov_tpu_torch import parallel as par
     from pykrylov_tpu_torch.utils import ranks
 
-    mesh = par.make_mesh(device=DEVICE, transport=transport)
     r, R = mesh.rank, mesh.size
     tag = "21 halo DIA, rank %d of %d (%s)" % (r, R, mesh.transport)
     torch.cuda.synchronize()
@@ -4844,14 +4880,157 @@ def _rank_halo(transport):
     rec.update(build_s=build_s, b=ranks.plain(b).cpu().numpy(),
                x=ranks.plain(res.x).cpu().numpy(),
                info=par.device_mesh_info(mesh))
+    return H, b, rec
+
+
+def _rank_halo(transport):
+    """21a's halo DIA CG (:func:`_halo_leg`) on one rank of a world."""
+    from pykrylov_tpu_torch import parallel as par
+    return _halo_leg(par.make_mesh(device=DEVICE, transport=transport))[2]
+
+
+def _lbfgs_leg(mesh, H, b):
+    """21d on one rank: CG on the halo operator preconditioned by an
+    ``InverseLBFGSOperator`` over the mesh of LBFGS_PAIRS pairs (s, H s),
+    s this rank's rows of a normal vector seeded by the pair and the
+    rank (the products launch before the counted solve)."""
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch.utils import ranks
+
+    r, R = mesh.rank, mesh.size
+    tag = "21d L-BFGS CG, rank %d of %d (%s)" % (r, R, mesh.transport)
+    M = pt.InverseLBFGSOperator(H.nargin, LBFGS_PAIRS, dtype=torch.float32,
+                                device=DEVICE, mesh=mesh)
+    for k in range(LBFGS_PAIRS):
+        g = torch.Generator(device=mesh.home).manual_seed(1000 * k + r)
+        s = ranks.shard(torch.randn(b.shape[0], generator=g,
+                                    device=mesh.home))
+        M.store(s, H * s)
+    if int(M.data.valid.sum()) != LBFGS_PAIRS:
+        raise AssertionError("%s: kept %s of %d pairs"
+                             % (tag, M.data.valid.tolist(), LBFGS_PAIRS))
+    label = "cg, M = InverseLBFGSOperator (%d pairs)" % LBFGS_PAIRS
+    pt.cg(H, b, M=M, maxiter=3)                              # warm-up
+    res, rec = _rank_solve(
+        mesh, tag, label, lambda: pt.cg(H, b, M=M), "dia_spmv",
+        lambda res: 0, lambda: pt.cg(H, b, M=M, maxiter=RANK_PROFILE_ITERS))
+    rec["x"] = ranks.plain(res.x).cpu().numpy()
     return rec
 
 
-def _rank_paths(mtx_path, b_bus_path, b_se_path):
-    """21a on one rank of the gloo world: the halo DIA CG
-    (:func:`_rank_halo`), gather-SELL CG on this rank's ``keep=rank`` part
-    of tiled 1138bus, LSQR on the state-estimation matrix with transposed
-    shards; this rank's rows of each x for the parent."""
+def _ckpt_leg(mesh, H, b, path):
+    """21d on one rank: ``checkpointed_solve`` of the halo CG in chunks of
+    CKPT_CHUNK, stopped by ``keep_going`` after its first chunk and then
+    resumed from the file to convergence.  After each call the file (one,
+    written by rank 0) holds the whole iterate: this rank's rows of it
+    are its own, bit for bit; DIA launches over both calls =
+    ``total_matvec``."""
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch.utils import load_result, ranks
+
+    r, R = mesh.rank, mesh.size
+    tag = "21d checkpointed CG, rank %d of %d (%s)" % (r, R, mesh.transport)
+    comm, L = mesh.comm, b.shape[0]
+
+    def rows_saved(x, chunk):
+        state = load_result(path)
+        mine = state["x"][r * L:(r + 1) * L]
+        if (state["x"].shape[0] != R * L or int(state["extra_chunk"]) != chunk
+                or not np.array_equal(mine, ranks.plain(x).cpu().numpy())):
+            raise AssertionError("%s: the file after chunk %d is not the "
+                                 "gathered iterate" % (tag, chunk))
+    chunks = []
+    comm.reset_counts()
+    _reset_counts()
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = _ckpt_run(pt, H, b, path, chunks,
+                      keep_going=lambda chunk, res: False)
+    rows_saved(first.x, 0)
+    if len(chunks) != 1 or bool(first.converged):
+        raise AssertionError("%s: the first call ran %s" % (tag, chunks))
+    res = _ckpt_run(pt, H, b, path, chunks)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, calls, comm_s = _counts(), dict(comm.calls), comm.seconds
+    rows_saved(res.x, len(chunks) - 2)
+    total = int(res.info["total_matvec"])
+    n = sum(c[0] for c in chunks)
+    ms = 1e3 * secs / n
+    log("[%s] stopped after chunk 0, resumed: %d chunks %s, istop %d, "
+        "total_matvec %d, launches %s, %.3f s, %.4f ms per iteration (saves "
+        "and restarts included), %.2f all-reduces per iteration (%.1f%% of "
+        "the wall), exchanges %s" % (tag, len(chunks), chunks,
+                                     int(res.istop), total, counts, secs, ms,
+                                     calls["all_reduce"] / n,
+                                     100 * comm_s / secs, calls))
+    if (int(res.istop) != 0 or total != sum(c[1] for c in chunks)
+            or counts != {"dia_spmv": total, "dia_spmm": 0, "sell_spmv": 0,
+                          "sell_spmm": 0}):
+        raise AssertionError("%s: %r, total_matvec %d, launches %s"
+                             % (tag, res, total, counts))
+    return {"n_iter": n, "istop": int(res.istop), "n_matvec": total,
+            "chunks": len(chunks), "launches": counts, "solve_s": secs,
+            "ms_per_iter": ms, "all_reduces_per_iter": calls["all_reduce"] / n,
+            "comm_share": comm_s / secs, "exchanges": calls, "idle": None,
+            "resid_norm": float(res.resid_norm),
+            "x": ranks.plain(res.x).cpu().numpy()}
+
+
+def _show_leg(mesh, Gs, bs, opts):
+    """21d on one rank: ``lsqr(show=True)`` on the transposed shards,
+    SHARD_XLLS_ITERS iterations: every rank keeps the table, rank 0 alone
+    prints it, and its x(1) column is the whole x's first row (one
+    broadcast an iteration)."""
+    import io
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch.utils import ranks
+
+    r, R = mesh.rank, mesh.size
+    tag = "21d lsqr(show=True), rank %d of %d (%s)" % (r, R, mesh.transport)
+    comm = mesh.comm
+    text = io.StringIO()
+    comm.reset_counts()
+    _reset_counts()
+    comm.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        res = pt.lsqr(Gs, bs, show=True, **dict(opts,
+                                                itnlim=SHARD_XLLS_ITERS))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, calls, comm_s = _counts(), dict(comm.calls), comm.seconds
+    n = max(int(res.n_iter), 1)
+    want = int(res.n_matvec) + _initial_launch(res)
+    log("[%s] %d iterations, %d sell_spmv launches for %d products, %.3f "
+        "s, %.4f ms per iteration, %.2f all-reduces and %.2f broadcasts per "
+        "iteration (%.1f%% of the wall), %d lines printed"
+        % (tag, int(res.n_iter), counts["sell_spmv"], want, secs,
+           1e3 * secs / n, calls["all_reduce"] / n, calls["broadcast"] / n,
+           100 * comm_s / secs, len(text.getvalue().splitlines())))
+    if counts["sell_spmv"] != want or sum(counts.values()) != want:
+        raise AssertionError("%s: launches %s for %d products"
+                             % (tag, counts, want))
+    return {"n_iter": int(res.n_iter), "istop": int(res.istop),
+            "n_matvec": int(res.n_matvec), "launches": counts,
+            "solve_s": secs, "ms_per_iter": 1e3 * secs / n,
+            "all_reduces_per_iter": calls["all_reduce"] / n,
+            "broadcasts_per_iter": calls["broadcast"] / n,
+            "comm_share": comm_s / secs, "exchanges": calls, "idle": None,
+            "resid_norm": float(res.resid_norm), "text": text.getvalue(),
+            "table": res.info["show_table"].cpu().numpy(),
+            "x": ranks.plain(res.x).cpu().numpy()}
+
+
+def _rank_paths(transport, mtx_path, b_bus_path, b_se_path, ckpt_path):
+    """21a and 21d on one rank of a world (``transport`` ``"host"``: gloo
+    with host staging; ``"nccl"``): the halo DIA CG (:func:`_halo_leg`),
+    the L-BFGS-preconditioned and the checkpointed CG on the same
+    operator, gather-SELL CG on this rank's ``keep=rank`` part of tiled
+    1138bus, LSQR on the state-estimation matrix with transposed shards
+    and its ``show`` table; this rank's rows of each x for the parent."""
     import pykrylov_tpu_torch as pt
     from pykrylov_tpu_torch import parallel as par
     from pykrylov_tpu_torch.io.matrix_market import \
@@ -4859,10 +5038,14 @@ def _rank_paths(mtx_path, b_bus_path, b_se_path):
     from pykrylov_tpu_torch.sparse import formats as F
     from pykrylov_tpu_torch.utils import ranks
 
-    out = {"halo": _rank_halo("host")}
-    mesh = par.make_mesh(device=DEVICE, transport="host")
+    mesh = par.make_mesh(device=DEVICE, transport=transport)
+    out = {}
+    H, b, out["halo"] = _halo_leg(mesh)
+    out["lbfgs"] = _lbfgs_leg(mesh, H, b)
+    out["ckpt"] = _ckpt_leg(mesh, H, b, ckpt_path)
+    del H, b
     r, R = mesh.rank, mesh.size
-    tag = "21a gather SELL, rank %d of %d" % (r, R)
+    tag = "21a gather SELL, rank %d of %d (%s)" % (r, R, mesh.transport)
     t0 = time.perf_counter()
     parts, shape, _ = read_matrix_market_partitioned(mtx_path, R, keep=r,
                                                      dtype=np.float32)
@@ -4889,7 +5072,8 @@ def _rank_paths(mtx_path, b_bus_path, b_se_path):
     out["gather"] = rec
     del G, b, res
 
-    tag = "21a state estimation, rank %d of %d" % (r, R)
+    tag = "21a state estimation, rank %d of %d (%s)" % (r, R,
+                                                       mesh.transport)
     t0 = time.perf_counter()
     Gs = par.GatherBellOperator(F.coo_from_arrays(*se_coo(SE_TILES),
                                                   device=None),
@@ -4907,11 +5091,12 @@ def _rank_paths(mtx_path, b_bus_path, b_se_path):
     res, rec = _rank_solve(
         mesh, tag, "lsqr, itnlim=%d" % SHARD_LLS_ITERS,
         lambda: pt.lsqr(Gs, bs, **opts), "sell_spmv", _initial_launch,
-        lambda: pt.lsqr(Gs, bs, **dict(opts, itnlim=LLS_PROFILE_ITERS // 5)))
+        lambda: pt.lsqr(Gs, bs, **dict(opts, itnlim=RANK_PROFILE_ITERS)))
     rec.update(build_s=build_s, x=ranks.plain(res.x).cpu().numpy(),
                x_short=ranks.plain(short.x).cpu().numpy(),
                short=(int(short.n_iter), float(short.resid_norm)))
     out["lsqr"] = rec
+    out["show"] = _show_leg(mesh, Gs, bs, opts)
     return out
 
 
@@ -4944,98 +5129,84 @@ def _rank_nccl():
 
 def _earlier(new_s, dia, bell):
     """Phase 19's slot-mesh and the unsharded phases' ms per iteration of
-    21a's three legs: (mesh of slots, unsharded)."""
+    21a's and 21d's legs: (mesh of slots, unsharded); the L-BFGS CG
+    beside phase 4's CG, the checkpointed CG beside 18a's, the ``show``
+    LSQR beside the unsharded LSQR."""
     s19a, s19b, s10 = new_s["19a"][0], new_s["19b"][0], new_s["10"][0]
     lsqr19 = s19b["lsqr, with_transpose, itnlim=%d" % SHARD_LLS_ITERS]
-    return {"halo": (s19a["cg"]["ms_per_iter"],
-                     1e3 * dia["solve_s"] / dia["n_iter"]),
+    dia_ms = 1e3 * dia["solve_s"] / dia["n_iter"]
+    lsqr_ms = 1e3 * s10["lsqr"]["solve_s"] / s10["lsqr"]["n_iter"]
+    return {"halo": (s19a["cg"]["ms_per_iter"], dia_ms),
             "gather": (s19b["cg"]["ms_per_iter"],
                        1e3 * bell["solve_s"] / bell["n_iter"]),
-            "lsqr": (lsqr19["ms_per_iter"],
-                     1e3 * s10["lsqr"]["solve_s"] / s10["lsqr"]["n_iter"])}
+            "lsqr": (lsqr19["ms_per_iter"], lsqr_ms),
+            "lbfgs": (None, dia_ms),
+            "ckpt": (None, new_s["18a"][0]["checkpointed cg"]["ms_per_iter"]),
+            "show": (None, lsqr_ms)}
 
 
-def _nccl_cards(tag, dia, cards):
-    """21b's second leg: an NCCL world of one rank a card runs 21a's halo
-    CG; each rank's product rows are phase 4's b bit for bit, the count
-    within RANK_ITER_SLACK of phase 4's."""
-    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
-    t0 = time.perf_counter()
-    recs = spawn_ranks(_rank_halo, cards, None, backend="nccl",
-                       timeout=RANK_TIMEOUT, deadline=RANK_DEADLINE)
-    b_nccl = torch.from_numpy(np.concatenate([h["b"] for h in recs]))
-    same_b = torch.equal(b_nccl.to(DEVICE), dia["b"])
-    log("[%s] 21b: halo CG over %d NCCL ranks, one a card (%s): each "
-        "rank's product rows phase 4's b bit for bit: %s; %d iterations "
-        "(phase 4: %d), %.4f ms per iteration, %.2f all-reduces per "
-        "iteration (%.1f%% of the wall), idle %.1f%%, %.1f s"
-        % (tag, cards, recs[0]["info"]["transport"], same_b,
-           recs[0]["n_iter"], dia["n_iter"], recs[0]["ms_per_iter"],
-           recs[0]["all_reduces_per_iter"], 100 * recs[0]["comm_share"],
-           100 * recs[0]["idle"], time.perf_counter() - t0))
-    if (not same_b or len({r["n_iter"] for r in recs}) != 1
-            or abs(recs[0]["n_iter"] - dia["n_iter"]) > RANK_ITER_SLACK):
-        raise AssertionError("%s 21b: %d NCCL ranks, bit for bit %s, %d "
-                             "iterations" % (tag, cards, same_b,
-                                             recs[0]["n_iter"]))
-    return {"21b halo rank %d" % r: {k: v for k, v in rec.items()
-                                     if k not in ("x", "b", "profile",
-                                                  "info")}
-            for r, rec in enumerate(recs)}
+LEGS = ("halo", "lbfgs", "ckpt", "gather", "lsqr", "show")
 
 
-def phase_ranks(pt, A_dia, dia, coo_bell, bell, se, mtx_path, earlier):
-    """21: the mesh of ranks (21a-21c in the module docstring).
-    ``earlier`` holds phase 19's slot-mesh ms per iteration and the
-    unsharded phases' beside which 21a's are logged."""
-    from pykrylov_tpu_torch import dryrun
-    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+def _check_legs(pt, tag, worlds, A_dia, dia, coo_bell, bell, se, ckpt_path,
+                earlier):
+    """The parent's checks of :func:`_rank_paths`' legs over a world:
+    every rank the same counts, stop codes and residual norms (lockstep);
+    the halo products phase 4's b bit for bit and the halo CG within
+    RANK_ITER_SLACK of phase 4's count; the gather CG within 10% of phase
+    5's; every CG's true residual (f64) at most 1e-4; LSQR's x and
+    residual norm against the unsharded LSQR's at SHARD_XLLS_ITERS and
+    SHARD_LLS_ITERS; the checkpoint file the whole converged iterate; the
+    ``show`` table printed by rank 0 alone, the same on every rank, its
+    last x(1) the whole x's first row and its x the capped LSQR's bit for
+    bit.  Returns the legs' records by rank, with the checks."""
+    from pykrylov_tpu_torch.utils import load_result
 
-    tag = "21 mesh of ranks"
-    out = {}
-    tmp = os.path.dirname(mtx_path)
     A_se, coo_se, b_se = se
-    b_bus_path = os.path.join(tmp, "b_bus.npy")
-    b_se_path = os.path.join(tmp, "b_se.npy")
-    np.save(b_bus_path, bell["b"].cpu().numpy())
-    np.save(b_se_path, b_se.cpu().numpy())
-
-    # ---- 21a: four ranks sharing the card, gloo, host transport --------
-    log("[%s] 21a: %d ranks on %s, gloo, transport='host' (CUDA tensors "
-        "staged through pinned host buffers)"
-        % (tag, RANKS, torch.cuda.get_device_name(0)))
-    t0 = time.perf_counter()
-    worlds = spawn_ranks(_rank_paths, RANKS, mtx_path, b_bus_path,
-                         b_se_path, backend="gloo", timeout=RANK_TIMEOUT,
-                         deadline=RANK_DEADLINE)
-    out["21a_s"] = time.perf_counter() - t0
-    for leg in ("halo", "gather", "lsqr"):
+    for leg in LEGS:
         recs = [w[leg] for w in worlds]
         same = {(r["n_iter"], r["istop"], r["n_matvec"], r["resid_norm"])
                 for r in recs}
         if len(same) != 1:
             raise AssertionError("%s %s: the ranks disagree: %s"
                                  % (tag, leg, same))
+
+    def gathered(leg, key="x"):
+        return torch.from_numpy(np.concatenate(
+            [w[leg][key] for w in worlds])).to(DEVICE)
+
     halo = [w["halo"] for w in worlds]
     b_ranks = torch.from_numpy(np.concatenate([h["b"] for h in halo])).to(
         DEVICE)
     same_b = torch.equal(b_ranks, dia["b"])
-    x = torch.from_numpy(np.concatenate([h["x"] for h in halo])).to(DEVICE)
-    halo_rel = _true_rel(dia["b"], _dia_f64(A_dia), x)
+    del b_ranks
+    ax = _dia_f64(A_dia)
+    rels = {leg: _true_rel(dia["b"], ax, gathered(leg))
+            for leg in ("halo", "lbfgs", "ckpt")}
     n_h = halo[0]["n_iter"]
     log("[%s] halo DIA: each rank's product rows of phase 4's x_true bit "
         "for bit phase 4's b: %s; cg %d iterations (phase 4: %d), true "
-        "relative residual (f64) %.3e" % (tag, same_b, n_h, dia["n_iter"],
-                                          halo_rel))
+        "relative residual (f64) %.3e; L-BFGS-preconditioned cg %d "
+        "iterations, %.3e; checkpointed cg %d iterations in %d chunks, "
+        "total_matvec %d, %.3e"
+        % (tag, same_b, n_h, dia["n_iter"], rels["halo"],
+           worlds[0]["lbfgs"]["n_iter"], rels["lbfgs"],
+           worlds[0]["ckpt"]["n_iter"], worlds[0]["ckpt"]["chunks"],
+           worlds[0]["ckpt"]["n_matvec"], rels["ckpt"]))
     if (not same_b or abs(n_h - dia["n_iter"]) > RANK_ITER_SLACK
-            or not halo_rel <= 1e-4 or halo[0]["istop"] != 0):
+            or not max(rels.values()) <= 1e-4
+            or any(worlds[0][leg]["istop"] != 0 for leg in rels)):
         raise AssertionError("%s halo: bit for bit %s, %d iterations, "
-                             "residual %.3e" % (tag, same_b, n_h, halo_rel))
-    del b_ranks, x
+                             "residuals %s" % (tag, same_b, n_h, rels))
+    saved = load_result(ckpt_path)["x"]
+    if not np.array_equal(saved, np.concatenate([w["ckpt"]["x"]
+                                                 for w in worlds])):
+        raise AssertionError("%s: the checkpoint is not the gathered "
+                             "iterate" % tag)
     gat = [w["gather"] for w in worlds]
     m = bell["b"].shape[0]
-    x = torch.from_numpy(np.concatenate([g["x"] for g in gat])).to(DEVICE)
-    gat_rel = _true_rel(bell["b"], _coo_f64(coo_bell, m), x[:m])
+    gat_rel = _true_rel(bell["b"], _coo_f64(coo_bell, m), gathered(
+        "gather")[:m])
     n_g = gat[0]["n_iter"]
     log("[%s] gather SELL: cg %d iterations (phase 5: %d), true relative "
         "residual (f64) %.3e" % (tag, n_g, bell["n_iter"], gat_rel))
@@ -5061,8 +5232,7 @@ def phase_ranks(pt, A_dia, dia, coo_bell, bell, se, mtx_path, earlier):
     for key, its, xtol, rtol in (
             ("x_short", SHARD_XLLS_ITERS, SHARD_XLLS_XTOL, SHARD_XLLS_RTOL),
             ("x", SHARD_LLS_ITERS, None, SHARD_LLS_RTOL)):
-        x = torch.from_numpy(np.concatenate([q[key] for q in lsq])).to(
-            DEVICE)
+        x = gathered("lsqr", key)
         ref = pt.lsqr(A_se, b_se, **dict(opts, itnlim=its))
         ctrl = pt.lsqr(_perturbed_twin(pt, A_se), b_se,
                        **dict(opts, itnlim=its))
@@ -5086,26 +5256,112 @@ def phase_ranks(pt, A_dia, dia, coo_bell, bell, se, mtx_path, earlier):
                                      "resid_rel": r_rel}
     if lsq[0]["istop"] != 7:
         raise AssertionError("%s lsqr: istop %d" % (tag, lsq[0]["istop"]))
-    checks = {"halo": {"bit_for_bit": same_b, "true_rel": halo_rel},
-              "gather": {"true_rel": gat_rel}, "lsqr": checks}
-    for leg in ("halo", "gather", "lsqr"):
+    show = [w["show"] for w in worlds]
+    x_show = gathered("show")
+    table = show[0]["table"]
+    printed = [bool(s["text"]) for s in show]
+    same_table = all(np.array_equal(s["table"], table, equal_nan=True)
+                     for s in show)
+    same_x = torch.equal(x_show, gathered("lsqr", "x_short"))
+    last = table[show[0]["n_iter"], 0]
+    log("[%s] lsqr(show=True), itnlim=%d: printed by ranks %s; the tables "
+        "equal on every rank: %s; last x(1) %.9e, the whole x's first row "
+        "%.9e; x the capped LSQR's bit for bit: %s; rank 0's table:\n%s"
+        % (tag, SHARD_XLLS_ITERS, [r for r, p in enumerate(printed) if p],
+           same_table, last, x_show[0].item(), same_x,
+           show[0]["text"].rstrip()))
+    if (printed != [True] + [False] * (len(show) - 1) or not same_table
+            or last != x_show[0].item() or not same_x):
+        raise AssertionError("%s show: printed %s, tables equal %s, x(1) "
+                             "%r against %r, x equal %s"
+                             % (tag, printed, same_table, last,
+                                x_show[0].item(), same_x))
+    checks = {"halo": {"bit_for_bit": same_b, "true_rel": rels["halo"]},
+              "lbfgs": {"true_rel": rels["lbfgs"]},
+              "ckpt": {"true_rel": rels["ckpt"], "file_is_x": True},
+              "gather": {"true_rel": gat_rel}, "lsqr": checks,
+              "show": {"x1_is_x0": True, "printed_by": 0}}
+    out = {}
+    for leg in LEGS:
         for r, w in enumerate(worlds):
             rec = {k: v for k, v in w[leg].items()
-                   if k not in ("x", "x_short", "b", "profile", "info")}
+                   if k not in ("x", "x_short", "b", "profile", "info",
+                                "text", "table")}
             rec.update(checks[leg], slot_mesh_ms=earlier[leg][0],
                        unsharded_ms=earlier[leg][1])
-            out["21a %s rank %d" % (leg, r)] = rec
+            out["%s rank %d" % (leg, r)] = rec
             log("[%s] %s, rank %d: %.4f ms per iteration (phase 19's %d "
-                "slots: %.4f, unsharded: %.4f), %.2f all-reduces per "
-                "iteration, %.1f%% of the wall in exchanges, idle %.1f%%, "
-                "launches %s" % (tag, leg, r, rec["ms_per_iter"],
-                                 MESH_SHARDS, earlier[leg][0],
-                                 earlier[leg][1],
-                                 rec["all_reduces_per_iter"],
-                                 100 * rec["comm_share"], 100 * rec["idle"],
-                                 {k: c for k, c in rec["launches"].items()
-                                  if c}))
-    del worlds, x
+                "slots: %s, unsharded: %.4f), %.2f all-reduces per "
+                "iteration, %.1f%% of the wall in exchanges, idle %s, "
+                "exchanges %s, launches %s"
+                % (tag, leg, r, rec["ms_per_iter"], MESH_SHARDS,
+                   "%.4f" % earlier[leg][0] if earlier[leg][0] else "-",
+                   earlier[leg][1], rec["all_reduces_per_iter"],
+                   100 * rec["comm_share"],
+                   "%.1f%%" % (100 * rec["idle"]) if rec["idle"] is not None
+                   else "not profiled", rec["exchanges"],
+                   {k: c for k, c in rec["launches"].items() if c}))
+    return out
+
+
+def _spawn_legs(tag, transport, n_ranks, backend, se, mtx_path, bell, tmp):
+    """Every rank of a world of ``n_ranks`` runs :func:`_rank_paths`;
+    returns (the ranks' results, the checkpoint's path, seconds)."""
+    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+    b_bus_path = os.path.join(tmp, "b_bus.npy")
+    b_se_path = os.path.join(tmp, "b_se.npy")
+    ckpt_path = os.path.join(tmp, "ckpt_%s.npz" % transport)
+    np.save(b_bus_path, bell["b"].cpu().numpy())
+    np.save(b_se_path, se[2].cpu().numpy())
+    t0 = time.perf_counter()
+    worlds = spawn_ranks(_rank_paths, n_ranks, transport, mtx_path,
+                         b_bus_path, b_se_path, ckpt_path, backend=backend,
+                         timeout=RANK_TIMEOUT, deadline=RANK_DEADLINE)
+    secs = time.perf_counter() - t0
+    log("[%s] %d ranks (%s) ran the legs in %.1f s" % (tag, n_ranks,
+                                                      transport, secs))
+    return worlds, ckpt_path, secs
+
+
+def _dryrun_legs(tag, n_ranks, transport, backend):
+    """21c: the dry run's twelve legs over a world of ``n_ranks``, every
+    rank printing the same lines.  Returns (results, seconds)."""
+    from pykrylov_tpu_torch import dryrun
+    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+    t0 = time.perf_counter()
+    runs = spawn_ranks(dryrun._rank_run, n_ranks, n_ranks, DEVICE, transport,
+                       backend=backend, timeout=RANK_TIMEOUT,
+                       deadline=RANK_DEADLINE)
+    lines = runs[0][1]
+    if any(r != runs[0] for r in runs[1:]) or len(lines) != 12:
+        raise AssertionError("%s 21c: the ranks disagree or ran %d legs"
+                             % (tag, len(lines)))
+    for line in lines:
+        log("[%s] 21c (%d ranks, %s): %s" % (tag, n_ranks, transport, line))
+    return runs[0][0], time.perf_counter() - t0
+
+
+def phase_ranks(pt, A_dia, dia, coo_bell, bell, se, mtx_path, earlier):
+    """21: the mesh of ranks (21a-21d in the module docstring).
+    ``earlier`` holds phase 19's slot-mesh ms per iteration and the
+    unsharded phases' beside which 21a's and 21d's are logged."""
+    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+
+    tag = "21 mesh of ranks"
+    tmp = os.path.dirname(mtx_path)
+    # ---- 21a, 21d: four ranks sharing the card, gloo, host transport ----
+    log("[%s] 21a, 21d: %d ranks on %s, gloo, transport='host' (CUDA "
+        "tensors staged through pinned host buffers)"
+        % (tag, RANKS, torch.cuda.get_device_name(0)))
+    worlds, ckpt_path, secs = _spawn_legs(tag, "host", RANKS, "gloo", se,
+                                          mtx_path, bell, tmp)
+    out = {"21a_s": secs}
+    out.update(("21a " + k if k.split()[0] in ("halo", "gather", "lsqr")
+                else "21d " + k, v)
+               for k, v in _check_legs(pt, tag, worlds, A_dia, dia,
+                                       coo_bell, bell, se, ckpt_path,
+                                       earlier).items())
+    del worlds
     # the control: the same halo CG on one rank of a gloo world with the
     # same host staging, no card shared between processes
     one = spawn_ranks(_rank_halo, 1, "host", backend="gloo",
@@ -5133,27 +5389,289 @@ def phase_ranks(pt, A_dia, dia, coo_bell, bell, se, mtx_path, earlier):
         % (tag, one["info"], one["n_iter"], one["err"], one["calls"],
            time.perf_counter() - t0))
     out["21b one rank"] = {"n_iter": one["n_iter"], "calls": one["calls"]}
-    cards = torch.cuda.device_count()
-    if cards >= 2:
-        out.update(_nccl_cards(tag, dia, cards))
-    else:
-        log("[%s] 21b: one card: a world of one rank a card needs two "
-            "cards or more (NCCL takes one rank a card)" % tag)
+    log("[%s] 21b: the legs over NCCL ranks, one a card, run in "
+        "`chip_smoke.py --nccl` (%d card(s) here)"
+        % (tag, torch.cuda.device_count()))
 
     # ---- 21c: the dry run over four ranks --------------------------------
-    t0 = time.perf_counter()
-    runs = spawn_ranks(dryrun._rank_run, RANKS, RANKS, DEVICE, "host",
-                       backend="gloo", timeout=RANK_TIMEOUT,
-                       deadline=RANK_DEADLINE)
-    lines = runs[0][1]
-    if any(r != runs[0] for r in runs[1:]) or len(lines) != 12:
-        raise AssertionError("%s 21c: the ranks disagree or ran %d legs"
-                             % (tag, len(lines)))
-    for line in lines:
-        log("[%s] 21c: %s" % (tag, line))
-    out["21c_s"] = time.perf_counter() - t0
-    out["21c"] = runs[0][0]
+    out["21c"], out["21c_s"] = _dryrun_legs(tag, RANKS, "host", "gloo")
     return out
+
+
+# -- --nccl: the legs over NCCL ranks, one a card ---------------------------
+
+def _nccl_references(pt, tmp):
+    """``--nccl``'s unsharded references on the first card: phase 5's
+    tiled 1138bus (its b = A x_true and CG count), 20a's MatrixMarket
+    file of it in ``tmp``, phase 10's state-estimation operator and b, and
+    each unsharded solve's ms per iteration.  Returns (coo_bell, bell,
+    se, mtx_path, ms)."""
+    from pykrylov_tpu_torch.gallery import tiled_general_coo
+    from pykrylov_tpu_torch.io import matrix_market as MM
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
+    tag = "21 NCCL references"
+    coo = tiled_general_coo("1138bus", tiles=TILES, coupling=0)
+    A = operator_from_coo(*coo, symmetric=True, device=DEVICE)
+    m = A.shape[0]
+    x_true = torch.from_numpy(np.random.default_rng(0).standard_normal(m)
+                              .astype(np.float32)).to(DEVICE)
+    b = A * x_true
+    pt.solve(A, b, maxiter=20)                               # warm-up
+    res, secs = _timed_solve(pt, "21 reference, tiled 1138bus", A, b)
+    bell = {"b": b, "n_iter": int(res.n_iter), "solve_s": secs}
+    vals, rows, cols, shape = coo
+    low = rows >= cols
+    mtx_path = os.path.join(tmp, "tiled_1138bus.mtx")
+    MM.write_matrix_market(mtx_path, vals[low].astype(np.float64),
+                           rows[low], cols[low], shape, symmetry="symmetric")
+    del A, res
+
+    coo_se = se_coo(SE_TILES)
+    A_se = operator_from_coo(*coo_se, device=DEVICE)
+    n = A_se.shape[1]
+    rng = np.random.default_rng(0)
+    x_true = torch.from_numpy(rng.standard_normal(n)).to(DEVICE)
+    ax = A_se * x_true          # phase 10's product: the kernel's bits
+    b_se = ax + 0.01 * ax.abs().mean() * torch.from_numpy(
+        rng.standard_normal(A_se.shape[0])).to(DEVICE)
+    opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0,
+            "itnlim": SHARD_LLS_ITERS}
+    pt.lsqr(A_se, b_se, **dict(opts, itnlim=20))             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = pt.lsqr(A_se, b_se, **opts)
+    torch.cuda.synchronize()
+    lsqr_ms = 1e3 * (time.perf_counter() - t0) / int(ref.n_iter)
+    ms = {"gather": 1e3 * secs / bell["n_iter"], "lsqr": lsqr_ms}
+    log("[%s] tiled 1138bus: CG %d iterations, %.4f ms per iteration; "
+        "state estimation %d x %d: LSQR %d iterations, %.4f ms per "
+        "iteration" % (tag, bell["n_iter"], ms["gather"], *A_se.shape,
+                       int(ref.n_iter), lsqr_ms))
+    return coo, bell, (A_se, coo_se, b_se), mtx_path, ms
+
+
+def _rank_nccl_probe(reps):
+    """21e on one rank of an NCCL world, one rank a card: where an
+    iteration's time goes.  This rank's pid, card, intra-op threads and
+    cores; rank 0 reads the compute processes on every card (nvidia-smi)
+    once every rank holds its context; the round trip of a local op read
+    back to the host, of a one-element ``all_reduce`` read back, and of a
+    halo exchange (N^2 rows to each neighbour, and one row) waited for,
+    through the exchange layer (one ``batch_isend_irecv``) and as one
+    ``all_to_all_single`` of the same messages, and the time of ``reps``
+    one-element ``all_reduce`` calls enqueued back to back, with and
+    without waiting for them; then phase 4's halo CG timed in turns with
+    the exchange layer's halo, with the halo as one ``all_to_all_single``
+    and with torch's intra-op threads on a 1/R share of the cores (an NCCL
+    rank keeps every core), and a profiled window of it: each NCCL
+    kernel's device ms and calls an iteration."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import pykrylov_tpu_torch as pt
+    from pykrylov_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(device=DEVICE)
+    comm, r, R = mesh.comm, mesh.rank, mesh.size
+    one = torch.ones(1, device=mesh.home)
+    halo = torch.ones(N * N, device=mesh.home)
+    peers = [p for p in (r - 1, r + 1) if 0 <= p < R]
+
+    def halo_wait(rows=halo):
+        comm.sendrecv([(p, rows) for p in peers],
+                      [(p, rows.shape) for p in peers], rows)
+        torch.cuda.synchronize()
+
+    def a2a(sends, recvs, like):
+        """The exchange as one all_to_all_single of the flattened
+        messages, nothing to the ranks that are not neighbours."""
+        send_n, recv_n = [0] * R, [0] * R
+        for p, t in sends:
+            send_n[p] = t.numel()
+        for p, shape in recvs:
+            recv_n[p] = int(np.prod(shape))
+        by_peer = dict(sends)
+        send = torch.cat([by_peer[p].reshape(-1) for p in range(R)
+                          if p in by_peer])
+        got = dict(zip(range(R), comm.all_to_all(send, send_n,
+                                                 recv_n).split(recv_n)))
+        return [got[p].reshape(shape) for p, shape in recvs]
+
+    def halo_a2a(rows=halo):
+        a2a([(p, rows) for p in peers], [(p, rows.shape) for p in peers],
+            rows)
+        torch.cuda.synchronize()
+
+    def timed(fn, wait=True):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        comm.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if wait:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        return ms
+
+    out = {"rank": r, "pid": os.getpid(), "card": torch.cuda.current_device(),
+           "threads": torch.get_num_threads(),
+           "cores": len(os.sched_getaffinity(0)),
+           "local_round_trip_ms": timed(lambda: (one + 1).item()),
+           "all_reduce_round_trip_ms": timed(
+               lambda: comm.all_reduce(one).item()),
+           "all_reduce_enqueued_ms": timed(lambda: comm.all_reduce(one)),
+           "all_reduce_host_ms": timed(lambda: comm.all_reduce(one),
+                                       wait=False),
+           "raw_all_reduce_host_ms": timed(lambda: dist.all_reduce(one),
+                                           wait=False),
+           "halo_round_trip_ms": timed(halo_wait),
+           "one_row_exchange_ms": timed(lambda: halo_wait(one)),
+           "halo_a2a_ms": timed(halo_a2a),
+           "one_row_a2a_ms": timed(lambda: halo_a2a(one))}
+    comm.barrier()
+    if r == 0:
+        out["apps"] = _smi("--query-compute-apps=pid,gpu_uuid,used_memory")
+        out["gpus"] = _smi("--query-gpu=index,uuid")
+        out["memory"] = _smi("--query-gpu=index,memory.used")
+    comm.barrier()
+    H, b, _, _ = par.sharded_poisson3d(N, mesh, dtype=np.float32)
+    pt.cg(H, b, maxiter=3)                                   # warm-up
+    variants = ("batch_isend_irecv", "all_to_all_single", "1/R threads")
+    out["cg_ms"] = {v: [] for v in variants}
+    for order in (variants, variants[::-1]):           # in turns
+        for v in order:
+            if v == "all_to_all_single":
+                comm.sendrecv = a2a
+            if v == "1/R threads":
+                torch.set_num_threads(max(1, out["cores"] // R))
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pt.cg(H, b)
+            torch.cuda.synchronize()
+            out["cg_ms"][v].append(
+                1e3 * (time.perf_counter() - t0) / int(res.n_iter))
+            comm.__dict__.pop("sendrecv", None)
+            torch.set_num_threads(out["threads"])
+    comm.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = pt.cg(H, b, maxiter=PIPE_PROFILE_ITERS)
+        torch.cuda.synchronize()
+    n = int(res.n_iter)
+    out["nccl_kernels"] = {
+        e.key[:48]: (e.self_device_time_total * 1e-3 / n, e.count / n)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()
+        and e.self_device_time_total > 0}
+    return out
+
+
+def _smi(query):
+    """``nvidia-smi <query> --format=csv,noheader`` as lines."""
+    return subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                          capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()
+
+
+NCCL_DEBUG_ENV = {"NCCL_DEBUG": "INFO",
+                  "NCCL_DEBUG_SUBSYS": "INIT,P2P,SHM,NET"}
+
+
+def phase_nccl_probe(tag, cards):
+    """21e: :func:`_rank_nccl_probe` over an NCCL world of one rank a card
+    with ``NCCL_DEBUG=INFO`` written to files: logs each rank's numbers,
+    which card each process holds a context on (every rank on its own
+    card only), and the transports NCCL chose (its ``via`` lines)."""
+    import tempfile
+    from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+
+    logs = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    env = dict(NCCL_DEBUG_ENV,
+               NCCL_DEBUG_FILE=os.path.join(logs, "nccl.%h.%p.log"))
+    saved = {k: os.environ.get(k) for k in env}
+    log("[%s] 21e: NCCL settings in the environment: %s" % (tag, {
+        k: v for k, v in os.environ.items() if k.startswith("NCCL_")}))
+    base = _smi("--query-gpu=index,memory.used")
+    os.environ.update(env)
+    try:
+        probes = spawn_ranks(_rank_nccl_probe, cards, PROBE_REPS,
+                             backend="nccl", timeout=RANK_TIMEOUT,
+                             deadline=RANK_DEADLINE)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = []
+    for name in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, name), errors="replace") as f:
+            lines += [ln.split(" NCCL INFO ", 1)[-1].strip() for ln in f
+                      if " via " in ln or "NCCL version" in ln
+                      or " WARN " in ln or "Using network" in ln]
+    shutil.rmtree(logs, ignore_errors=True)
+    uuid = {u.split(",")[1].strip(): int(u.split(",")[0])
+            for u in probes[0]["gpus"]}
+    held = {}
+    for app in probes[0]["apps"]:
+        pid, gpu = (f.strip() for f in app.split(",")[:2])
+        held.setdefault(int(pid), []).append(uuid.get(gpu))
+    for p in probes:
+        log("[%s] 21e rank %d (pid %d, card %d, %d of %d cores' threads): "
+            "local op read back %.4f ms, all_reduce read back %.4f ms, "
+            "all_reduce enqueued back to back %.4f ms a call (host %.4f; "
+            "torch.distributed's own, in place, %.4f), halo exchange "
+            "waited %.4f ms (one row %.4f; as one all_to_all_single %.4f, "
+            "one row %.4f); halo CG, ms per iteration in turns: %s; NCCL "
+            "kernels (ms, calls an iteration) %s; contexts on cards %s"
+            % (tag, p["rank"], p["pid"], p["card"], p["threads"], p["cores"],
+               p["local_round_trip_ms"], p["all_reduce_round_trip_ms"],
+               p["all_reduce_enqueued_ms"], p["all_reduce_host_ms"],
+               p["raw_all_reduce_host_ms"], p["halo_round_trip_ms"],
+               p["one_row_exchange_ms"], p["halo_a2a_ms"],
+               p["one_row_a2a_ms"],
+               {k: ", ".join("%.4f" % t for t in v)
+                for k, v in p["cg_ms"].items()},
+               {k: "%.4f, %.2f" % v for k, v in p["nccl_kernels"].items()},
+               held.get(p["pid"])))
+    for line in sorted(set(lines)):
+        log("[%s] 21e NCCL: %s" % (tag, line))
+    def mib(rows):
+        return {int(r.split(",")[0]): int(r.split(",")[1].split()[0])
+                for r in rows}
+    grew = {k: v - mib(base).get(k, 0)
+            for k, v in mib(probes[0]["memory"]).items()}
+    log("[%s] 21e: device memory each card gained once every rank held "
+        "its context (MiB; a context is some hundreds): %s" % (tag, grew))
+    per_card = {}
+    for cards_of in held.values():
+        for c in cards_of:
+            per_card[c] = per_card.get(c, 0) + 1
+    log("[%s] 21e: compute processes per card (nvidia-smi): %s; this "
+        "process holds card 0" % (tag, per_card))
+    visible = any(p["pid"] in held for p in probes)
+    if not visible:
+        log("[%s] 21e: nvidia-smi lists none of the ranks' pids (%s): "
+            "another pid namespace" % (tag, sorted(held)))
+    if visible and any(per_card.get(c, 0) != (2 if c == 0 else 1)
+                       for c in range(cards)):
+        raise AssertionError("%s 21e: processes per card %s: a context "
+                             "off its rank's card" % (tag, per_card))
+    stray = {p["rank"]: held[p["pid"]] for p in probes
+             if p["pid"] in held and held[p["pid"]] != [p["card"]]}
+    if stray:
+        raise AssertionError("%s 21e: ranks with contexts off their own "
+                             "card: %s" % (tag, stray))
+    return {"ranks": [{k: v for k, v in p.items() if k not in ("apps",
+                                                              "gpus")}
+                      for p in probes],
+            "processes_per_card": per_card, "memory_gained_mib": grew,
+            "nccl_lines": sorted(set(lines))}
 
 
 # --------------------------------------------------------------------------
@@ -5276,8 +5794,23 @@ def phase_dia_timing(A, coo, rates):
                 chain("torch CSR f32", lambda x: csr @ x)]
     g = torch.Generator(device=DEVICE).manual_seed(1000)
     x0 = torch.randn(m, device=DEVICE, generator=g)
+    # torch's CSR product with bf16 values and x, where torch takes it
+    csr16 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                    csr.values().to(torch.bfloat16),
+                                    size=csr.shape)
+    try:
+        csr16 @ x0.to(torch.bfloat16)
+        bf16_error = None
+        variants.append(chain("torch CSR bf16", lambda x: csr16 @ x))
+    except RuntimeError as exc:
+        bf16_error = str(exc).strip().splitlines()[0]
+    log("[6 timing] DIA n=%d torch CSR with bf16 values and x: %s"
+        % (N, "timed below" if bf16_error is None
+           else "refused (%s)" % bf16_error))
     for label, _ in variants:
-        state[label] = x0.double() if "/f64" in label else x0.clone()
+        state[label] = (x0.double() if "/f64" in label
+                        else x0.to(torch.bfloat16) if label.endswith("bf16")
+                        and "CSR" in label else x0.clone())
     best = _best_ms(variants, 100)
     for label, x in state.items():
         if not torch.isfinite(x).all():
@@ -5315,7 +5848,8 @@ def phase_dia_timing(A, coo, rates):
             N, best["kernel bf16"], b["bf16"]["bound_ms"],
             b["bf16"]["bound_by"],
             100 * b["bf16"]["bound_ms"] / best["kernel bf16"]))
-    del csr, d32, d16, state
+    b["bf16_library_error"] = bf16_error
+    del csr, csr16, d32, d16, state
     return best, b
 
 
@@ -5477,19 +6011,42 @@ def phase_spmm_timing(name, mm, plain_mm, coo, own_matrix, spmv_ms, rates,
 
 def main_nccl(pt):
     """``python3 chip_smoke.py --nccl``: phases 1, 2 and 4, then NCCL
-    worlds on this machine's cards.  With two cards or more, 21b's world
-    of one rank a card runs the halo CG (:func:`_nccl_cards`); on one
-    card, a world of two NCCL ranks on it must be refused (NCCL takes one
-    rank a card), and the refusal is logged."""
+    worlds on this machine's cards.  With two cards or more, a world of
+    one rank a card runs 21a's and 21d's legs (:func:`_rank_paths`, held
+    to phase 21's checks beside unsharded references built here,
+    :func:`_nccl_references`) and the dry run's twelve legs (21c), after
+    21e's probe (:func:`phase_nccl_probe`); on one card, a world of two NCCL
+    ranks on it must be refused (NCCL takes one rank a card), and the
+    refusal is logged."""
+    import tempfile
     from pykrylov_tpu_torch.parallel.launch import RankFailure, spawn_ranks
-    tag = "21b NCCL"
+    tag = "21 NCCL"
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    _, _, dia = phase_dia_path(pt)
+    A_dia, _, dia = phase_dia_path(pt)
     cards = torch.cuda.device_count()
     if cards >= 2:
-        out = _nccl_cards(tag, dia, cards)
+        probe = phase_nccl_probe(tag, cards)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+        try:
+            coo_bell, bell, se, mtx_path, ms = _nccl_references(pt, tmp)
+            dia_ms = 1e3 * dia["solve_s"] / dia["n_iter"]
+            earlier = {leg: (None, v) for leg, v in (
+                ("halo", dia_ms), ("lbfgs", dia_ms), ("ckpt", dia_ms),
+                ("gather", ms["gather"]), ("lsqr", ms["lsqr"]),
+                ("show", ms["lsqr"]))}
+            worlds, ckpt_path, legs_s = _spawn_legs(
+                tag, "nccl", cards, "nccl", se, mtx_path, bell, tmp)
+            out = _check_legs(pt, tag, worlds, A_dia, dia, coo_bell, bell,
+                              se, ckpt_path, earlier)
+            out["legs_s"] = legs_s
+            del worlds
+            out["21c"], out["21c_s"] = _dryrun_legs(tag, cards, "nccl",
+                                                    "nccl")
+            out["21e"] = probe
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         log("[%s] %s" % (tag, json.dumps(out)))
     else:
         try:
@@ -5647,6 +6204,8 @@ def main():
         "library_ms": dia_best["torch CSR f32"],
         "bf16_ms": dia_best["kernel bf16"],
         "bf16_plain_ms": dia_best["plain bf16"],
+        "bf16_library_ms": dia_best.get("torch CSR bf16"),
+        "bf16_library_error": dia_b["bf16_library_error"],
     }, {
         "name": "sell_spmv",
         "route": "cuda",
@@ -5855,16 +6414,22 @@ def main():
            bell["build_s"], se["build_s"], new_s["19b"][0]["build_s"],
            new_s["19b"][0]["se_build_s"]))
     p21 = new_s["21"][0]
-    log("[7 result] phase 21 (%.1f s; 21a %.1f s, 21c %.1f s), %d ranks: %s"
+    log("[7 result] phase 21 (%.1f s; 21a and 21d %.1f s, 21c %.1f s), %d "
+        "ranks: %s"
         % (new_s["21"][1], p21["21a_s"], p21["21c_s"], RANKS,
-           "; ".join("%s: %d it., %.4f ms per it. (slots %.4f, unsharded "
+           "; ".join("%s: %d it., %.4f ms per it. (slots %s, unsharded "
                      "%.4f), %.2f all-reduces per it. (%.1f%% of the "
-                     "wall), idle %.1f%%"
-                     % (k, v["n_iter"], v["ms_per_iter"], v["slot_mesh_ms"],
+                     "wall), idle %s"
+                     % (k, v["n_iter"], v["ms_per_iter"],
+                        "-" if v["slot_mesh_ms"] is None
+                        else "%.4f" % v["slot_mesh_ms"],
                         v["unsharded_ms"], v["all_reduces_per_iter"],
-                        100 * v["comm_share"], 100 * v["idle"])
+                        100 * v["comm_share"],
+                        "-" if v["idle"] is None
+                        else "%.1f%%" % (100 * v["idle"]))
                      for k, v in p21.items()
-                     if k.startswith("21a ") and "control" not in k)))
+                     if k.startswith(("21a ", "21d ")) and k.endswith(
+                         "rank 0"))))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,17 @@ slots become plain loops over the stored pairs, oldest to newest: which
 slots are filled (``valid``) and the counter live on the host, the
 vectors and their scalars on the buffers' device.
 
+On a mesh of ranks (``mesh=`` a mesh of :func:`~..parallel.make_mesh`
+under a world of ranks) the buffers hold this rank's rows of the pairs,
+``(mem, L)`` :class:`~..utils.ranks.RankShard` tensors, so ``s[k]`` is a
+rank-sharded vector; every dot and every product over the rows goes
+through the global reductions of :mod:`..utils.ranks` (one ``all_reduce``
+each; the compact form's ``S Y^T``, ``S S^T``, ``S v`` and ``Y v`` one
+each), and the accept test reads the global ``s.y``, so every rank keeps
+or drops the same pair.  On plain tensors those helpers are the plain
+torch calls, so an unsharded operator (or one on a mesh of slots) computes
+what it computed before.
+
 Reference bugs intentionally not replicated (SURVEY §2.1):
 ``StructuredLBFGSOperator``'s broken constructor and ``self.matvec``
 calls (``lbfgs.py:277,338,349``); the structured update is implemented
@@ -23,6 +34,8 @@ from typing import NamedTuple
 import torch
 
 from .base import LinearOperator
+from ..utils import ranks
+from ..utils.ranks import matmul_rows, vdot, vdot_real
 from ..utils.types import as_dtype, to_tensor
 
 __all__ = [
@@ -46,17 +59,33 @@ ACCEPT_THRESHOLD = 1.0e-20
 
 class LBFGSData(NamedTuple):
     """A fixed-size ring buffer of (s, y) pairs."""
-    s: torch.Tensor       # (mem, n)
-    y: torch.Tensor       # (mem, n)
+    s: torch.Tensor       # (mem, n), or (mem, L) rank-sharded rows
+    y: torch.Tensor       # (mem, n), or (mem, L) rank-sharded rows
     ys: torch.Tensor      # (mem,)  cached s.y products
     valid: torch.Tensor   # (mem,)  bool mask of filled slots, on the host
     insert: int           # next slot (counts every accepted pair)
     gamma: torch.Tensor   # () scaling factor
 
 
-def lbfgs_init(n, mem=5, dtype=torch.float32, device="cuda"):
+def _pair_rows(n, device, mesh):
+    """``(rows, device, mark)`` of a pair buffer for vectors of global
+    length ``n``: all of them on ``device``, or on a mesh of ranks this
+    rank's ``n / R`` on its card, marked rank-sharded."""
+    if mesh is None or not mesh.ranked:
+        return n, device, (lambda t: t)
+    if n % mesh.size:
+        raise ValueError("a mesh of %d ranks shards vectors of a length "
+                         "divisible by %d (the sharded operator's padded "
+                         "nargin); got n=%d" % (mesh.size, mesh.size, n))
+    return n // mesh.size, mesh.home, ranks.shard
+
+
+def lbfgs_init(n, mem=5, dtype=torch.float32, device="cuda", mesh=None):
+    """An empty history of ``mem`` pairs of length-``n`` vectors; on a
+    mesh of ranks (``mesh``) of this rank's ``n / R`` rows of each."""
     dtype = as_dtype(dtype)
-    z = torch.zeros((mem, n), dtype=dtype, device=device)
+    rows, device, mark = _pair_rows(n, device, mesh)
+    z = mark(torch.zeros((mem, rows), dtype=dtype, device=device))
     return LBFGSData(
         s=z, y=z.clone(), ys=torch.zeros(mem, dtype=dtype, device=device),
         valid=torch.zeros(mem, dtype=torch.bool), insert=0,
@@ -87,17 +116,24 @@ def _promoted(data, v):
                          ys=data.ys.to(ct), gamma=data.gamma.to(ct))
 
 
+def _as_pair(buf, v):
+    """``v`` on the pair buffer ``buf``'s device and dtype, rank-sharded
+    when it is."""
+    v = to_tensor(v, device=buf.device).to(buf.dtype)
+    return ranks.shard(v) if ranks.sharded(buf) else v
+
+
 def lbfgs_store(data: LBFGSData, s, y, scaling: bool = True) -> LBFGSData:
     """Insert a pair if its curvature ``s.y`` exceeds the threshold
     (``InverseLBFGSOperator.store``, ``lbfgs.py:70-87``); a rejected pair
-    leaves the data as it was.  One host read, of ``s.y``."""
-    s = to_tensor(s, device=data.s.device).to(data.s.dtype)
-    y = to_tensor(y, device=data.s.device).to(data.s.dtype)
-    ys = torch.vdot(y, s).real.to(data.ys.dtype)
+    leaves the data as it was.  One host read, of ``s.y`` (global on a
+    mesh of ranks)."""
+    s, y = _as_pair(data.s, s), _as_pair(data.s, y)
+    ys = vdot_real(y, s).to(data.ys.dtype)
     if not ys.item() > ACCEPT_THRESHOLD:
         return data
     k = data.insert % data.s.shape[0]
-    gamma = (ys / torch.vdot(y, y).real).to(data.gamma.dtype) if scaling \
+    gamma = (ys / vdot_real(y, y)).to(data.gamma.dtype) if scaling \
         else data.gamma
     S, Y, YS, valid = (data.s.clone(), data.y.clone(), data.ys.clone(),
                        data.valid.clone())
@@ -107,9 +143,12 @@ def lbfgs_store(data: LBFGSData, s, y, scaling: bool = True) -> LBFGSData:
 
 
 def lbfgs_restart(data: LBFGSData) -> LBFGSData:
-    """Forget all stored pairs (``lbfgs.py:89-95``)."""
-    return lbfgs_init(data.s.shape[1], data.s.shape[0], data.s.dtype,
-                      data.s.device)
+    """Forget all stored pairs (``lbfgs.py:89-95``); the buffers keep
+    their shape, device and rank-sharding."""
+    return LBFGSData(s=torch.zeros_like(data.s), y=torch.zeros_like(data.y),
+                     ys=torch.zeros_like(data.ys),
+                     valid=torch.zeros_like(data.valid), insert=0,
+                     gamma=torch.ones_like(data.gamma))
 
 
 def inverse_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
@@ -120,11 +159,11 @@ def inverse_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     q = v
     alphas = {}
     for k in reversed(order):               # newest -> oldest
-        alphas[k] = torch.vdot(data.s[k], q) / data.ys[k]
+        alphas[k] = vdot(data.s[k], q) / data.ys[k]
         q = q - alphas[k] * data.y[k]
     r = q * data.gamma if scaling else q
     for k in order:                         # oldest -> newest
-        beta = torch.vdot(data.y[k], r) / data.ys[k]
+        beta = vdot(data.y[k], r) / data.ys[k]
         r = r + (alphas[k] - beta) * data.s[k]
     return r
 
@@ -141,15 +180,15 @@ def forward_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
         acc = w / data.gamma if scaling else w
         for i in range(upto):
             k = order[i]
-            t1 = torch.vdot(data.y[k], w) / data.ys[k]
-            t2 = torch.vdot(Bs[i], w) / sBs[i]
+            t1 = vdot(data.y[k], w) / data.ys[k]
+            t2 = vdot(Bs[i], w) / sBs[i]
             acc = acc + t1 * data.y[k] - t2 * Bs[i]
         return acc
 
     Bs, sBs = [], []
     for i, k in enumerate(order):
         Bs.append(apply_B(i, data.s[k]))
-        sBs.append(torch.vdot(data.s[k], Bs[i]))
+        sBs.append(vdot(data.s[k], Bs[i]))
     return apply_B(len(order), v)
 
 
@@ -180,9 +219,9 @@ def structured_lbfgs_matvec(params, v, scaling: bool = True):
             k = order[j]
             y, s, ys = params["y"][k], params["s"][k], params["ys"][k]
             t = 1.0 / ys
-            yw = torch.vdot(y, w)
-            Aw = torch.vdot(A_all[j], w)
-            sA = torch.vdot(s, A_all[j])
+            yw = vdot(y, w)
+            Aw = vdot(A_all[j], w)
+            sA = vdot(s, A_all[j])
             acc = acc + (Aw * t) * y + (yw * t) * A_all[j] \
                 - (sA * yw * t * t) * y
         return acc
@@ -208,16 +247,16 @@ def compact_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
     ys = data.ys[order]
     theta = 1.0 / data.gamma if scaling else torch.ones(
         (), dtype=v.dtype, device=v.device)
-    StY = S @ Y.T
+    StY = matmul_rows(S, Y.T)
     L = torch.tril(StY, -1)                  # strictly lower part of S^T Y
-    W = torch.cat([torch.cat([theta * (S @ S.T), L], 1),
+    W = torch.cat([torch.cat([theta * matmul_rows(S, S.T), L], 1),
                    torch.cat([L.T, -torch.diag(ys)], 1)], 0)
     mask2 = torch.cat([valid, valid])
     Wm = torch.where(mask2[:, None] & mask2[None, :], W,
                      torch.eye(2 * mem, dtype=W.dtype, device=W.device))
     ct = torch.promote_types(W.dtype, v.dtype)
     S, Y = S.to(ct), Y.to(ct)
-    rhs = torch.cat([theta * (S @ v), Y @ v]) * mask2
+    rhs = torch.cat([theta * matmul_rows(S, v), matmul_rows(Y, v)]) * mask2
     coef = torch.linalg.solve(Wm.to(ct), rhs) * mask2
     corr = theta * (S.T @ coef[:mem]) + Y.T @ coef[mem:]
     return theta * v - corr
@@ -231,17 +270,24 @@ def compact_lbfgs_matvec(data: LBFGSData, v, scaling: bool = True):
 class InverseLBFGSOperator(LinearOperator):
     """The inverse-Hessian L-BFGS approximation as an operator
     (``lbfgs.py:14-127``): ``store(s, y)`` and ``restart()`` swap its
-    :class:`LBFGSData`; the product is the two-loop recursion."""
+    :class:`LBFGSData`; the product is the two-loop recursion.
+
+    ``mesh``: a mesh of ranks makes the operator global over them: ``n``
+    is the vectors' global (padded) length, the pairs given to ``store``
+    and the vectors it is applied to are this rank's rows (rank-sharded),
+    and it lives on this rank's card.  A mesh of slots changes nothing
+    (its vectors are whole tensors)."""
 
     _matvec_fn = staticmethod(inverse_lbfgs_matvec)
 
     def __init__(self, n, npairs=5, scaling: bool = True, dtype=None,
-                 device="cuda", **kwargs):
+                 device="cuda", mesh=None, **kwargs):
         dtype = as_dtype(dtype) if dtype is not None \
             else torch.get_default_dtype()
         self.scaling = scaling
         self._npairs = npairs
-        self._data = lbfgs_init(n, npairs, dtype, device)
+        self._data = lbfgs_init(n, npairs, dtype, device, mesh)
+        device = self._data.s.device
         fn = type(self)._matvec_fn
         super().__init__(n, n, matvec=lambda x: fn(self._data, x, scaling),
                          symmetric=True, hermitian=True, dtype=dtype,
@@ -286,16 +332,20 @@ class StructuredLBFGSOperator(LinearOperator):
     its documented intent (:func:`structured_lbfgs_matvec`).  Pairs are
     ``(s, y, yd)``, ``yd`` the structured gradient difference; a pair is
     accepted when ``y's + sqrt(y's * s'Bs) >= accept_threshold``
-    (``lbfgs.py:330-342``), B the current approximation: one host read."""
+    (``lbfgs.py:330-342``), B the current approximation: one host read.
+    ``mesh`` as :class:`InverseLBFGSOperator`'s."""
 
     def __init__(self, n, npairs=5, scaling: bool = True, dtype=None,
-                 accept_threshold: float = 1.0e-8, device="cuda", **kwargs):
+                 accept_threshold: float = 1.0e-8, device="cuda", mesh=None,
+                 **kwargs):
         dtype = as_dtype(dtype) if dtype is not None \
             else torch.get_default_dtype()
         self.scaling = scaling
         self._npairs = npairs
+        self._mesh = mesh
         self.accept_threshold = accept_threshold
-        z = torch.zeros((npairs, n), dtype=dtype, device=device)
+        rows, device, mark = _pair_rows(n, device, mesh)
+        z = mark(torch.zeros((npairs, rows), dtype=dtype, device=device))
         self._data = dict(s=z, y=z.clone(), yd=z.clone(),
                           ys=torch.zeros(npairs, dtype=dtype, device=device),
                           valid=torch.zeros(npairs, dtype=torch.bool),
@@ -312,18 +362,17 @@ class StructuredLBFGSOperator(LinearOperator):
         return self._data
 
     def store(self, new_s, new_y, new_yd):
-        dev, dt = self.device, self.dtype
-        s, y, yd = (to_tensor(v, device=dev).to(dt)
-                    for v in (new_s, new_y, new_yd))
         d = self._data
-        ys = torch.vdot(y, s)
-        sBs = torch.vdot(s, self._mv(s))
+        dt = self.dtype
+        s, y, yd = (_as_pair(d["s"], v) for v in (new_s, new_y, new_yd))
+        ys = vdot(y, s)
+        sBs = vdot(s, self._mv(s))
         ys_h, sBs_h = torch.stack([ys, sBs]).tolist()
         if not (ys_h + max(ys_h * sBs_h, 0.0) ** 0.5
                 >= self.accept_threshold):
             return
         k = d["insert"] % d["s"].shape[0]
-        gamma = (ys / torch.vdot(y, y)).to(dt) \
+        gamma = (ys / vdot(y, y)).to(dt) \
             if (self.scaling and ys_h > 0) else d["gamma"]
         new = {key: d[key].clone() for key in ("s", "y", "yd", "ys",
                                                "valid")}
@@ -334,7 +383,7 @@ class StructuredLBFGSOperator(LinearOperator):
     def restart(self):
         self.__init__(self.nargin, self._npairs, self.scaling, self.dtype,
                       accept_threshold=self.accept_threshold,
-                      device=self.device)
+                      device=self.device, mesh=self._mesh)
 
     def lbfgs_matvec(self, v):
         return self._mv(self._as_tensor(v))

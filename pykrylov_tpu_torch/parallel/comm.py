@@ -8,8 +8,9 @@ solvers' reductions move data between ranks only through a :class:`Comm`:
     ``batch_isend_irecv`` of every send and receive;
   * a scheduled gather: :meth:`Comm.all_to_all`, ``all_to_all_single``
     with the schedule's split sizes;
-  * :meth:`Comm.all_reduce` (sums) and :meth:`Comm.all_gather` (rank
-    order).
+  * :meth:`Comm.all_reduce` (sums), :meth:`Comm.all_gather` (rank
+    order), :meth:`Comm.broadcast` (one rank's tensor to all) and
+    :meth:`Comm.barrier`.
 
 The transport is decided once, when the mesh is built, and named in
 ``device_mesh_info(mesh)["transport"]``: ``"nccl"`` moves CUDA tensors
@@ -52,8 +53,8 @@ class Comm:
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = dist.get_backend(group)
-        self.calls = {"all_reduce": 0, "all_gather": 0, "sendrecv": 0,
-                      "all_to_all": 0}
+        self.calls = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
+                      "barrier": 0, "sendrecv": 0, "all_to_all": 0}
         self.seconds = 0.0
 
     def reset_counts(self):
@@ -88,20 +89,27 @@ class Comm:
         return time.perf_counter()
 
     # -- collectives ---------------------------------------------------------
-    def all_reduce(self, t):
-        """The sum of ``t`` over the ranks, a new tensor on ``t``'s
-        device, the same bits on every rank."""
-        t0 = self._timed("all_reduce")
+    def _in_place(self, name, t, op):
+        """``op`` run in place on a copy of ``t`` as the transport moves
+        it (a complex tensor as its real view); the result on ``t``'s
+        device."""
+        t0 = self._timed(name)
         dev = t.device
         cplx = t.is_complex()
         src = torch.view_as_real(t) if cplx else t
         buf = self._wire(src)
         if buf is src:                       # NCCL or a host tensor: a copy
             buf = src.clone()
-        dist.all_reduce(buf, group=self.group)
+        op(buf)
         out = self._back(buf, dev)
         self.seconds += time.perf_counter() - t0
         return torch.view_as_complex(out) if cplx else out
+
+    def all_reduce(self, t):
+        """The sum of ``t`` over the ranks, a new tensor on ``t``'s
+        device, the same bits on every rank."""
+        return self._in_place("all_reduce", t, lambda buf: dist.all_reduce(
+            buf, group=self.group))
 
     def all_gather(self, t):
         """``t`` of every rank stacked in rank order: ``(R,) + t.shape``
@@ -114,6 +122,22 @@ class Comm:
         out = self._back(torch.stack(parts), dev)
         self.seconds += time.perf_counter() - t0
         return out
+
+    def broadcast(self, t, src=0):
+        """Rank ``src``'s ``t`` on every rank: a new tensor of ``t``'s
+        shape and dtype on ``t``'s device, the same bits on every rank."""
+        return self._in_place("broadcast", t, lambda buf: dist.broadcast(
+            buf, src, group=self.group))
+
+    def barrier(self):
+        """Return when every rank has called it (NCCL: on this rank's
+        card)."""
+        t0 = self._timed("barrier")
+        if self.transport == "nccl":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
+        self.seconds += time.perf_counter() - t0
 
     def sendrecv(self, sends, recvs, like):
         """Point-to-point rows: ``sends`` a list of ``(peer, tensor)``,

@@ -8,6 +8,14 @@ rank order.  A lost rank never hangs the parent: the world's collectives
 time out after ``timeout`` seconds, the parent waits at most ``deadline``
 seconds in all, a rank that raises sends its traceback, and on any failure
 the parent kills the surviving ranks and raises :class:`RankFailure`.
+A gloo rank runs torch's intra-op threads on an equal share of the
+host's cores: R ranks whose operators run on the host would otherwise
+run R threads a core (four CPU ranks on an 8-core host then took minutes
+for a CG that takes seconds with the share).  NCCL ranks keep torch's
+default, every core, which ran a four-card halo CG 0.05-0.15 ms an
+iteration faster than a quarter of them (NVIDIA H100 80GB HBM3,
+``chip_smoke.py --nccl``, 21e).  An NCCL rank binds its card before the
+world starts (:func:`~.mesh.initialize_multihost`).
 ``fn`` must be importable by name (a module-level function), and so must
 its module in a fresh interpreter.
 """
@@ -27,9 +35,18 @@ class RankFailure(RuntimeError):
     """A spawned rank raised, died or outlived the deadline."""
 
 
+def host_threads(n_ranks):
+    """Intra-op threads a rank of ``n_ranks`` on this host takes: an
+    equal share of the cores this process may run on, at least one."""
+    return max(1, len(os.sched_getaffinity(0)) // n_ranks)
+
+
 def _rank_main(q, fn, rank, n_ranks, store_path, backend, timeout, args):
+    import torch
     import torch.distributed as dist
     try:
+        if backend == "gloo":
+            torch.set_num_threads(host_threads(n_ranks))
         from .mesh import initialize_multihost
         initialize_multihost(num_processes=n_ranks, process_id=rank,
                              store=dist.FileStore(store_path, n_ranks),

@@ -286,7 +286,12 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     ``MASTER_ADDR``, ``WORLD_SIZE`` or ``RANK`` (the ``env://``
     rendezvous).  A plain single-process launch is a no-op, so scripts
     may call it unconditionally; a second call is a no-op too.  The
-    backend is NCCL on a card, gloo on the host.  ``timeout`` (seconds)
+    backend is NCCL on a card, gloo on the host.  An NCCL rank binds its
+    card, ``cuda:(local_rank mod device_count())`` (``LOCAL_RANK`` where
+    a launcher sets it, else the rank), before the world starts, and
+    hands it to ``init_process_group`` as ``device_id``: its communicator
+    is built on that card at once, and no CUDA context of it lands on
+    another card.  ``timeout`` (seconds)
     bounds every collective, so a lost rank fails the others instead of
     hanging them.  After it, :func:`make_mesh` builds the mesh of ranks.
     Returns the mesh summary (:func:`device_mesh_info`'s keys) of the
@@ -309,6 +314,12 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
             kwargs.setdefault("world_size", int(num_processes))
         if process_id is not None:
             kwargs.setdefault("rank", int(process_id))
+        if kwargs["backend"] == "nccl" and torch.cuda.is_available():
+            local = int(os.environ.get("LOCAL_RANK", kwargs.get(
+                "rank", os.environ.get("RANK", 0))))
+            card = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(card)
+            kwargs.setdefault("device_id", card)
         kwargs.setdefault("timeout", datetime.timedelta(seconds=timeout))
         dist.init_process_group(**kwargs)
         started = True

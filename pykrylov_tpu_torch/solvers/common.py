@@ -156,6 +156,9 @@ def table_init(store: bool, maxiter: int, dtype, device):
     (:mod:`~.show`).  Here the scalar columns are host floats already, so a
     row of them goes to a host list; only the first column, ``x[0]``,
     lives on the device, written into a buffer without a synchronisation.
+    On a mesh of ranks ``x[0]`` is the whole iterate's (rank 0's first
+    row, :func:`~..utils.ranks.first_row`: one broadcast a row, only while
+    a table is kept).
     """
     if not store:
         return None
@@ -163,8 +166,11 @@ def table_init(store: bool, maxiter: int, dtype, device):
 
 
 def table_push(tab, k, x0, *cols):
-    """Record row ``k``: ``x0`` (a 0-d tensor or a float) and host floats."""
+    """Record row ``k``: ``x0`` (a float, or the iterate, whose global
+    first row's real part is taken) and host floats."""
     if tab is not None:
+        if isinstance(x0, torch.Tensor):
+            x0 = ranks.first_row(x0).real
         history_push(tab["x0"], k, x0)
         tab["rows"][k] = cols
     return tab

@@ -34,6 +34,7 @@ import torch
 
 from .common import (apply_op, apply_op_T, as_operator, history_from,
                      history_init, history_push, norm, promote_rhs, real_dtype)
+from ..utils.ranks import leader
 from .lls_common import gk_init, gk_read, gk_step
 from .result import SolveResult
 
@@ -208,13 +209,13 @@ def craig(A, b, *, M=None, N=None, atol=1.0e-9, btol=1.0e-9, etol=1.0e-6,
     b = promote_rhs(b, A, M, N)
     if itnlim is None:
         itnlim = 3 * A.nargin
-    if show:
+    if show and leader(b):
         from .show import craig_preamble
         craig_preamble(A.nargout, A.nargin, float(atol), float(btol),
                        itnlim)
     res = _craig(A, b, M, N, float(btol), float(etol), int(itnlim),
                  int(window), bool(store_history), bool(store_iterates))
-    if show:
+    if show and leader(b):
         from .show import print_craig_final
         print_craig_final(res)
     if verify_final:

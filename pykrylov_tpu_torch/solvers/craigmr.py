@@ -28,6 +28,7 @@ import torch
 
 from .common import (apply_op, apply_op_T, as_operator, history_from, norm,
                      promote_rhs, real_dtype)
+from ..utils.ranks import leader
 from .lls_common import gk_init, gk_read, gk_step
 from .result import SolveResult
 
@@ -145,7 +146,7 @@ def craigmr(A, b, *, M=None, N=None, etol=1.0e-6, window=5, itnlim=None,
         itnlim = min(A.nargout, A.nargin)
     res = _craigmr(A, b, M, N, float(etol), int(itnlim), int(window),
                    bool(store_history))
-    if show:
+    if show and leader(b):
         # the reference's final block (craigmr.py:214-228; its per-iteration
         # table and most summary lines are commented out upstream)
         print(" ")

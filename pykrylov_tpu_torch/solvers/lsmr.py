@@ -40,6 +40,7 @@ from .common import (as_operator, attach_true_lls_residual, fdiv,
                      history_from, promote_rhs, real_dtype, table_init,
                      table_push, table_tensor)
 from ..utils import ranks
+from ..utils.ranks import leader
 from .lls_common import gk_init, gk_read, gk_step, sym_ortho
 from .lsqr import stop_code
 from .result import SolveResult
@@ -198,7 +199,7 @@ def _lsmr(A, b, M, N, damp, atol, btol, conlim, etol, itnlim, window,
         istop = stop_code(istop, itn, itnlim, test1, test2, test3, t1, rtol,
                           atol, ctol)
         hist.append(normr)
-        table_push(tab, itn, x[0].real, normr, normar, test1, test2, normA,
+        table_push(tab, itn, x, normr, normar, test1, test2, normA,
                    condA)
         done = istop > 0
 
@@ -246,14 +247,14 @@ def lsmr(A, b, *, damp=0.0, M=None, N=None, atol=1.0e-9, btol=1.0e-9,
     b = promote_rhs(b, A, M, N)
     if itnlim is None:
         itnlim = min(A.nargout, A.nargin)
-    if show:
+    if show and leader(b):
         from .show import lsmr_preamble
         lsmr_preamble(A.nargout, A.nargin, float(damp), float(atol),
                       float(btol), float(conlim), int(itnlim))
     res = _lsmr(A, b, M, N, float(damp), float(atol), float(btol),
                 float(conlim), float(etol), int(itnlim), int(window),
                 bool(store_history), bool(show))
-    if show:
+    if show and leader(b):
         from .show import print_lsmr
         ctol = 1.0 / float(conlim) if conlim > 0 else 0.0
         print_lsmr(res, n=A.nargin, itnlim=int(itnlim), atol=float(atol),

@@ -40,6 +40,7 @@ import torch
 from .common import (as_operator, attach_true_lls_residual, fdiv,
                      history_from, promote_rhs, real_dtype, table_init,
                      table_push, table_tensor, vdot_real)
+from ..utils.ranks import leader
 from .lls_common import gk_init, gk_read, gk_step
 from .result import SolveResult
 
@@ -190,7 +191,7 @@ def _lsqr(A, b, M, N, damp, atol, btol, conlim, etol, itnlim, window,
                           atol, ctol)
         hist.append(r2norm)
         ne_hist.append(arnorm)
-        table_push(tab, itn, x[0].real, r1norm, r2norm, test1, test2, anorm,
+        table_push(tab, itn, x, r1norm, r2norm, test1, test2, anorm,
                    acond)
         done = istop > 0
 
@@ -259,14 +260,14 @@ def lsqr(A, b, *, damp=0.0, M=None, N=None, atol=1.0e-9, btol=1.0e-9,
     b = promote_rhs(b, A, M, N)
     if itnlim is None:
         itnlim = 3 * A.nargin
-    if show:
+    if show and leader(b):
         from .show import lsqr_preamble
         lsqr_preamble(A.nargout, A.nargin, float(damp), wantvar,
                       float(atol), float(btol), float(conlim), int(itnlim))
     res = _lsqr(A, b, M, N, float(damp), float(atol), float(btol),
                 float(conlim), float(etol), int(itnlim), int(window),
                 bool(wantvar), bool(store_history), bool(show))
-    if show:
+    if show and leader(b):
         from .show import print_lsqr
         ctol = 1.0 / float(conlim) if conlim > 0 else 0.0
         print_lsqr(res, itnlim=int(itnlim), atol=float(atol),

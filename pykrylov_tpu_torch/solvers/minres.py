@@ -61,6 +61,7 @@ from .common import (apply_op, as_operator, attach_true_residual, fdiv,
 from .ffmv import resolve_ff_matvec
 from .result import SolveResult
 from ..utils.ff import ff_add_ff, ff_div, ff_vdot, two_prod, two_sum
+from ..utils.ranks import leader
 from ..utils.utils import check_symmetric
 
 __all__ = ["minres", "ISTOP_MSG"]
@@ -249,7 +250,7 @@ def _minres(A, b, M, shift, rtol, etol, itnlim, window, store_history,
         istop = _tests(istop, itn, itnlim, test1, test2,
                        chain.anorm * chain.ynorm * eps, beta1, chain.acond,
                        eps, rtol)
-        table_push(tab, itn, x[0].real, test1, test2, chain.anorm,
+        table_push(tab, itn, x, test1, test2, chain.anorm,
                    chain.acond, chain.gbar, chain.ynorm)
         done = istop != 0
 
@@ -393,7 +394,7 @@ def _minres_verified(A, b, M, shift, rtol, etol, itnlim, window,
             lastv = itn
             if istop == 0 and rnt <= vthresh:
                 istop = 1
-        table_push(tab, itn, x[0].real, test1, test2, chain.anorm,
+        table_push(tab, itn, x, test1, test2, chain.anorm,
                    chain.acond, chain.gbar, chain.ynorm)
         done = istop != 0
 
@@ -509,9 +510,9 @@ def minres(A, b, *, M=None, shift=0.0, rtol=1.0e-12, etol=1.0e-6,
                       int(itnlim), int(window),
                       bool(store_history) or bool(show),
                       bool(store_iterates), bool(show))
-    if show:
+    if show and leader(b):
         from .show import print_minres
-        print_minres(res, n=b.shape[0], itnlim=int(itnlim), rtol=float(rtol),
+        print_minres(res, n=rows(b), itnlim=int(itnlim), rtol=float(rtol),
                      eps=float(torch.finfo(real_dtype(b.dtype)).eps))
     if verify_final:
         res = attach_true_residual(A, b, res, float(shift))

@@ -8,9 +8,16 @@ restart of the solver (short-recurrence methods lose at most a few
 iterations of superlinear convergence).
 
 Checkpoints are plain ``.npz`` files of host arrays, written atomically,
-portable across machines and meshes: on resume the iterate goes back to
-the right-hand side's device and dtype (a sharded vector is one padded
-tensor, so its checkpoint is that tensor's values).
+portable across machines and meshes: a checkpoint's ``x`` is the whole
+(padded) iterate, and on resume it goes back to the right-hand side's
+device and dtype, its first rows fitted to the new solve's length (rows
+past it must be zero padding; missing rows are padded with zeros), so a
+checkpoint written by one mesh resumes on a mesh of another size or
+unsharded.  On a mesh of slots a sharded vector is one padded tensor.  On
+a mesh of ranks every rank calls :func:`save_result` with its own rows:
+they are all-gathered, rank 0 writes the one file, and a barrier follows,
+so on resume every rank reads the whole iterate (the path must name the
+same file on every rank) and keeps its own rows.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import time
 import numpy as np
 import torch
 
+from . import ranks
+
 __all__ = ["save_result", "load_result", "checkpointed_solve"]
 
 
@@ -34,10 +43,21 @@ def _host(v):
 
 def save_result(path, result, extra=None):
     """Persist a :class:`SolveResult`'s arrays and scalars to ``.npz``
-    (atomic: a temporary file beside ``path``, then a rename)."""
+    (atomic: a temporary file beside ``path``, then a rename).  With a
+    rank-sharded ``x`` every rank of the mesh must call it: the ranks'
+    rows are all-gathered into the whole ``x``, rank 0 writes, and every
+    rank returns after the file is in place."""
+    x = result.x
+    on_ranks = ranks.sharded(x)
+    if on_ranks:
+        x = ranks.gather_ranks(ranks.plain(x)).flatten(0, 1)
+        if ranks.world().rank != 0:
+            ranks.world().barrier()
+            return
     payload = {k: _host(getattr(result, k))
-               for k in ("x", "converged", "istop", "n_iter", "n_matvec",
+               for k in ("converged", "istop", "n_iter", "n_matvec",
                          "resid_norm", "resid_norm0")}
+    payload["x"] = _host(x)
     if result.resid_history is not None:
         payload["resid_history"] = _host(result.resid_history)
     if extra:
@@ -54,6 +74,8 @@ def save_result(path, result, extra=None):
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+    if on_ranks:
+        ranks.world().barrier()
 
 
 def load_result(path):
@@ -62,6 +84,25 @@ def load_result(path):
         return None
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def _resume_x0(x, b):
+    """The checkpoint's whole iterate ``x`` as this solve's guess: its
+    first ``rows(b)`` rows (zero rows past them, else ValueError), padded
+    with zeros to that length, on ``b``'s device and dtype; on a mesh of
+    ranks this rank's rows of it."""
+    n = ranks.rows(b)
+    if x.shape[0] > n and np.any(x[n:]):
+        raise ValueError("the checkpoint's x has nonzero rows past this "
+                         "solve's %d: it belongs to another system" % n)
+    fit = np.zeros((n,) + x.shape[1:], dtype=x.dtype)
+    fit[:min(n, x.shape[0])] = x[:n]
+    if ranks.sharded(b):
+        L = b.shape[0]
+        r = ranks.world().rank
+        fit = fit[r * L:(r + 1) * L]
+    x0 = torch.from_numpy(fit).to(device=b.device, dtype=b.dtype)
+    return ranks.shard(x0) if ranks.sharded(b) else x0
 
 
 def checkpointed_solve(solve_fn, A, b, path, chunk_iters=500,
@@ -76,7 +117,8 @@ def checkpointed_solve(solve_fn, A, b, path, chunk_iters=500,
     path : checkpoint file; if it exists the solve resumes from it.
     chunk_iters : the cap of each chunk.
     keep_going : optional ``(chunk_index, result) -> bool``; False stops
-        after that chunk (an external preemption signal, say).
+        after that chunk (an external preemption signal, say).  On a mesh
+        of ranks every rank runs the solve and must answer alike.
 
     The stopping threshold ``max(atol, rtol * resid0)`` of the first
     chunk is frozen as an absolute one for the later chunks (and a
@@ -89,9 +131,8 @@ def checkpointed_solve(solve_fn, A, b, path, chunk_iters=500,
     x0 = solve_kwargs.pop("x0", None)
     total_mv = 0
     if state is not None:
-        b_t = b if isinstance(b, torch.Tensor) else torch.as_tensor(b)
-        x0 = torch.as_tensor(state["x"]).to(device=b_t.device,
-                                            dtype=b_t.dtype)
+        x0 = _resume_x0(state["x"], b if isinstance(b, torch.Tensor)
+                        else torch.as_tensor(b))
         total_mv = int(state.get("extra_total_matvec", 0))
 
     params = inspect.signature(solve_fn).parameters

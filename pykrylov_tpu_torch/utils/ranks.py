@@ -24,7 +24,11 @@ read it would step wrongly on every rank without an error.  So:
 
 A norm is the square root of the all-reduced sum of squares, never a sum
 of norms; a block's column sums are one ``all_reduce`` of the (K,)
-partials.
+partials.  A product of a block of vectors' rows with a vector or block
+(:func:`matmul_rows`, L-BFGS's ``S @ v`` and ``S @ Y^T``) is one
+``all_reduce`` of the small partial product.  A solver's report reads
+the global first row (:func:`first_row`, one broadcast from rank 0) and
+prints on rank 0 only (:func:`leader`).
 """
 
 from __future__ import annotations
@@ -32,9 +36,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["RankShard", "RowReductionError", "bind", "world", "sharded",
-           "shard", "plain", "rows", "all_reduce", "dot", "vdot_real",
+           "shard", "plain", "rows", "all_reduce", "dot", "vdot", "vdot_real",
            "vdots_norms", "norm", "sum_rows", "col_vdots_real", "col_norms",
-           "gather_ranks"]
+           "matmul_rows", "gather_ranks", "first_row", "leader"]
 
 
 class RowReductionError(RuntimeError):
@@ -109,6 +113,14 @@ def dot(a, b):
         return _global(torch.dot(a, b), s)
 
 
+def vdot(a, b):
+    """The conjugated dot ``a^H b`` over all rows (complex for complex
+    operands)."""
+    s = sharded(a, b)
+    with torch._C.DisableTorchFunctionSubclass():
+        return _global(torch.vdot(a, b), s)
+
+
 def vdot_real(a, b):
     """The real part of ``a^H b`` over all rows (the partial's real part
     is all-reduced)."""
@@ -166,6 +178,32 @@ def col_norms(X):
     with torch._C.DisableTorchFunctionSubclass():
         sq = (X.conj() * X).real if X.is_complex() else X * X
         return torch.sqrt(all_reduce(sq.sum(0)))
+
+
+def matmul_rows(A, B):
+    """``A @ B`` contracting the rows of a block of vectors: ``A`` is (m,
+    L), m vectors' rows (on a mesh of ranks this rank's L), ``B`` is (L,)
+    or (L, k) (a vector, a block, or another block's transpose).  On a
+    mesh of ranks one ``all_reduce`` of the (m,) or (m, k) partial; on
+    plain tensors the plain product."""
+    s = sharded(A, B)
+    with torch._C.DisableTorchFunctionSubclass():
+        return _global(A @ B, s)
+
+
+def first_row(x):
+    """``x[0]`` of the whole vector: on a rank-sharded ``x`` rank 0's row
+    0, broadcast to every rank (one collective); else ``x[0]``."""
+    if not isinstance(x, RankShard):
+        return x[0]
+    with torch._C.DisableTorchFunctionSubclass():
+        return world().broadcast(x[0], 0)
+
+
+def leader(*ts):
+    """True where a solve's report is printed: always for plain tensors,
+    on rank 0 only when any argument is rank-sharded."""
+    return not sharded(*ts) or world().rank == 0
 
 
 # -- the net -----------------------------------------------------------------
