@@ -499,17 +499,19 @@ def _usage(report):
 
 
 def _instance(mangled):
-    """A template instance of the DIA SpMM kernel by its types and V
-    ("f32 V=4", "f32/f64 V=2" for f32 data with f64 compute); other
-    kernels keep their mangled names."""
-    hit = re.search(r"dia_spmm_kernelI(13__nv_bfloat16|f|d)([fd])Li(\d+)E",
-                    mangled)
+    """A template instance of a DIA kernel by its types and its rows a
+    thread R (the SpMV) or columns a thread V (the SpMM): "f32 R=4",
+    "f32/f64 V=2" for f32 data with f64 compute; other kernels keep their
+    mangled names."""
+    hit = re.search(r"dia_sp(mv|mm)_kernelI(13__nv_bfloat16|f|d)([fd])"
+                    r"Li(\d+)E", mangled)
     if not hit:
         return mangled
-    kind = {"f": "f32", "d": "f64"}.get(hit.group(1), "bf16")
-    if hit.group(2) == "d" and kind != "f64":
+    kind = {"f": "f32", "d": "f64"}.get(hit.group(2), "bf16")
+    if hit.group(3) == "d" and kind != "f64":
         kind += "/f64"
-    return "%s V=%s" % (kind, hit.group(3))
+    return "%s %s=%s" % (kind, "R" if hit.group(1) == "mv" else "V",
+                         hit.group(4))
 
 
 def phase_rates():
@@ -559,17 +561,61 @@ def _hold(label, y, ref, dtype, tag="3 kernel"):
     return (y - ref).abs().max().item()
 
 
-def _check_dia(cases, label, data, offsets, x, plain=None):
-    """The DIA SpMV kernel against its plain version; the matrix joins
-    ``cases`` for the SpMM checks of phase 3b."""
+def _check_dia(cases, label, data, offsets, x, r, join=True):
+    """The DIA SpMV kernel against its plain version, bit for bit, under a
+    plan of ``r`` rows a thread; with ``join`` the matrix joins ``cases``
+    for the SpMM checks of phases 3b and 3c."""
     from pykrylov_tpu_torch.sparse import kernels as K
-    cases.append((label, data, offsets))
+    if join:
+        cases.append((label, data, offsets))
+    plan = K.dia_matvec_plan(data, offsets, x)
+    if plan.r != r:
+        raise AssertionError("%s: the plan took R=%d, not %d"
+                             % (label, plan.r, r))
     y = K.dia_matvec(data, offsets, x)
     torch.cuda.synchronize()
-    ref = (K.dia_matvec_plain(data, offsets, x) if plain is None
-           else plain())
-    torch.cuda.synchronize()
-    return _hold(label, y, ref, data.dtype)
+    _exact("%s (R=%d, interior %d:%d)" % (label, *plan), y,
+           K.dia_matvec_plain(data, offsets, x))
+
+
+def _poison(data, offsets, n):
+    """NaN and inf in every slot of ``data`` whose column lies outside
+    [0, n): the kernel must skip those terms, not multiply them."""
+    i = torch.arange(data.shape[1], device=data.device)
+    for k, off in enumerate(offsets):
+        out = torch.nonzero((i + off < 0) | (i + off >= n)).flatten()
+        data[k, out[0::2]] = float("nan")
+        data[k, out[1::2]] = float("inf")
+    return data
+
+
+DIA_ENTRIES = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+               (torch.float64, torch.float64), (torch.float32, torch.float64),
+               (torch.bfloat16, torch.float64))
+
+
+def _dia_plan_cases(cases, rng):
+    """The SpMV plan's paths at all five entries, bit for bit: unsorted
+    and repeated offsets with NaN and inf in every slot outside the
+    matrix (row groups), x handed in as the contiguous view x[1:] and an
+    m that R does not divide (both the scalar path, R = 1)."""
+    m = 1 << 20
+    offsets = (5, -3, 0, 5, -3, 1024, -1024)
+    base = torch.from_numpy(rng.standard_normal((len(offsets), m))).to(DEVICE)
+    xs = torch.from_numpy(rng.standard_normal(m + 1)).to(DEVICE)
+    for storage, xdt in DIA_ENTRIES:
+        name = "%s/%s" % (str(storage)[6:], str(xdt)[6:])
+        data = _poison(base.to(storage, copy=True), offsets, m)
+        x = xs.to(xdt)
+        rw = 16 // data.element_size()
+        _check_dia(cases, "DIA unsorted, NaN/inf outside, %s" % name, data,
+                   offsets, x[:m], rw, join=False)
+        _check_dia(cases, "DIA x as the view x[1:], %s" % name, data,
+                   offsets, x[1:], 1, join=False)
+        odd = _poison(base[:, :m - 1].to(storage, copy=True), offsets,
+                      m - 1)
+        _check_dia(cases, "DIA m %% R != 0, %s" % name, odd, offsets,
+                   x[:m - 1], 1, join=False)
 
 
 def phase_dia_kernel(pt):
@@ -584,13 +630,13 @@ def phase_dia_kernel(pt):
         dia = _dia_on_card(*poisson3d_coo(64, dtype=nd))
         x = torch.from_numpy(rng.standard_normal(dia.shape[1]).astype(nd))
         _check_dia(cases, "DIA poisson3d(64) %s" % str(dtype)[6:], dia.data,
-                   dia.offsets, x.to(DEVICE))
+                   dia.offsets, x.to(DEVICE), 16 // dtype.itemsize)
     dia = _dia_on_card(*poisson3d_coo(64, dtype=np.float32))
     d16 = dia.data.to(torch.bfloat16)
     x = torch.from_numpy(
         rng.standard_normal(dia.shape[1]).astype(np.float32)).to(DEVICE)
     _check_dia(cases, "DIA poisson3d(64) bf16 storage", d16, dia.offsets, x,
-               plain=lambda: K.dia_matvec_plain(d16.float(), dia.offsets, x))
+               8)
 
     # unsymmetric banded matrix with one far diagonal, and its transpose
     m = 100003
@@ -602,10 +648,15 @@ def phase_dia_kernel(pt):
     dia = F.DIA(torch.from_numpy(data).to(DEVICE), offsets, (m, m))
     x = torch.from_numpy(
         rng.standard_normal(m).astype(np.float32)).to(DEVICE)
-    _check_dia(cases, "DIA banded m=100003 A x", dia.data, dia.offsets, x)
+    _check_dia(cases, "DIA banded m=100003 A x", dia.data, dia.offsets, x, 1)
     diat = K.dia_transpose(dia)
     _check_dia(cases, "DIA banded m=100003 A^T x", diat.data, diat.offsets, x,
-               plain=lambda: F.dia_rmatvec(dia, x))
+               1)
+    # the transpose's product is A^T x up to the order of the sums
+    _hold("DIA banded m=100003 A^T x against A's rmatvec",
+          K.dia_matvec(diat.data, diat.offsets, x), F.dia_rmatvec(dia, x),
+          torch.float32)
+    _dia_plan_cases(cases, rng)
 
     # CG through the kernel on a small system: checks the solver on the
     # card and loads the library and torch kernels the DIA path's solve
@@ -1059,10 +1110,8 @@ def phase_dia_path(pt):
     torch.cuda.synchronize()
     ref = K.dia_matvec_plain(data, offsets, x_true)
     err = (b - ref).abs().max().item()
-    log("[4 DIA path] b = A x_true: kernel vs plain rel err %.3e, "
-        "max abs err %.3e" % (relerr(b, ref), err))
-    if not relerr(b, ref) <= REL_BOUND[torch.float32]:
-        raise AssertionError("kernel disagrees with plain at n=%d" % N)
+    log("[4 DIA path] plan %s" % (K.dia_matvec_plan(data, offsets, x_true),))
+    _exact("b = A x_true", b, ref, tag="4 DIA path")
     del ref
 
     # a short solve at full size first, so the timed one below is warm
@@ -6168,6 +6217,15 @@ def main():
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import sell as S
     data, offsets = A_dia.container.data, A_dia.container.offsets
+    # the SpMV plans of the timed entries at n = N
+    x0 = torch.zeros(data.shape[1], device=DEVICE)
+    dia_plans = {name: K.dia_matvec_plan(data.to(storage), offsets,
+                                         x0.to(xdt))._asdict()
+                 for name, storage, xdt in (
+                     ("f32", torch.float32, torch.float32),
+                     ("bf16", torch.bfloat16, torch.float32),
+                     ("f32/f64", torch.float32, torch.float64))}
+    del x0
     dia_curve = phase_spmm_timing(
         "DIA n=%d" % N, lambda X: K.dia_matmat(data, offsets, X),
         lambda X: K.dia_matmat_plain(data, offsets, X), coo_dia,
@@ -6254,6 +6312,7 @@ def main():
             "k_curve": {str(k): v for k, v in curve.items()},
             "solve_ms_per_block_iter": path["ms_per_iter"],
         })
+    kernels[0].update(plan=dia_plans, registers=regs["dia_spmv"])
     kernels[2].update(plan=dia_curve[KB]["plan"], registers=regs["dia_spmm"])
     # each kernel's launches in the runs of phases 8-10b, counted from 0
     runs = {"8": new_s["8"][0]["launches"],
@@ -6300,6 +6359,10 @@ def main():
     # A^T through the SELL kernel (10), convection-diffusion A and A^T
     # through the DIA kernel (10b); 2 launches an iteration, one each
     kernels[0]["lls_directions"] = lls["timing"]
+    kernels[0]["convdiff_ms"] = {
+        direction: {k: v[k] for k in ("ms", "mixed_ms", "bound_ms",
+                                      "mixed_bound_ms", "library_ms")}
+        for direction, v in lls["timing"].items()}
     kernels[1]["lls_directions"] = se["timing"]
     # the SpMM kernels on A^T at K = KB (13), and the block solves of
     # phases 11-13 through them

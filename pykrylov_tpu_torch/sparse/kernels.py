@@ -8,9 +8,11 @@ the unpadded ``(ndiag, m)`` container of :mod:`.formats`, and the SpMM the
 (n, K) row-major block as the batched solvers hold it, so the TPU kernels'
 block padding, block choice and packing (``choose_block``,
 ``ensure_dia_padded``, ``pack_dia``, the ``_halo_rows*`` helpers, the
-``(K, m/128, 128)`` relayout of X) have no counterpart here.  The SpMM's
-host plan (:func:`dia_mm_plan`: columns per thread and column panels) is
-made here and handed to the kernel with the offsets.
+``(K, m/128, 128)`` relayout of X) have no counterpart here.  Each
+kernel's host plan is made here and handed to the kernel with the
+offsets: the SpMV's rows a thread and unchecked interior
+(:func:`dia_mv_plan`), the SpMM's columns a thread and column panels
+(:func:`dia_mm_plan`).
 
 :func:`dia_matvec` and :func:`dia_matmat` launch their kernel for CUDA
 tensors and run the plain torch version (:func:`dia_matvec_plain`,
@@ -30,9 +32,9 @@ from . import formats as F
 from .. import _build
 
 __all__ = ["DIA_LAUNCHES", "DIA_MM_LAUNCHES", "MAX_DIAGS", "DiaMMPlan",
-           "dia_matvec", "dia_matvec_plain", "dia_matmat",
-           "dia_matmat_plain", "dia_matmat_plan", "dia_mm_plan",
-           "dia_transpose", "cuda_dia_operator"]
+           "DiaMVPlan", "dia_matvec", "dia_matvec_plain", "dia_matvec_plan",
+           "dia_mv_plan", "dia_matmat", "dia_matmat_plain", "dia_matmat_plan",
+           "dia_mm_plan", "dia_transpose", "cuda_dia_operator"]
 
 # Launches of the DIA SpMV and SpMM kernels in this process; each wrapper
 # adds one per launch and nothing else touches them except a caller
@@ -59,6 +61,7 @@ _MM_ENTRY = {key: name.replace("spmv", "spmm")
 def _entry(name):
     fn = getattr(_build.load("dia_spmv"), name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -129,6 +132,50 @@ def _compute_dtype(data, x):
     return ct
 
 
+class DiaMVPlan(NamedTuple):
+    """How the SpMV kernel covers one product (:func:`dia_mv_plan`): ``r``
+    consecutive rows a thread, and the interior rows ``[lo, hi)`` whose
+    every term lies in range, which run without range checks (``lo ==
+    hi``: none)."""
+    r: int
+    lo: int
+    hi: int
+
+
+def dia_mv_plan(offsets, m, n, itemsize, aligned):
+    """The SpMV kernel's plan for ``offsets`` over an (m, n) container
+    whose diagonals hold ``itemsize``-byte values, where ``aligned`` says
+    that data, x and y are 16-byte aligned.
+
+    R is 16 bytes of stored values (4 in f32, 8 in bf16, 2 in f64) when
+    it divides m (else every container row after the first starts
+    misaligned) and the pointers are aligned, else 1 (the scalar path).
+    The interior is ``[max(0, -min off), min(m, n - max off))``, empty
+    (``lo == hi``) when the offsets leave no row with every term inside
+    [0, n).
+    """
+    rw = 16 // itemsize
+    r = rw if aligned and m % rw == 0 else 1
+    offsets = [int(o) for o in offsets]
+    if not offsets:
+        return DiaMVPlan(r, 0, m)
+    lo = min(max(0, -min(offsets)), m)
+    hi = max(lo, min(m, n - max(offsets)))
+    return DiaMVPlan(r, lo, hi)
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def dia_matvec_plan(data, offsets, x):
+    """The plan :func:`dia_matvec` takes for these tensors on the card (y
+    comes from the caching allocator, 16-byte aligned)."""
+    x = x.to(_compute_dtype(data, x))
+    return dia_mv_plan(offsets, data.shape[1], x.shape[0],
+                       data.element_size(), _aligned(data, x))
+
+
 def _launch(data, offsets, x):
     global DIA_LAUNCHES
     ct = _compute_dtype(data, x)
@@ -140,11 +187,15 @@ def _launch(data, offsets, x):
     if m == 0:
         return y
     fn = _entry(_ENTRY[(data.dtype, ct)])
-    offs = _offsets_arg(tuple(int(o) for o in offsets))
+    offsets = tuple(int(o) for o in offsets)
+    plan = dia_mv_plan(offsets, m, x.shape[0], data.element_size(),
+                       _aligned(data, x, y))
+    offs = _offsets_arg(offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
-                 x.data_ptr(), y.data_ptr(), m, x.shape[0], stream)
+                 plan.r, plan.lo, plan.hi, x.data_ptr(), y.data_ptr(), m,
+                 x.shape[0], stream)
     if err != 0:
         raise RuntimeError("DIA kernel launch failed with CUDA error %d"
                            % err)

@@ -1,20 +1,34 @@
-"""The DIA SpMM kernel's host plan (``kernels.dia_mm_plan``) on the CPU.
+"""The DIA kernels' host plans (``kernels.dia_mv_plan``,
+``kernels.dia_mm_plan``) on the CPU.
 
-The plan decides how ``csrc/dia_spmm.cu`` covers a block product: V columns
-per thread and tiles of T rows by Kc columns, panel-major.  The kernel
-itself runs only on the card (``tests/test_torch_spmm_card.py``); here the
-plan is held to its rules, and a torch emulation of the kernel's tile walk
-under the plan is held bit for bit against the plain product.
+The SpMV plan decides how ``csrc/dia_spmv.cu`` covers a product: R
+consecutive rows a thread and the interior rows that run without range
+checks.  The SpMM plan decides how ``csrc/dia_spmm.cu`` covers a block
+product: V columns per thread and tiles of T rows by Kc columns,
+panel-major.  The kernels themselves run only on the card
+(``tests/test_torch_dia_card.py``, ``tests/test_torch_spmm_card.py``);
+here each plan is held to its rules, and a torch emulation of each
+kernel's walk under its plan is held bit for bit against the plain product
+(and, for the SpMV, against the JAX package's Pallas kernel in interpret
+mode: 1e-12 relative in f64, 1e-6 in f32, where the sums run in another
+order).
 """
 
 import os
 import re
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from pykrylov_tpu.gallery import poisson3d_coo
+from pykrylov_tpu.sparse import formats as JF
+
+from pykrylov_tpu_torch import convert
 from pykrylov_tpu_torch.sparse import kernels as K
+
+from test_torch_dia import pallas, rel
 
 N3 = 240 * 240
 POISSON240 = (-N3, -240, -1, 0, 1, 240, N3)
@@ -189,3 +203,268 @@ def test_mixed_pair_tile_walk_equals_plain():
     assert ref.dtype == torch.float64
     assert torch.equal(emulate(data, offsets, X, plan), ref)
     assert torch.equal(ref, K.dia_matmat_plain(data.double(), offsets, X))
+
+
+# ---------------------------------------------------------------------------
+# the SpMV kernel's plan and walk
+# ---------------------------------------------------------------------------
+
+def _source(name):
+    path = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                        name + ".cu")
+    with open(path) as f:
+        return f.read()
+
+
+# x loads a thread issues ahead of their products: a chunk of
+# max(1, MV_TERMS // R) diagonals
+MV_TERMS = int(re.search(r"constexpr int kTerms = (\d+);",
+                         _source("dia_spmv")).group(1))
+# (storage, x dtype) of the five entry points
+ENTRIES = {
+    "f32": (torch.float32, torch.float32),
+    "bf16": (torch.bfloat16, torch.float32),
+    "f64": (torch.float64, torch.float64),
+    "f32f64": (torch.float32, torch.float64),
+    "bf16f64": (torch.bfloat16, torch.float64),
+}
+# the odd sizes of the card tests (R = 1: R divides none of them) and sizes
+# that every R divides (the row groups)
+MV_SIZES = (1, 3, 37, 20011, 100003, 8, 1728, 20016, 100000)
+
+
+def interior(offsets, m, n):
+    """The rows whose every term has its column in [0, n), by brute
+    force."""
+    rows = [i for i in range(m)
+            if all(0 <= i + o < n for o in offsets)]
+    return (rows[0], rows[-1] + 1) if rows else None
+
+
+@pytest.mark.parametrize("itemsize,rw", [(2, 8), (4, 4), (8, 2)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 12, 37, 1000, 20011, 20016])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_mv_rows_a_thread_follow_storage_and_alignment(itemsize, rw, m,
+                                                       aligned):
+    plan = K.dia_mv_plan(POISSON240, m, m, itemsize, aligned)
+    assert plan.r in (1, rw)
+    # 16 bytes of stored values a group, only where R divides m (each
+    # container row then starts 16-byte aligned) and the pointers align
+    assert plan.r == (rw if aligned and m % rw == 0 else 1)
+    assert m % plan.r == 0
+    assert 0 <= plan.lo <= plan.hi <= m
+
+
+@pytest.mark.parametrize("name", sorted(OFFSET_SETS))
+@pytest.mark.parametrize("shape", [(1728, 1728), (20016, 20016),
+                                   (20016, 20500), (20500, 20016),
+                                   (40000, 1000), (64, 64)])
+def test_mv_interior_is_every_row_with_every_term_in_range(name, shape):
+    offsets = OFFSET_SETS[name]
+    m, n = shape
+    plan = K.dia_mv_plan(offsets, m, n, 4, True)
+    # no offsets: every row is interior
+    want = interior(offsets, m, n) if offsets else (0, m)
+    if want is None:
+        assert plan.lo == plan.hi
+    else:
+        assert (plan.lo, plan.hi) == want
+
+
+@pytest.mark.parametrize("offsets", [(0, 1, 2000), (-3000, 0),
+                                     (-2000, 5000), (1001,), (-1001,)])
+def test_mv_offsets_past_m_leave_no_interior(offsets):
+    plan = K.dia_mv_plan(offsets, 1000, 1000, 4, True)
+    assert plan.lo == plan.hi and 0 <= plan.lo <= 1000
+    assert interior(offsets, 1000, 1000) is None
+
+
+def test_mv_poisson_plan_at_the_main_paths_size():
+    m = 240 ** 3
+    for itemsize, r in ((4, 4), (2, 8), (8, 2)):
+        plan = K.dia_mv_plan(POISSON240, m, m, itemsize, True)
+        assert plan == (r, N3, m - N3)
+    assert K.dia_mv_plan(POISSON240, m, m, 4, False).r == 1
+
+
+def test_mv_wrapper_plan_sees_alignment_and_storage():
+    m = 1000
+    buf = torch.zeros(3 * m + 4)
+    data = buf[:3 * m].view(3, m)
+    shifted = buf[1:1 + 3 * m].view(3, m)     # 4 bytes past alignment
+    x = torch.zeros(m + 4)
+    assert K.dia_matvec_plan(data, (-1, 0, 1), x[:m]).r == 4
+    assert K.dia_matvec_plan(shifted, (-1, 0, 1), x[:m]).r == 1
+    assert K.dia_matvec_plan(data, (-1, 0, 1), x[1:1 + m]).r == 1
+    # R follows the storage, not the compute type: f32 data with an f64 x
+    # takes 4 rows (two 16-byte stores of y), bf16 data 8
+    assert K.dia_matvec_plan(data, (-1, 0, 1), x[:m].double()).r == 4
+    assert K.dia_matvec_plan(data.to(torch.bfloat16), (-1, 0, 1),
+                             x[:m]).r == 8
+    assert K.dia_matvec_plan(data.double(), (-1, 0, 1),
+                             x[:m].double()).r == 2
+    # an m that R does not divide misaligns every row after the first
+    assert K.dia_matvec_plan(torch.zeros(3, 1002), (-1, 0, 1),
+                             torch.zeros(1002)).r == 1
+    # rectangular: the interior follows n
+    plan = K.dia_matvec_plan(torch.zeros(2, 1000), (-5, 20),
+                             torch.zeros(900))
+    assert (plan.r, plan.lo, plan.hi) == (4, 5, 880)
+
+
+def emulate_mv(data, offsets, x, plan, terms=MV_TERMS):
+    """The SpMV kernel's walk in torch: groups of R rows, each diagonal's R
+    values of a group read as one load; the loads of a chunk of
+    max(1, terms // R) diagonals taken before its products, the products
+    added in ascending k, each product and sum rounded on its own;
+    interior groups read x without a range check (asserted to lie in
+    range), the other groups skip each term whose column lies outside
+    [0, n)."""
+    ndiag, m = data.shape
+    n = x.shape[0]
+    ct = torch.promote_types(data.dtype, x.dtype)
+    x = x.to(ct)
+    r = plan.r
+    chunk = max(1, terms // r)
+    assert m % r == 0
+    starts = torch.arange(0, m, r)
+    inside = (starts >= plan.lo) & (starts + r <= plan.hi)
+    rows = starts[:, None] + torch.arange(r)
+    acc = torch.zeros((m // r, r), dtype=ct)
+    for k0 in range(0, ndiag, chunk):
+        loads = []
+        for k in range(k0, min(k0 + chunk, ndiag)):
+            vals = data[k].reshape(-1, r)
+            j = rows + offsets[k]
+            live = (j >= 0) & (j < n)
+            assert bool(live[inside].all())    # the unchecked reads
+            live = torch.where(inside[:, None], True, live)
+            xv = x[j.clamp(0, max(n - 1, 0))] if n else torch.zeros_like(acc)
+            loads.append((vals, xv, live))
+        for vals, xv, live in loads:
+            acc = torch.where(live, acc + vals.to(ct) * xv, acc)
+    return acc.reshape(m)
+
+
+def poison(data, offsets, n):
+    """NaN and inf in every slot whose column lies outside [0, n)."""
+    m = data.shape[1]
+    i = np.arange(m)
+    for k, off in enumerate(offsets):
+        out = np.flatnonzero((i + off < 0) | (i + off >= n))
+        data[k, torch.from_numpy(out[0::2])] = float("nan")
+        data[k, torch.from_numpy(out[1::2])] = float("inf")
+    return data
+
+
+def mv_case(m, n, offsets, entry, seed):
+    storage, xdt = ENTRIES[entry]
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(
+        rng.standard_normal((len(offsets), m))).to(storage)
+    data = poison(data, offsets, n)
+    x = torch.from_numpy(rng.standard_normal(n)).to(xdt)
+    return data, x
+
+
+def hold_walk(data, offsets, x, terms=(MV_TERMS,)):
+    """The emulated walk under the wrapper's plan, bit for bit against the
+    plain product, at each budget of terms ahead; returns the plan."""
+    ref = K.dia_matvec_plain(data, offsets, x)
+    assert torch.isfinite(ref).all()
+    plan = K.dia_matvec_plan(data, offsets, x)
+    for t in terms:
+        assert torch.equal(emulate_mv(data, offsets, x, plan, t), ref)
+    return plan
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+@pytest.mark.parametrize("m", MV_SIZES)
+def test_mv_walk_equals_plain(entry, m):
+    # far offsets and the tridiagonal core: an interior from m = 260
+    offsets = (-max(1, m // 3), -130, -1, 0, 3, 129)
+    data, x = mv_case(m, m, offsets, entry, m)
+    plan = hold_walk(data, offsets, x, (MV_TERMS, 32, 1))
+    rw = 16 // data.element_size()
+    assert plan.r == (rw if m % rw == 0 else 1)
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+@pytest.mark.parametrize("name,m,n,offsets", [
+    ("rectangular, wide", 20016, 21000, (-700, -1, 0, 2, 990)),
+    ("rectangular, tall", 20016, 15000, (-700, -1, 0, 2, 990)),
+    ("rectangular, R does not divide n", 20016, 20013,
+     (-700, -1, 0, 2, 990)),
+    ("unsorted with duplicates", 1728, 1728, (5, -3, 0, 5, -3, 144, -144)),
+    ("64 diagonals", 4000, 4000, tuple(range(-40, 24))),
+    ("past m, no interior", 1000, 1000, (-1200, -3, 0, 2, 1001)),
+    ("halo shard, L + 2w rows", 3456 + 2 * 144, 3456 + 2 * 144,
+     (-144, -12, -1, 0, 1, 12, 144)),
+    ("no diagonals", 64, 64, ()),
+])
+def test_mv_walk_equals_plain_on_container_cases(entry, name, m, n, offsets):
+    data, x = mv_case(m, n, offsets, entry, m + n + len(offsets))
+    plan = hold_walk(data, offsets, x, (MV_TERMS, 32))
+    if name == "past m, no interior":
+        assert plan.lo == plan.hi
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_mv_walk_on_misaligned_views(entry):
+    # x handed in as the contiguous view x[1:] and data whose rows start
+    # misaligned take R = 1, and stay bit for bit
+    storage, xdt = ENTRIES[entry]
+    m, offsets = 20016, (-144, -12, -1, 0, 1, 12, 144)
+    data, x = mv_case(m, m + 1, offsets, entry, 7)
+    view = x[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    assert hold_walk(data, offsets, view).r == 1
+    buf = torch.zeros(len(offsets) * m + 8, dtype=storage)
+    shifted = buf[1:1 + len(offsets) * m].view(len(offsets), m)
+    shifted.copy_(data)
+    assert hold_walk(shifted, offsets, x[:m]).r == 1
+
+
+def test_mv_walk_on_transposes():
+    from pykrylov_tpu_torch.sparse import formats as F
+    rng = np.random.default_rng(3)
+    m, offsets = 20016, (-7000, -3, 0, 2, 5, 131)
+    data = torch.from_numpy(rng.standard_normal((len(offsets), m)))
+    for k, off in enumerate(offsets):
+        i = torch.arange(m)
+        data[k, (i + off < 0) | (i + off >= m)] = 0.0
+    t = K.dia_transpose(F.DIA(data.float(), offsets, (m, m)))
+    x = torch.from_numpy(rng.standard_normal(m)).float()
+    hold_walk(t.data, t.offsets, x)
+    hold_walk(t.data, t.offsets, x.double())
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_mv_walk_matches_the_pallas_kernel(entry):
+    # the JAX package's DIA product as tests/test_torch_dia.py runs it: the
+    # Pallas kernel in interpret mode on the same stored values (widened to
+    # f64 for the mixed entries, whose compute is f64)
+    storage, xdt = ENTRIES[entry]
+    rng = np.random.default_rng(21)
+    vals, rows, cols, shape = poisson3d_coo(12)
+    vals = vals * (1.0 + 0.3 * rng.standard_normal(len(vals)))
+    npdt = {torch.float32: np.float32, torch.float64: np.float64,
+            torch.bfloat16: ml_dtypes.bfloat16}[storage]
+    v = np.asarray(vals, dtype=npdt)
+    if xdt == torch.float64:
+        v = v.astype(np.float64)
+    jdia = JF.dia_from_coo(JF.coo_from_arrays(v, rows, cols, shape),
+                           device=False)
+    dia = convert.from_numpy(jdia, device="cpu")
+    data = dia.data if dia.data.dtype == storage else dia.data.to(storage)
+    assert torch.equal(data.to(dia.data.dtype), dia.data)
+    xnp = rng.standard_normal(shape[0]).astype(
+        np.float64 if xdt == torch.float64 else np.float32)
+    x = torch.from_numpy(xnp)
+    plan = K.dia_matvec_plan(data, dia.offsets, x)
+    assert plan.r == 16 // data.element_size()      # 1728 rows
+    y = emulate_mv(data, dia.offsets, x, plan)
+    assert torch.equal(y, K.dia_matvec_plain(data, dia.offsets, x))
+    assert y.dtype == xdt
+    tol = 1e-12 if xdt == torch.float64 else 1e-6
+    assert rel(y, pallas(jdia, xnp, 1024)) <= tol
