@@ -146,7 +146,7 @@ def caller(K, lib, data, offsets, plan):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 3 \
         + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    offs = K._offsets_arg(tuple(offsets))
+    offs = K._offsets_info(tuple(offsets))[0]
 
     def run(X):
         Y = torch.empty((data.shape[1], X.shape[1]), device=X.device)
@@ -357,7 +357,7 @@ def mv_caller(K, lib, entry, data, offsets, plan):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 4 \
         + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    offs = K._offsets_arg(tuple(offsets))
+    offs = K._offsets_info(tuple(offsets))[0]
 
     def run(x):
         y = torch.empty(data.shape[1], dtype=x.dtype, device=x.device)
@@ -377,7 +377,7 @@ def baseline_caller(K, lib, entry, data, offsets):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64] \
         + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    offs = K._offsets_arg(tuple(offsets))
+    offs = K._offsets_info(tuple(offsets))[0]
 
     def run(x):
         y = torch.empty(data.shape[1], dtype=x.dtype, device=x.device)

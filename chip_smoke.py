@@ -69,10 +69,12 @@ Phases, in order:
   4b. the DIA block path: ``solve(A, B)`` with B = A X_true, X_true (n, 8),
      the SpMM launches counted from 0 (= block products), every column's
      true residual in f64 and its iterations against a single solve of
-     that column, a profiled block solve, and the block solve through the
+     that column, a profile of its first PROFILE_ITERS / 2 block
+     iterations, and the block solve through the
      plain operator;
   5. the BELL path: the same on tiled 1138bus, one SELL launch per
-     matvec, the time to derive the card form, the same solve through the
+     matvec, the time to derive the card form, its first PROFILE_ITERS
+     iterations profiled, the same solve through the
      plain BELL operator (the containers' own products), and, in turns
      with the kernel's, through ``fmt="ell"`` (the policy's CUDA choice
      before the BELL kernel) and ``fmt="csr"``;
@@ -86,7 +88,8 @@ Phases, in order:
      relative residual in f64 at most 1e-4; the same MINRES on the f32 b
      (logged: the f32 recurrence's true residual); then
      ``solve(method="symmlq")`` with the same checks; a profiled run of
-     each (device busy and idle share);
+     each (device busy and idle share; SYMMLQ's first PROFILE_ITERS
+     iterations);
   8b. MINRES's golden (BASELINE config #2): tiled 1138bus from phase 5
      with M = 1/max(|d|, 1) in f64 (the SELL f32f64 entry), b = A 1 /
      sqrt(TILES) (which keeps beta1, and so every stop test, the single
@@ -98,7 +101,7 @@ Phases, in order:
      an f32 BiCGSTAB capped at 4000 matvecs is logged to show it):
      ``solve`` (BiCGSTAB), CGS, TFQMR and BiCGSTAB with an f64 Jacobi M,
      each istop 0, DIA launches = matvecs, true relative residual at most
-     1e-4; one profiled BiCGSTAB;
+     1e-4; BiCGSTAB's first PROFILE_ITERS iterations profiled;
   9b. the reference's bmark: jpwh_991 tiled 256 times in f64 through
      ``fmt="auto"`` (logged whether ``_try_bell`` accepts it; else
      ``fmt="bell"``), x0 = tile(1 + arange(991)), rtol 1e-8, matvec_max =
@@ -113,9 +116,10 @@ Phases, in order:
      x_true + 1% noise in f64; ``solve`` (LSMR) and ``lsqr`` at atol =
      btol = 1e-6, etol = 0, each istop 1 or 2, SELL launches = matvecs + 1
      (the uncounted A'u of the start), ``||A'r|| / (||A||_F ||r||)`` in
-     f64 through the plain products at most 1e-5, the first 1000
-     iterations of each profiled; LSQR capped at 200 iterations through
-     the kernels and through the plain products on the same card forms:
+     f64 through the plain products at most 1e-5, the first
+     PROFILE_ITERS iterations of each profiled; LSQR capped at 200
+     iterations through the kernels and through the plain products on the
+     same card forms:
      istop 7 both, x bit for bit; each direction's SpMV timed (f32 and
      f64 x, plain, torch CSR) against its bound;
   10b. the square unsymmetric path on phase 9's operator (DIA, A^T through
@@ -277,6 +281,21 @@ Phases, in order:
      capped at 20 iterations (rank 0 alone prints, every rank keeps the
      same table, whose last x(1) is the whole x's first row); the same
      lockstep, launch and residual checks as 21a;
+  22. the DIA path past 64 diagonals (:func:`phase_wide`): the Galerkin
+     Laplacian of quadratic B-splines on a 128^3 grid (:func:`bspline_dia`;
+     2,097,152 rows, 125 diagonals, 1.05 GB of f32 diagonals built on the
+     card, no COO): the SpMV kernel at all five entries and the SpMM at K
+     = 1, 8, 16 bit for bit their plain versions, on it and on its
+     diagonals shuffled with five repeated; ``solve`` (CG, rtol 1e-6,
+     ``b = A x_true``) with DIA launches = matvecs and the f64 true
+     residual at most 1e-4; ``A.T @ x`` of the Laplacian plus a first
+     derivative along x through ``dia_transpose`` against
+     ``formats.dia_rmatvec``; ``HaloDiaOperator`` on 4 slots bit for bit
+     the unsharded kernel; ``operator_from_coo(max_diags=128)`` at n = 48
+     gives ``cuda-dia`` and the default the BELL policy (a SELL card form
+     at n = 16); the wide SpMV and K = 8 SpMM timed against their bound
+     and torch's CSR product, and a wrapper call's host time at 125 and 7
+     diagonals;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -298,8 +317,9 @@ Phases, in order:
      ``torch.sparse.mm`` of torch's CSR tensor with the block (cuSPARSE
      SpMM, timed as a yardstick only);
   7. a line of each phase's numbers, then a JSON line naming the kernels
-     (each with its launches in every run of phases 8-21,
-     ``launches_by_phase``, and the verified solves of phases 14-15 that
+     (each with its launches in every run of phases 8-22,
+     ``launches_by_phase``; the DIA kernels with phase 22's 125-diagonal
+     times, ``wide``; and the verified solves of phases 14-15 that
      ran through it, ``verified_solves``; the SpMMs with their K = 16
      f64-block times, ``k16_f64_block``; the SpMV kernels with their
      mixed-pair times and bounds and both directions of the least-squares
@@ -312,8 +332,9 @@ Phases, in order:
      and spill bytes), then the result line ``{"ok": true, "device":
      {...}}``.
 
-Phases 8-21 run after 5b and before 6; each resets every launch count
-to 0 just before a solve and reads the counts just after.
+Phases 8-22 run after 5b and before 6; each resets every launch count
+to 0 just before a solve and reads the counts just after.  Each phase's
+seconds are logged as it ends (``[time]``).
 
 ``python3 chip_smoke.py --nccl`` runs phases 1, 2 and 4 and then NCCL
 worlds on the machine's cards.  Where there are two cards or more:
@@ -373,6 +394,11 @@ BELL_MM_K = (3, 8, 64)     # block widths of the BELL SpMM checks (3b)
 CURVE_K = (8, 16, 32, 64)  # block widths of the K-curve (6b)
 ITER_RTOL = 0.1     # block vs single solve, iterations per column
 MIXED_K = (3, 8)    # block widths of the mixed-pair SpMM checks (3c)
+# iterations a profiled solve keeps when it runs longer (phases 5, 8's
+# SYMMLQ, 9, 10; blocks of 4b, 5b: half as many), against the same share
+# of its unprofiled wall: the profiler's cost grows with the events it
+# keeps (~25 kernels an iteration)
+PROFILE_ITERS = 400
 HELM_RTOL = 1e-8    # rtol of the indefinite path (8): MINRES's test is
                     # relative to Anorm ynorm, so 1e-6 leaves the true
                     # residual near 1e-4 at this n
@@ -501,8 +527,8 @@ def _usage(report):
 def _instance(mangled):
     """A template instance of a DIA kernel by its types and its rows a
     thread R (the SpMV) or columns a thread V (the SpMM): "f32 R=4",
-    "f32/f64 V=2" for f32 data with f64 compute; other kernels keep their
-    mangled names."""
+    "f32/f64 V=2" for f32 data with f64 compute, "f32 R=4 wide" for the
+    instance past 64 diagonals; other kernels keep their mangled names."""
     hit = re.search(r"dia_sp(mv|mm)_kernelI(13__nv_bfloat16|f|d)([fd])"
                     r"Li(\d+)E", mangled)
     if not hit:
@@ -510,8 +536,9 @@ def _instance(mangled):
     kind = {"f": "f32", "d": "f64"}.get(hit.group(2), "bf16")
     if hit.group(3) == "d" and kind != "f64":
         kind += "/f64"
-    return "%s %s=%s" % (kind, "R" if hit.group(1) == "mv" else "V",
-                         hit.group(4))
+    return "%s %s=%s%s" % (kind, "R" if hit.group(1) == "mv" else "V",
+                           hit.group(4),
+                           " wide" if "WideOffsets" in mangled else "")
 
 
 def phase_rates():
@@ -769,6 +796,67 @@ def se_coo(tiles=SE_TILES, dtype=np.float32):
     area = np.arange(tiles, dtype=np.int64)[:, None]
     return (np.tile(v, tiles).astype(dtype), (r + area * m).reshape(-1),
             (c + area * n).reshape(-1), (tiles * m, tiles * n))
+
+
+BS_N = 128          # grid of phase 22's B-spline Laplacian (2,097,152 rows)
+BS_ROUTE_N = 48     # grid of phase 22's route check (110,592 rows >= 65,536)
+BS_MASS = (1, 26, 66, 26, 1)       # h / 120 times: int N_i N_{i+s}
+BS_STIFF = (-1, -2, 6, -2, -1)     # 1 / (6 h) times: int N_i' N_{i+s}'
+BS_ADVECT = (-1, -10, 0, 10, 1)    # 1 / 24 times: int N_i N_{i+s}'
+
+
+def bspline_dia(n, dtype=torch.float32, device=None, drift=0.0):
+    """The Galerkin Laplacian of uniform quadratic B-splines on an n x n x
+    n grid (isogeometric analysis: Cottrell, Hughes & Bazilevs, 2009), in
+    natural order (x slowest), as a DIA container built on ``device``
+    without a COO:
+
+        A = K (x) M (x) M  +  M (x) K (x) M  +  M (x) M (x) K
+            + drift * D (x) M (x) M,
+
+    with the 1-D rows M = h/120 [1, 26, 66, 26, 1], K = 1/(6h) [-1, -2, 6,
+    -2, -1] and D = 1/24 [-1, -10, 0, 10, 1] (a first derivative along x,
+    which makes A unsymmetric), h = 1/n, each truncated at the grid's
+    ends.  125 diagonals at the ascending offsets a n^2 + b n + c, a, b, c
+    in -2..2; every stored value is its coefficient (rounded once from f64
+    to ``dtype``) or 0 where the column leaves the grid.  SPD for drift 0.
+    """
+    device = DEVICE if device is None else device
+    f64 = torch.float64
+    h = 1.0 / n
+    one_d = [torch.tensor(v, dtype=f64) * w for v, w in (
+        (BS_MASS, h / 120), (BS_STIFF, 1 / (6 * h)), (BS_ADVECT, 1 / 24))]
+    mass, stiff, adv = one_d
+    coef = (torch.einsum("a,b,c->abc", stiff, mass, mass)
+            + torch.einsum("a,b,c->abc", mass, stiff, mass)
+            + torch.einsum("a,b,c->abc", mass, mass, stiff)
+            + drift * torch.einsum("a,b,c->abc", adv, mass, mass))
+    shift = torch.arange(-2, 3, device=device)
+    p = torch.arange(n, device=device)
+    inside = ((p[None, :] + shift[:, None] >= 0)
+              & (p[None, :] + shift[:, None] < n)).to(f64)     # (5, n)
+    coef = coef.to(device)
+    data = torch.empty((125, n ** 3), dtype=dtype, device=device)
+    for a in range(5):         # a fifth of the diagonals at a time in f64
+        block = (coef[a][:, :, None, None, None]
+                 * inside[a][None, None, :, None, None]
+                 * inside[:, None, None, :, None]
+                 * inside[None, :, None, None, :])
+        data[25 * a:25 * (a + 1)] = block.reshape(25, -1)
+    offsets = tuple(a * n * n + b * n + c for a in range(-2, 3)
+                    for b in range(-2, 3) for c in range(-2, 3))
+    from pykrylov_tpu_torch.sparse import formats as F
+    return F.DIA(data, offsets, (n ** 3, n ** 3))
+
+
+def bspline_coo(n, drift=0.0, dtype=np.float64):
+    """COO triples of :func:`bspline_dia` (its nonzeros, a diagonal after
+    another), built on the host."""
+    dia = bspline_dia(n, torch.float64, "cpu", drift)
+    data = dia.data.numpy()
+    k, rows = np.nonzero(data)
+    cols = rows + np.asarray(dia.offsets, dtype=np.int64)[k]
+    return data[k, rows].astype(dtype), rows, cols, dia.shape
 
 
 def _banded(m, nnz_per_row, bw, seed, dtype):
@@ -1064,6 +1152,7 @@ def _profile_solve(pt, tag, A, b, secs, n=None, **opts):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = pt.solve(A, b, **opts)
@@ -1079,8 +1168,9 @@ def _profile_solve(pt, tag, A, b, secs, n=None, **opts):
     idle = max(0.0, 1 - busy / secs)
     log("[%s] profile: device busy %.4f ms per iteration over %d "
         "iterations; unprofiled wall %.4f ms per iteration, device idle "
-        "%.1f%% of it" % (tag, 1e3 * busy / n, n, 1e3 * secs / n,
-                          100 * idle))
+        "%.1f%% of it; the profiled run and its reading took %.1f s"
+        % (tag, 1e3 * busy / n, n, 1e3 * secs / n, 100 * idle,
+           time.perf_counter() - t0))
     for us, count, key in rows[:8]:
         log("[%s] profile: %.4f ms per iteration, %.2f calls per "
             "iteration: %s" % (tag, us * 1e-3 / n, count / n, key[:80]))
@@ -1286,7 +1376,9 @@ def phase_bell_path(pt):
         raise AssertionError("true relative residual %.3e > 1e-4"
                              % true_rel)
     del rows, cols, vals, x64, ax, b64
-    prof = _profile_solve(pt, "5 BELL path", A, b, secs)
+    cap = min(PROFILE_ITERS, n_iter)
+    prof = _profile_solve(pt, "5 BELL path", A, b, secs * cap / n_iter,
+                          maxiter=cap)
 
     before = S.SELL_LAUNCHES
     res_plain, secs_plain = _timed_solve(pt, "plain BELL", A.plain(), b)
@@ -1420,7 +1512,8 @@ def phase_dia_block(pt, A, dia):
     log("[%s] solve: %.3f s, %.4f ms per block iteration, %.4f ms per "
         "column-iteration; single solve (phase 4) %.4f ms per iteration"
         % (tag, secs, per_iter, per_iter / KB, single_ms))
-    _profile_solve(pt, tag, A, Bm, secs)
+    cap = min(PROFILE_ITERS // 2, n_iter)
+    _profile_solve(pt, tag, A, Bm, secs * cap / max(n_iter, 1), maxiter=cap)
 
     A_plain = dia.pop("plain_op")
     before = (K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES)
@@ -1494,7 +1587,8 @@ def phase_bell_block(pt, A, coo, bell):
     log("[%s] solve: %.3f s, %.4f ms per block iteration, %.4f ms per "
         "column-iteration; single solve (phase 5) %.4f ms per iteration"
         % (tag, secs, per_iter, per_iter / KB, single_ms))
-    _profile_solve(pt, tag, A, Bm, secs)
+    cap = min(PROFILE_ITERS // 2, n_iter)
+    _profile_solve(pt, tag, A, Bm, secs * cap / max(n_iter, 1), maxiter=cap)
 
     # the plain BELL product streams the container on the host's plan
     # (25 ms a K = 8 block iteration): the first KB_CUT columns are enough
@@ -1682,9 +1776,11 @@ def phase_indefinite(pt, coo):
     out.update(symmlq_iter=int(sres.n_iter),
                symmlq_matvec=int(sres.n_matvec), symmlq_s=ssecs,
                symmlq_true_rel=strue,
-               symmlq_profile=_profile_solve(pt, tag + " symmlq", A, b,
-                                             ssecs, method="symmlq",
-                                             rtol=HELM_RTOL))
+               symmlq_profile=_profile_solve(
+                   pt, tag + " symmlq", A, b,
+                   ssecs * min(1, PROFILE_ITERS / sres.n_iter),
+                   method="symmlq", rtol=HELM_RTOL,
+                   matvec_max=PROFILE_ITERS + 1))
     out["launches"]["symmlq"] = scounts
     return out, (A, b)
 
@@ -1799,8 +1895,10 @@ def phase_nonsym(pt):
                       "n_matvec": int(res.n_matvec), "solve_s": secs,
                       "true_rel": true_rel, "launches": counts}
     bicg = out["solve (BiCGSTAB)"]
-    out["profile"] = _profile_solve(pt, tag, A, b, bicg["solve_s"],
-                                    rtol=1e-6)
+    cap = min(PROFILE_ITERS, bicg["n_iter"])
+    out["profile"] = _profile_solve(pt, tag, A, b,
+                                    bicg["solve_s"] * cap / bicg["n_iter"],
+                                    rtol=1e-6, matvec_max=2 * cap)
     r32, _, _ = _counted_solve(
         tag, "BiCGSTAB on the f32 b, capped at 4000 matvecs",
         lambda: pt.bicgstab(A, b.float(), rtol=1e-6, matvec_max=4000),
@@ -1876,10 +1974,6 @@ LLS_TOL = 1e-6      # atol and btol of the least-squares solves (10, 10b)
 CERT_BOUND = 1e-5   # bound on the f64 optimality certificates
 SQD_BOUND = 1e-8    # bound on CRAIG's and CRAIG-MR's f64 certificates
 LLS_PLAIN_ITERS = 200   # LSQR over the plain products against the kernels
-# iterations of phase 10's profiled solves: the first LLS_PROFILE_ITERS
-# of each, against the same share of its unprofiled wall (the profiler's
-# cost grows with the events it keeps, ~25 kernels an iteration)
-LLS_PROFILE_ITERS = 1000
 # phase 10b's counts: the JAX package's LSQR, LSMR (damp 0.1), CRAIG and
 # CRAIG-MR on this matrix in f64 (n = 128 and 256; size-independent)
 LLS_COUNTS = {"lsqr": 367, "lsmr": 190, "craig": 129, "craigmr": 120}
@@ -1978,7 +2072,7 @@ def phase_lls_sell(pt, rates):
     noise in f64, each istop 1 or 2 with SELL launches = matvecs + 1 and
     the optimality certificate ``||A'r|| / (||A||_F ||r||)`` in f64
     through the plain products at most CERT_BOUND; a profiled run of the
-    first LLS_PROFILE_ITERS iterations of each;
+    first PROFILE_ITERS iterations of each;
     then LSQR capped at LLS_PLAIN_ITERS over an operator whose products are
     the plain versions on the same card forms, which must give the kernel
     run's istop 7 and its x bit for bit.  Returns the phase's numbers and
@@ -2038,7 +2132,7 @@ def phase_lls_sell(pt, rates):
                    lambda: pt.solve(A, b, **opts, **extra), "sell_spmv",
                    out, certificate, codes=(1, 2))
         n_iter = out[label]["n_iter"]
-        cap = min(LLS_PROFILE_ITERS, n_iter)
+        cap = min(PROFILE_ITERS, n_iter)
         out[label]["profile"] = _profile_solve(
             pt, "%s, %s" % (tag, label), A, b,
             out[label]["solve_s"] * cap / n_iter, itnlim=cap, **opts,
@@ -4157,7 +4251,7 @@ def _transposed_exchange(pt, tag, se, opts):
                              "%.3e apart" % (tag, label, res, ref, r_rel,
                                              x_rel))
     prof = _profile_call("%s, %s" % (tag, label), lambda: pt.lsqr(
-        G, bs, **dict(opts, itnlim=LLS_PROFILE_ITERS // 5)), ms)
+        G, bs, **dict(opts, itnlim=PROFILE_ITERS // 2)), ms)
     out[label] = {"kernel": "sell_spmv", "n_iter": int(res.n_iter),
                   "launches": counts, "solve_s": secs, "ms_per_iter": ms,
                   "x_rel": x_rel, "control_x_rel": ctrl_rel,
@@ -4370,7 +4464,7 @@ def phase_gather_bell(pt, A_bell, coo_bell, bell, se):
                              "%.3e apart" % (tag, label, res, ref, r_rel,
                                              x_rel))
     prof = _profile_call("%s, %s" % (tag, label), lambda: pt.lsqr(
-        Gs, bs, **dict(opts, itnlim=LLS_PROFILE_ITERS // 5)), ms)
+        Gs, bs, **dict(opts, itnlim=PROFILE_ITERS // 2)), ms)
     out[label] = {"kernel": "sell_spmv", "n_iter": int(res.n_iter),
                   "launches": counts, "solve_s": secs, "ms_per_iter": ms,
                   "x_rel": x_rel, "control_x_rel": ctrl_rel,
@@ -4653,7 +4747,7 @@ def phase_native(pt, A_bell, coo_bell, bell, se, se_build_s):
        product."""
     import tempfile
     from pykrylov_tpu_torch import native
-    from pykrylov_tpu_torch.gallery import poisson3d_coo, tiled_general_coo
+    from pykrylov_tpu_torch.gallery import poisson3d_coo
     from pykrylov_tpu_torch.io import matrix_market as MM
     from pykrylov_tpu_torch.sparse import formats as F
     from pykrylov_tpu_torch.sparse import kernels as K
@@ -4672,9 +4766,8 @@ def phase_native(pt, A_bell, coo_bell, bell, se, se_build_s):
             k: sum(d["launches"][k] for d in out[label].values()
                    if isinstance(d, dict)) for k, *_ in COUNTERS}
 
-    # the MatrixMarket round trip
-    vals, rows, cols, shape = tiled_general_coo("1138bus", tiles=TILES,
-                                                coupling=0)
+    # the MatrixMarket round trip, of phase 5's triples
+    vals, rows, cols, shape = coo_bell
     low = rows >= cols
     vals, rows, cols = vals[low].astype(np.float64), rows[low], cols[low]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -5073,13 +5166,14 @@ def _show_leg(mesh, Gs, bs, opts):
             "x": ranks.plain(res.x).cpu().numpy()}
 
 
-def _rank_paths(transport, mtx_path, b_bus_path, b_se_path, ckpt_path):
+def _rank_paths(transport, mtx_path, b_bus_path, se_path, ckpt_path):
     """21a and 21d on one rank of a world (``transport`` ``"host"``: gloo
     with host staging; ``"nccl"``): the halo DIA CG (:func:`_halo_leg`),
     the L-BFGS-preconditioned and the checkpointed CG on the same
     operator, gather-SELL CG on this rank's ``keep=rank`` part of tiled
     1138bus, LSQR on the state-estimation matrix with transposed shards
-    and its ``show`` table; this rank's rows of each x for the parent."""
+    and its ``show`` table (its sorted triples and b from ``se_path``);
+    this rank's rows of each x for the parent."""
     import pykrylov_tpu_torch as pt
     from pykrylov_tpu_torch import parallel as par
     from pykrylov_tpu_torch.io.matrix_market import \
@@ -5124,15 +5218,16 @@ def _rank_paths(transport, mtx_path, b_bus_path, b_se_path, ckpt_path):
     tag = "21a state estimation, rank %d of %d (%s)" % (r, R,
                                                        mesh.transport)
     t0 = time.perf_counter()
-    Gs = par.GatherBellOperator(F.coo_from_arrays(*se_coo(SE_TILES),
-                                                  device=None),
-                                mesh, with_transpose=True)
+    se = np.load(se_path)
+    Gs = par.GatherBellOperator(F.coo_from_arrays(
+        se["vals"], se["rows"], se["cols"], tuple(se["shape"].tolist()),
+        sort=False, device=None), mesh, with_transpose=True)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     log("[%s] %d x %d, with_transpose: this rank's rows built in %.2f s, "
         "comm entries %d a product" % (tag, Gs.shape[0], Gs.shape[1],
                                        build_s, Gs.comm_entries_per_matvec))
-    bs = par.shard_vector(torch.from_numpy(np.load(b_se_path)).to(DEVICE),
+    bs = par.shard_vector(torch.from_numpy(se["b"]).to(DEVICE),
                           mesh)
     opts = {"atol": LLS_TOL, "btol": LLS_TOL, "etol": 0.0,
             "itnlim": SHARD_LLS_ITERS}
@@ -5357,14 +5452,19 @@ def _spawn_legs(tag, transport, n_ranks, backend, se, mtx_path, bell, tmp):
     """Every rank of a world of ``n_ranks`` runs :func:`_rank_paths`;
     returns (the ranks' results, the checkpoint's path, seconds)."""
     from pykrylov_tpu_torch.parallel.launch import spawn_ranks
+    from pykrylov_tpu_torch.sparse import formats as F
     b_bus_path = os.path.join(tmp, "b_bus.npy")
-    b_se_path = os.path.join(tmp, "b_se.npy")
+    se_path = os.path.join(tmp, "se.npz")
     ckpt_path = os.path.join(tmp, "ckpt_%s.npz" % transport)
     np.save(b_bus_path, bell["b"].cpu().numpy())
-    np.save(b_se_path, se[2].cpu().numpy())
+    # the state-estimation triples, sorted once here for every rank
+    coo = F.coo_from_arrays(*se[1], device=None)
+    np.savez(se_path, vals=coo.data, rows=coo.row, cols=coo.col,
+             shape=np.asarray(coo.shape), b=se[2].cpu().numpy())
+    del coo
     t0 = time.perf_counter()
     worlds = spawn_ranks(_rank_paths, n_ranks, transport, mtx_path,
-                         b_bus_path, b_se_path, ckpt_path, backend=backend,
+                         b_bus_path, se_path, ckpt_path, backend=backend,
                          timeout=RANK_TIMEOUT, deadline=RANK_DEADLINE)
     secs = time.perf_counter() - t0
     log("[%s] %d ranks (%s) ran the legs in %.1f s" % (tag, n_ranks,
@@ -5721,6 +5821,316 @@ def phase_nccl_probe(tag, cards):
                       for p in probes],
             "processes_per_card": per_card, "memory_gained_mib": grew,
             "nccl_lines": sorted(set(lines))}
+
+
+# --------------------------------------------------------------------------
+# 22. the DIA path past 64 diagonals
+# --------------------------------------------------------------------------
+
+BS_DEFAULT_N = 16       # grid of 22's default-route build (4,096 rows, the
+                        # BELL policy's least; 48's BELL packing takes ~1 min
+                        # of host work)
+WIDE_MM_K = (1, 8, 16)  # block widths of 22's SpMM checks
+WIDE_ITERS = 20         # calls a timing of 22 averages (plain versions and
+                        # torch's CSR SpMM: 5)
+WIDE_HOST_CALLS = 200   # wrapper calls of 22's host-cost timing
+
+
+def _dia_csr(dia):
+    """torch's CSR tensor of a DIA container's nonzeros (f32 values, int32
+    indices), built on the card from the diagonals without a COO: its
+    products are cuSPARSE calls, timed as a yardstick only."""
+    m, n = dia.shape
+    offs = torch.tensor(dia.offsets, device=dia.data.device)
+    order = torch.argsort(offs)        # ascending columns within a row
+    cols = torch.arange(m, device=offs.device)[:, None] + offs[order]
+    vals = dia.data[order].T
+    keep = (cols >= 0) & (cols < n) & (vals != 0)
+    crow = torch.zeros(m + 1, dtype=torch.int64, device=offs.device)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    return torch.sparse_csr_tensor(crow.int(), cols[keep].int(),
+                                   vals[keep].float(), size=(m, n))
+
+
+def _wide_host_us(K, dia):
+    """Host microseconds a DIA SpMV call takes on a small container (4,096
+    rows, whose kernel is shorter than the call), at its 125 diagonals
+    (WideOffsets, 16 KB of parameters) and at its first 7 (Offsets, 1
+    KB): through the wrapper, and through the C entry alone with the
+    wrapper's arguments made once (what the launch costs)."""
+    import ctypes
+    x = torch.ones(dia.shape[1], device=DEVICE)
+    out = {}
+    for ndiag in (len(dia.offsets), 7):
+        data, offsets = dia.data[:ndiag].contiguous(), dia.offsets[:ndiag]
+        y = K.dia_matvec(data, offsets, x)
+        plan = K.dia_matvec_plan(data, offsets, x)
+        fn = K._entry("dia_spmv_f32")
+        offs = ctypes.cast(K._offsets_info(offsets)[0], ctypes.c_void_p)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (data.data_ptr(), offs, ndiag, plan.r, plan.lo, plan.hi,
+                x.data_ptr(), y.data_ptr(), data.shape[1], x.shape[0],
+                stream)
+        for label, call in (("%d diagonals" % ndiag,
+                             lambda: K.dia_matvec(data, offsets, x)),
+                            ("%d diagonals, entry alone" % ndiag,
+                             lambda: fn(*args))):
+            best = float("inf")
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(WIDE_HOST_CALLS):
+                    call()
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                best = min(best, 1e6 * host / WIDE_HOST_CALLS)
+            out[label] = best
+    return out
+
+
+def phase_wide(pt, rates):
+    """22: the DIA path past 64 diagonals, on :func:`bspline_dia`'s
+    125-diagonal 3-D B-spline Laplacian at n = BS_N (2,097,152 rows, 1.05
+    GB of f32 diagonals), built on the card as a DIA container.
+
+    * the SpMV kernel (WideOffsets) at all five entries and the SpMM at K
+      in WIDE_MM_K bit for bit their plain versions, on the Laplacian and
+      on a 125-diagonal container of its diagonals in shuffled order with
+      five repeated;
+    * CG (``solve``) with f32 storage, ``b = A x_true``, rtol 1e-6: DIA
+      launches = matvecs, the f64 true residual at most 1e-4;
+    * ``A.T @ x`` of the Laplacian plus a first derivative along x (drift
+      BS_N: unsymmetric) through ``dia_transpose`` and the kernel, against
+      ``formats.dia_rmatvec`` (f64 x: the sums' order differs);
+    * ``HaloDiaOperator`` over MESH_SHARDS slots: a product and a K = KB
+      block product bit for bit the unsharded kernel's;
+    * the route: ``operator_from_coo(max_diags=128)`` at n = BS_ROUTE_N
+      (110,592 rows) gives ``cuda-dia``, the default ``max_diags`` the
+      BELL policy (held by ``auto_format``; built at n = BS_DEFAULT_N, a
+      SELL card form);
+    * the wide SpMV and the K = KB SpMM timed against their bound and
+      torch's CSR product, and a wrapper call's host time at 125 and 7
+      diagonals."""
+    from pykrylov_tpu_torch.parallel import HaloDiaOperator, shard_vector
+    from pykrylov_tpu_torch.sparse import formats as F
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import linop as L
+
+    tag = "22 wide DIA"
+    out = {}
+    t0 = time.perf_counter()
+    dia = bspline_dia(BS_N)
+    torch.cuda.synchronize()
+    m, ndiag = dia.shape[0], len(dia.offsets)
+    data, offsets = dia.data, dia.offsets
+    out["build_s"] = time.perf_counter() - t0
+    log("[%s] B-spline Laplacian n=%d: %d rows, %d diagonals, %.1f MB of "
+        "f32 diagonals, built on the card in %.2f s"
+        % (tag, BS_N, m, ndiag, data.numel() * 4 / 1e6, out["build_s"]))
+    if ndiag != 125 or ndiag <= 64:
+        raise AssertionError("%s: %d diagonals" % (tag, ndiag))
+
+    # a. the kernels against their plain versions
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    perm = torch.randperm(ndiag, generator=g, device=DEVICE)
+    pick = torch.cat([perm[:ndiag - 5], perm[:5]])  # 120 shuffled, 5 twice
+    shuffled = (data[pick], tuple(offsets[k] for k in pick.tolist()))
+    x = torch.randn(m, generator=g, device=DEVICE)
+    plans = {}
+    for label, (d32, offs) in (("Laplacian", (data, offsets)),
+                               ("shuffled, 5 repeated", shuffled)):
+        for storage, xdt in DIA_ENTRIES:
+            name = "%s %s/%s" % (label, str(storage)[6:], str(xdt)[6:])
+            d, xc = d32.to(storage), x.to(xdt)
+            plan = K.dia_matvec_plan(d, offs, xc)
+            plans[name] = plan._asdict()
+            y = K.dia_matvec(d, offs, xc)
+            torch.cuda.synchronize()
+            _exact("SpMV %s (R=%d, interior %d:%d)" % (name, *plan), y,
+                   K.dia_matvec_plain(d, offs, xc), tag=tag)
+            del d, xc, y
+        for kb in WIDE_MM_K:
+            X = torch.randn(m, kb, generator=g, device=DEVICE)
+            Y = K.dia_matmat(d32, offs, X)
+            torch.cuda.synchronize()
+            _exact("SpMM %s K=%d (%s)" % (
+                label, kb, K.dia_matmat_plan(d32, offs, X)), Y,
+                K.dia_matmat_plain(d32, offs, X), tag=tag)
+            _exact("SpMM %s K=%d column %d = SpMV" % (label, kb, kb - 1),
+                   Y[:, kb - 1], K.dia_matvec(d32, offs,
+                                              X[:, kb - 1].contiguous()),
+                   tag=tag)
+            del X, Y
+    del shuffled, pick
+    out["plans"] = plans
+
+    # b. CG through the SpMV kernel
+    A = K.cuda_dia_operator(dia, symmetric=True)
+    x_true = torch.randn(m, generator=g, device=DEVICE)
+    b = A * x_true
+    _exact("b = A x_true", b, K.dia_matvec_plain(data, offsets, x_true),
+           tag=tag)
+    warm = pt.solve(A, b, maxiter=20)
+    torch.cuda.synchronize()
+    del warm
+    res, secs, counts = _counted_solve(tag, "solve (CG)",
+                                       lambda: pt.solve(A, b), "dia_spmv")
+    rel = _true_rel(b, lambda v: K.dia_matvec(data, offsets, v), res.x)
+    n_iter = int(res.n_iter)
+    log("[%s] solve: true relative residual %.3e in f64 (bound 1e-4), "
+        "%.4f ms per iteration" % (tag, rel, 1e3 * secs / n_iter))
+    if not (bool(res.converged) and int(res.istop) == 0 and rel <= 1e-4):
+        raise AssertionError("%s: converged %s istop %d true residual %.3e"
+                             % (tag, bool(res.converged), int(res.istop),
+                                rel))
+    out["cg"] = {"kernel": "dia_spmv", "n_iter": n_iter,
+                 "n_matvec": int(res.n_matvec), "launches": counts,
+                 "solve_s": secs, "ms_per_iter": 1e3 * secs / n_iter,
+                 "true_rel": rel}
+    del res, A
+
+    # c. A^T x of an unsymmetric container through the repaired transpose
+    U = K.cuda_dia_operator(bspline_dia(BS_N, drift=float(BS_N)),
+                            symmetric=False)
+    x64 = x.double()
+    _reset_counts()
+    y = U.T * x64
+    torch.cuda.synchronize()
+    counts = _counts()
+    launches = counts["dia_spmv"]
+    ut = U.container_transp
+    _exact("A^T x (f32 storage, f64 x), dia_transpose", y,
+           K.dia_matvec_plain(ut.data, ut.offsets, x64), tag=tag)
+    err = relerr(y, F.dia_rmatvec(U.container, x64))
+    log("[%s] A^T x against formats.dia_rmatvec: rel err %.3e (bound "
+        "%.0e), %d launch" % (tag, err, REL_BOUND[torch.float64], launches))
+    if (not err <= REL_BOUND[torch.float64] or launches != 1
+            or sum(counts.values()) != 1):
+        raise AssertionError("%s A^T x: rel err %.3e, %d launches"
+                             % (tag, err, launches))
+    out["transpose"] = {"launches": counts, "rel_err": err}
+    del U, ut, y, x64
+
+    # d. the halo operator on MESH_SHARDS slots of the card
+    mesh = _mesh_of(pt)
+    t0 = time.perf_counter()
+    H = HaloDiaOperator(dia, mesh)
+    torch.cuda.synchronize()
+    halo_s = time.perf_counter() - t0
+    log("[%s] halo operator: %d shards, halo width %d, kernel path %s, "
+        "built in %.2f s" % (tag, MESH_SHARDS, H.halo_width, H.local_kernel,
+                            halo_s))
+    for label, v, kernel, whole in (
+            ("product", x, "dia_spmv", K.dia_matvec),
+            ("K=%d block product" % KB,
+             torch.randn(m, KB, generator=g, device=DEVICE), "dia_spmm",
+             K.dia_matmat)):
+        _reset_counts()
+        y = H * shard_vector(v, mesh)
+        torch.cuda.synchronize()
+        counts = _counts()
+        _exact("halo %s = the unsharded kernel's" % label, y,
+               whole(data, offsets, v), tag=tag)
+        if counts[kernel] != MESH_SHARDS or sum(counts.values()) != \
+                MESH_SHARDS or not H.local_kernel:
+            raise AssertionError("%s halo %s: launches %s" % (tag, label,
+                                                              counts))
+        out["halo " + label] = {"launches": counts}
+        del y
+    out["halo_build_s"] = halo_s
+    del H
+
+    # e. the route
+    coo = bspline_coo(BS_ROUTE_N, dtype=np.float32)
+    t0 = time.perf_counter()
+    R = L.operator_from_coo(*coo, symmetric=True, max_diags=128,
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    route = {"rows": coo[3][0], "build_s": time.perf_counter() - t0,
+             "fmt": R.fmt}
+    ndiag_r, density = F.bandwidth_profile(F.COO(*coo))
+    route["default_auto"] = L.auto_format(ndiag_r, density, coo[3], "cuda")
+    xr = torch.randn(R.shape[1], generator=g, device=DEVICE)
+    _exact("route n=%d product" % BS_ROUTE_N, R * xr,
+           K.dia_matvec_plain(R.container.data, R.container.offsets, xr),
+           tag=tag)
+    del R, coo, xr
+    t0 = time.perf_counter()
+    D = L.operator_from_coo(*bspline_coo(BS_DEFAULT_N, dtype=np.float32),
+                            symmetric=True, device=DEVICE)
+    route.update(default_fmt=getattr(D, "fmt", None),
+                 default_build_s=time.perf_counter() - t0,
+                 default_card=type(getattr(D, "card", None)).__name__)
+    log("[%s] route: n=%d (%d rows, %d diagonals, fill %.3f) with "
+        "max_diags=128 gave fmt=%s in %.2f s; the default max_diags: "
+        "auto_format %r; at n=%d fmt=%s (card form %s) in %.2f s"
+        % (tag, BS_ROUTE_N, route["rows"], ndiag_r, density, route["fmt"],
+           route["build_s"], route["default_auto"], BS_DEFAULT_N,
+           route["default_fmt"], route["default_card"],
+           route["default_build_s"]))
+    if (route["fmt"] != "cuda-dia" or route["default_auto"] != "ell"
+            or route["default_fmt"] != "bell"
+            or route["default_card"] != "SELL"):
+        raise AssertionError("%s route: %s" % (tag, route))
+    out["route"] = route
+    del D
+
+    # f. timing against the bound and torch's CSR product
+    csr = _dia_csr(dia)
+    nnz = csr.values().numel()
+    matrix = min(ndiag * 4 * m, nnz * 8 + (m + 1) * 4)
+    best = _best_ms([("kernel", lambda: K.dia_matvec(data, offsets, x)),
+                     ("torch CSR", lambda: csr @ x)], WIDE_ITERS)
+    best.update(_best_ms([("plain", lambda: K.dia_matvec_plain(
+        data, offsets, x))], 5))
+    # the matrix once (its own bytes: (125 + 2) m 4 with x and y), x read
+    # and y written once
+    bound = _bound(matrix + 2 * 4 * m, 2 * nnz, rates)
+    spmv = {"ms": best["kernel"], "plain_ms": best["plain"],
+            "library_ms": best["torch CSR"], "nnz": nnz, **bound}
+    log("[%s] SpMV f32: kernel %.4f ms (%.1f GB/s), plain %.4f, torch CSR "
+        "%.4f (%d nonzeros); bound %.4f ms (%s), kernel at %.1f%% of it; "
+        "achievable %.4f"
+        % (tag, best["kernel"], (matrix + 8 * m) / best["kernel"] / 1e6,
+           best["plain"], best["torch CSR"], nnz, bound["bound_ms"],
+           bound["bound_by"], 100 * bound["bound_ms"] / best["kernel"],
+           bound["achievable_ms"]))
+    # the two paths on the same rows: the first 64 diagonals (Offsets) and
+    # the first 65 (WideOffsets), each against its own bytes' bound
+    best = _best_ms([("%d diagonals" % k,
+                      (lambda k: lambda: K.dia_matvec(data[:k], offsets[:k],
+                                                      x))(k))
+                     for k in (64, 65)], WIDE_ITERS)
+    spmv["paths"] = {}
+    for k in (64, 65):
+        b = _bound((k + 2) * 4 * m, 2 * k * m, rates)
+        spmv["paths"][str(k)] = {"ms": best["%d diagonals" % k], **b}
+        log("[%s] SpMV f32, the first %d diagonals (%s): %.4f ms, bound "
+            "%.4f ms, kernel at %.1f%% of it"
+            % (tag, k, "Offsets" if k <= 64 else "WideOffsets",
+               best["%d diagonals" % k], b["bound_ms"],
+               100 * b["bound_ms"] / best["%d diagonals" % k]))
+    X = torch.randn(m, KB, generator=g, device=DEVICE)
+    best = _best_ms([("kernel", lambda: K.dia_matmat(data, offsets, X))],
+                    WIDE_ITERS)
+    best.update(_best_ms([("plain", lambda: K.dia_matmat_plain(
+        data, offsets, X)), ("torch CSR SpMM",
+                             lambda: torch.sparse.mm(csr, X))], 5))
+    bound = _bound(matrix + KB * 2 * m * 4, 2 * nnz * KB, rates)
+    spmm = {"k": KB, "ms": best["kernel"], "plain_ms": best["plain"],
+            "library_ms": best["torch CSR SpMM"],
+            "plan": K.dia_matmat_plan(data, offsets, X)._asdict(), **bound}
+    log("[%s] SpMM f32 K=%d: kernel %.4f ms, plain %.4f, torch CSR SpMM "
+        "%.4f; bound %.4f ms (%s), kernel at %.1f%% of it; achievable %.4f"
+        % (tag, KB, best["kernel"], best["plain"], best["torch CSR SpMM"],
+           bound["bound_ms"], bound["bound_by"],
+           100 * bound["bound_ms"] / best["kernel"], bound["achievable_ms"]))
+    del csr, X
+    host = _wide_host_us(K, bspline_dia(BS_DEFAULT_N))
+    log("[%s] host time a SpMV wrapper call at 4,096 rows: %s"
+        % (tag, ", ".join("%s %.1f us" % kv for kv in host.items())))
+    out.update(spmv=spmv, spmm=spmm, host_us=host)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -6138,18 +6548,27 @@ def main():
         return main_nccl(pt)
 
     t_start = time.perf_counter()
-    card = phase_device()
-    regs = phase_build()
-    rates = phase_rates()
-    dia_cases = phase_dia_kernel(pt)
-    classes, bell_cases = phase_bell_kernel(pt)
-    phase_spmm_kernels(dia_cases, bell_cases, classes)
-    phase_mixed_pairs(dia_cases, bell_cases)
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log("[time] phase %s: %.1f s (%.1f s since the start)"
+            % (label, time.perf_counter() - t0,
+               time.perf_counter() - t_start))
+        return out
+
+    card = timed("1", phase_device)
+    regs = timed("2", phase_build)
+    rates = timed("2 rates", phase_rates)
+    dia_cases = timed("3 DIA", phase_dia_kernel, pt)
+    classes, bell_cases = timed("3 BELL", phase_bell_kernel, pt)
+    timed("3b", phase_spmm_kernels, dia_cases, bell_cases, classes)
+    timed("3c", phase_mixed_pairs, dia_cases, bell_cases)
     del dia_cases, bell_cases
-    A_dia, coo_dia, dia = phase_dia_path(pt)
-    dia_mm = phase_dia_block(pt, A_dia, dia)
-    A_bell, coo_bell, bell = phase_bell_path(pt)
-    bell_mm = phase_bell_block(pt, A_bell, coo_bell, bell)
+    A_dia, coo_dia, dia = timed("4", phase_dia_path, pt)
+    dia_mm = timed("4b", phase_dia_block, pt, A_dia, dia)
+    A_bell, coo_bell, bell = timed("5", phase_bell_path, pt)
+    bell_mm = timed("5b", phase_bell_block, pt, A_bell, coo_bell, bell)
     new_s = {}
     keep = {}      # operators and b of phases 8-10 for 10b-15
 
@@ -6207,12 +6626,17 @@ def main():
                      ("21", lambda: phase_ranks(
                          pt, A_dia, dia, coo_bell, bell, keep["se"],
                          new_s["20a"][0]["mtx_path"], _earlier(new_s, dia,
-                                                               bell)))):
+                                                               bell))),
+                     ("22", lambda: phase_wide(pt, rates))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
-    shutil.rmtree(os.path.dirname(new_s["20a"][0]["mtx_path"]))
-    keep.clear()
-    dia_best, dia_b = phase_dia_timing(A_dia, coo_dia, rates)
+        log("[time] phase %s: %.1f s (%.1f s since the start)"
+            % (key, new_s[key][1], time.perf_counter() - t_start))
+        if key == "21":
+            shutil.rmtree(os.path.dirname(new_s["20a"][0]["mtx_path"]))
+            keep.clear()
+    dia_best, dia_b = timed("6 DIA", phase_dia_timing, A_dia, coo_dia,
+                            rates)
 
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import sell as S
@@ -6226,21 +6650,24 @@ def main():
                      ("bf16", torch.bfloat16, torch.float32),
                      ("f32/f64", torch.float32, torch.float64))}
     del x0
-    dia_curve = phase_spmm_timing(
-        "DIA n=%d" % N, lambda X: K.dia_matmat(data, offsets, X),
+    dia_curve = timed(
+        "6b DIA", phase_spmm_timing, "DIA n=%d" % N,
+        lambda X: K.dia_matmat(data, offsets, X),
         lambda X: K.dia_matmat_plain(data, offsets, X), coo_dia,
         data.shape[0] * data.shape[1] * 4, dia_best["kernel f32"], rates, 10,
-        plan=lambda X: K.dia_matmat_plan(data, offsets, X)._asdict())
+        (), (), lambda X: K.dia_matmat_plan(data, offsets, X)._asdict())
     del A_dia, coo_dia, data
-    bell_times = phase_bell_timing(A_bell, coo_bell, classes, rates)
+    bell_times = timed("6 BELL", phase_bell_timing, A_bell, coo_bell,
+                       classes, rates)
     bt, bell_b = bell_times["tiled_1138bus"]
     sell = A_bell.card
     extra = [("kernel sigma %d" % sg, (lambda c: lambda X: S.sell_matmat(
         c, X))(S.sell_from_levels(A_bell.levels, A_bell.level_rows,
                                   sigma=sg)))
              for sg in SIGMAS if sg != S.SIGMA]
-    bell_curve = phase_spmm_timing(
-        "BELL tiled_1138bus", lambda X: S.sell_matmat(sell, X),
+    bell_curve = timed(
+        "6b BELL", phase_spmm_timing, "BELL tiled_1138bus",
+        lambda X: S.sell_matmat(sell, X),
         lambda X: S.sell_matmat_plain(sell, X), coo_bell,
         S.sell_bytes(sell), bt["kernel"], rates, 20, extra, ("plain",))
     if any(m.split(".")[0] in ("jax", "jaxlib", "pykrylov_tpu")
@@ -6314,6 +6741,12 @@ def main():
         })
     kernels[0].update(plan=dia_plans, registers=regs["dia_spmv"])
     kernels[2].update(plan=dia_curve[KB]["plan"], registers=regs["dia_spmm"])
+    # past 64 diagonals (22): the B-spline Laplacian's SpMV, CG and K = KB
+    # SpMM
+    wide = new_s["22"][0]
+    kernels[0]["wide"] = dict(wide["spmv"], n=BS_N, ndiag=125,
+                              cg=wide["cg"], host_us=wide["host_us"])
+    kernels[2]["wide"] = dict(wide["spmm"], n=BS_N, ndiag=125)
     # each kernel's launches in the runs of phases 8-10b, counted from 0
     runs = {"8": new_s["8"][0]["launches"],
             "8b": {k: v["launches"] for k, v in new_s["8b"][0].items()},
@@ -6322,7 +6755,7 @@ def main():
                for key in ("9", "9b", "10", "10b", "11", "12", "13", "14",
                            "15", "16a", "16b", "16c", "17a", "17b", "17c",
                            "18a", "18b", "19a", "19b", "19c", "20a",
-                           "20b", "21")}}
+                           "20b", "21", "22")}}
     for entry in kernels:
         entry["launches_by_phase"] = {
             phase: {run: counts[entry["name"]]
@@ -6493,6 +6926,16 @@ def main():
                      for k, v in p21.items()
                      if k.startswith(("21a ", "21d ")) and k.endswith(
                          "rank 0"))))
+    log("[7 result] phase 22 (%.1f s), B-spline Laplacian n=%d, 125 "
+        "diagonals: CG %d it., %.4f ms per it., true residual %.3e; SpMV "
+        "%.4f ms (bound %.4f, torch CSR %.4f); SpMM K=%d %.4f ms (bound "
+        "%.4f, torch CSR %.4f); route n=%d fmt=%s"
+        % (new_s["22"][1], BS_N, wide["cg"]["n_iter"],
+           wide["cg"]["ms_per_iter"], wide["cg"]["true_rel"],
+           wide["spmv"]["ms"], wide["spmv"]["bound_ms"],
+           wide["spmv"]["library_ms"], KB, wide["spmm"]["ms"],
+           wide["spmm"]["bound_ms"], wide["spmm"]["library_ms"], BS_ROUTE_N,
+           wide["route"]["fmt"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

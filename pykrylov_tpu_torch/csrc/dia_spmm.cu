@@ -4,11 +4,11 @@
 //   Y[i, k] = sum_d data[d, i] * X[i + offsets[d], k],   d ascending,
 //
 // over the unpadded DIA container of pykrylov_tpu_torch.sparse.formats:
-// data is (ndiag, m) row-major, offsets holds ndiag <= 64 diagonal offsets,
-// X is (n, K) row-major and Y is (m, K) row-major, the layout in which the
-// batched solvers hold their blocks.  A term whose row i + offsets[d] of X
-// falls outside [0, n) is skipped, never multiplied: a NaN or inf stored in
-// such a slot does not reach Y.
+// data is (ndiag, m) row-major, offsets holds ndiag <= 4096 diagonal
+// offsets, X is (n, K) row-major and Y is (m, K) row-major, the layout in
+// which the batched solvers hold their blocks.  A term whose row
+// i + offsets[d] of X falls outside [0, n) is skipped, never multiplied: a
+// NaN or inf stored in such a slot does not reach Y.
 //
 // Replaces pykrylov_tpu/sparse/kernels.py::_dia_mm_kernel_ring, which loads
 // each diagonal block once into VMEM, multiplies it against all K columns
@@ -46,6 +46,11 @@
 //    panel-major over panels of Kc columns; the wrapper
 //    (sparse/kernels.py::dia_mm_plan) picks Kc so that the reuse window
 //    2 * max|off| * Kc * s_x stays within 16 MB.
+// 4. Any number of diagonals up to dia_from_coo's 4096, by value in the
+//    kernel's parameters as csrc/dia_spmv.cu takes them: up to 64 as int64
+//    with their products off * K beside them (Offsets, the path timed
+//    above), past 64 as int32 with off * K worked out in the kernel
+//    (WideOffsets, 16 KB), an offset outside (-m, n) clamped to -m or n.
 //
 // Products and sums are rounded one by one (__fmul_rn/__fadd_rn,
 // __dmul_rn/__dadd_rn; no FMA contraction), in ascending d, exactly as
@@ -69,7 +74,8 @@
 
 namespace {
 
-constexpr int kMaxDiags = 64;
+constexpr int kMaxDiags = 64;       // diagonals of the Offsets path
+constexpr int kWideDiags = 4096;    // diagonals of the WideOffsets path
 constexpr int kThreads = 256;
 constexpr int kRows = 256;      // T, rows a tile (kernels.MM_ROWS)
 constexpr int kChunk = 4;       // diagonals loaded ahead of their products
@@ -80,6 +86,23 @@ struct Offsets {
   int64_t max_off;
   int64_t off[kMaxDiags];
   int64_t xoff[kMaxDiags];     // off * K
+
+  __device__ __forceinline__ int64_t offset(int d) const { return off[d]; }
+  __device__ __forceinline__ int64_t xoffset(int d, int64_t) const {
+    return xoff[d];
+  }
+};
+
+struct WideOffsets {
+  int ndiag;
+  int64_t min_off;
+  int64_t max_off;
+  int32_t off[kWideDiags];     // clamped to [-m, n]
+
+  __device__ __forceinline__ int64_t offset(int d) const { return off[d]; }
+  __device__ __forceinline__ int64_t xoffset(int d, int64_t kcols) const {
+    return off[d] * kcols;
+  }
 };
 
 template <typename TC, int V>
@@ -117,14 +140,16 @@ __device__ __forceinline__ void store_block(P* p, const P& v) {
 }
 
 // Row i of the block, columns [col, col + V): dr points at data[0, i], xr
-// at X[i, col], yr at Y[i, col].  CHECK tests each term's row of X against
-// [0, n); a tile whose every term lies inside skips the test.
-template <bool CHECK, int V, typename TD, typename TC>
-__device__ __forceinline__ void row_product(const Offsets& o,
+// at X[i, col], yr at Y[i, col]; X has kcols columns.  CHECK tests each
+// term's row of X against [0, n); a tile whose every term lies inside
+// skips the test.
+template <bool CHECK, int V, typename TD, typename TC, typename O>
+__device__ __forceinline__ void row_product(const O& o,
                                             const TD* __restrict__ dr,
                                             int64_t m,
                                             const TC* __restrict__ xr,
                                             int64_t i, int64_t n,
+                                            int64_t kcols,
                                             TC* __restrict__ yr) {
   using P = Pack<TC, V>;
   P acc;
@@ -139,13 +164,13 @@ __device__ __forceinline__ void row_product(const Offsets& o,
       const int d = d0 + u;
       bool ok = d < o.ndiag;
       if (CHECK && ok) {
-        const int64_t j = i + o.off[d];
+        const int64_t j = i + o.offset(d);
         ok = j >= 0 && j < n;
       }
       live[u] = ok;
       if (ok) {
         val[u] = static_cast<TC>(to_compute(load_value(dr + u * m)));
-        xv[u] = *reinterpret_cast<const P*>(xr + o.xoff[d]);
+        xv[u] = *reinterpret_cast<const P*>(xr + o.xoffset(d, kcols));
       }
     }
     dr += kChunk * m;
@@ -162,10 +187,10 @@ __device__ __forceinline__ void row_product(const Offsets& o,
   store_block(reinterpret_cast<P*>(yr), acc);
 }
 
-template <typename TD, typename TC, int V>
+template <typename TD, typename TC, int V, typename O>
 __global__ void __launch_bounds__(kThreads)
     dia_spmm_kernel(const TD* __restrict__ data,
-                    const __grid_constant__ Offsets o,
+                    const __grid_constant__ O o,
                     const TC* __restrict__ x, TC* __restrict__ y, int64_t m,
                     int64_t n, int64_t kcols, int kc) {
   const int g = kc / V;   // threads a row
@@ -184,19 +209,21 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / g;
       const int xo = r * static_cast<int>(kcols) + (e - r * g) * V;
       if (inside) {
-        row_product<false, V>(o, db + r, m, xb + xo, i0 + r, n, yb + xo);
+        row_product<false, V>(o, db + r, m, xb + xo, i0 + r, n, kcols,
+                              yb + xo);
       } else {
-        row_product<true, V>(o, db + r, m, xb + xo, i0 + r, n, yb + xo);
+        row_product<true, V>(o, db + r, m, xb + xo, i0 + r, n, kcols,
+                             yb + xo);
       }
     }
   }
 }
 
-template <typename TD, typename TC, int V>
-int launch_kernel(const TD* data, const Offsets& o, const TC* x, TC* y,
+template <typename TD, typename TC, int V, typename O>
+int launch_kernel(const TD* data, const O& o, const TC* x, TC* y,
                   int64_t m, int64_t n, int64_t kcols, int kc,
                   cudaStream_t stream) {
-  auto kernel = dia_spmm_kernel<TD, TC, V>;
+  auto kernel = dia_spmm_kernel<TD, TC, V, O>;
   int device = 0;
   int sms = 1;
   cudaGetDevice(&device);
@@ -215,33 +242,60 @@ int launch_kernel(const TD* data, const Offsets& o, const TC* x, TC* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TD, typename TC, int VW, typename O>
+int launch_cols(const TD* d, const O& o, int64_t v, const TC* x, TC* y,
+                int64_t m, int64_t n, int64_t kcols, int kc,
+                cudaStream_t s) {
+  if (v == 1) return launch_kernel<TD, TC, 1>(d, o, x, y, m, n, kcols, kc, s);
+  return launch_kernel<TD, TC, VW>(d, o, x, y, m, n, kcols, kc, s);
+}
+
+// An offset outside (-m, n) has no term inside the matrix; clamped to -m
+// or n it still has none.
+int64_t clamp_offset(int64_t off, int64_t m, int64_t n) {
+  return off < -m ? -m : (off > n ? n : off);
+}
+
 // v columns a thread (1 or VW), panels of kc columns (kc divides kcols,
 // v divides kc).
 template <typename TD, typename TC, int VW>
 int launch(const void* data, const void* offsets, int64_t ndiag, int64_t v,
            int64_t kc, const void* x, void* y, int64_t m, int64_t n,
            int64_t kcols, void* stream) {
-  if (ndiag < 0 || ndiag > kMaxDiags || m < 1 || kcols < 1 || kc < 1 ||
+  constexpr int64_t kMax32 = INT32_MAX;
+  if (ndiag < 0 || ndiag > kWideDiags || m < 1 || kcols < 1 || kc < 1 ||
+      (ndiag > kMaxDiags && (m > kMax32 || n > kMax32)) ||
       kcols % kc != 0 || (v != 1 && v != VW) || kc % v != 0 ||
       kRows * kcols >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t* off = static_cast<const int64_t*>(offsets);
-  Offsets o = {};
-  o.ndiag = static_cast<int>(ndiag);
-  for (int d = 0; d < o.ndiag; ++d) {
-    o.off[d] = off[d];
-    o.xoff[d] = off[d] * kcols;
-    if (d == 0 || off[d] < o.min_off) o.min_off = off[d];
-    if (d == 0 || off[d] > o.max_off) o.max_off = off[d];
-  }
   const TD* d = static_cast<const TD*>(data);
   const TC* xs = static_cast<const TC*>(x);
   TC* ys = static_cast<TC*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(kc);
-  if (v == 1) return launch_kernel<TD, TC, 1>(d, o, xs, ys, m, n, kcols, c, s);
-  return launch_kernel<TD, TC, VW>(d, o, xs, ys, m, n, kcols, c, s);
+  if (ndiag <= kMaxDiags) {
+    Offsets o = {};
+    o.ndiag = static_cast<int>(ndiag);
+    for (int k = 0; k < o.ndiag; ++k) {
+      o.off[k] = off[k];
+      o.xoff[k] = off[k] * kcols;
+      if (k == 0 || off[k] < o.min_off) o.min_off = off[k];
+      if (k == 0 || off[k] > o.max_off) o.max_off = off[k];
+    }
+    return launch_cols<TD, TC, VW>(d, o, v, xs, ys, m, n, kcols, c, s);
+  }
+  // the slots past ndiag are never read
+  WideOffsets o;
+  o.ndiag = static_cast<int>(ndiag);
+  for (int k = 0; k < o.ndiag; ++k) {
+    const int64_t a = clamp_offset(off[k], m, n);
+    o.off[k] = static_cast<int32_t>(a);
+    if (k == 0 || a < o.min_off) o.min_off = a;
+    if (k == 0 || a > o.max_off) o.max_off = a;
+  }
+  return launch_cols<TD, TC, VW>(d, o, v, xs, ys, m, n, kcols, c, s);
 }
 
 }  // namespace

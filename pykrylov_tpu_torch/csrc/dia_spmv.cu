@@ -3,11 +3,12 @@
 //   y[i] = sum_k data[k, i] * x[i + offsets[k]],   k ascending,
 //
 // over the unpadded DIA container of pykrylov_tpu_torch.sparse.formats:
-// data is (ndiag, m) row-major, offsets holds ndiag <= 64 diagonal offsets
-// in container order (unsorted or repeated offsets are summed in that
-// order), x has n entries and y has m.  A term whose column i + offsets[k]
-// falls outside [0, n) is skipped, never multiplied: a NaN or inf stored
-// in such a slot does not reach y, and x is never read out of range.
+// data is (ndiag, m) row-major, offsets holds ndiag <= 4096 diagonal
+// offsets in container order (unsorted or repeated offsets are summed in
+// that order), x has n entries and y has m.  A term whose column
+// i + offsets[k] falls outside [0, n) is skipped, never multiplied: a NaN
+// or inf stored in such a slot does not reach y, and x is never read out
+// of range.
 //
 // Replaces pykrylov_tpu/sparse/kernels.py::_dia_kernel_ring (and
 // _dia_kernel, its one-block form), which computes the same product on a
@@ -56,6 +57,17 @@
 //    and 64-bit only for the tile's base (ndiag * m passes 2^31 at 64
 //    diagonals of 34M rows).
 //
+// 4. Any number of diagonals up to dia_from_coo's 4096.  The offsets
+//    travel by value in the kernel's parameters, where a warp reads them
+//    through the constant cache with one address for all its threads.  Up
+//    to 64 diagonals they go as int64 with a table of k * m beside them
+//    (Offsets, 1 KB, the path timed above).  Past 64 they go as int32 and
+//    k * m is worked out in the kernel (WideOffsets, 16 KB: CUDA 12.1+
+//    takes up to 32,764 bytes of parameters); an offset outside (-m, n),
+//    whose terms all lie outside the matrix, is clamped to -m or n, which
+//    keeps it outside, so m and n must fit in 31 bits.  Both take the same
+//    walk and the same sums.
+//
 // Measured slower and left out (chip_dia_variants.py keeps them as
 // variants): persistent blocks walking the tiles in one wave (up to 13%
 // slower than a block a tile on Poisson) and evict-first hints on the
@@ -86,7 +98,8 @@
 
 namespace {
 
-constexpr int kMaxDiags = 64;
+constexpr int kMaxDiags = 64;       // diagonals of the Offsets path
+constexpr int kWideDiags = 4096;    // diagonals of the WideOffsets path
 constexpr int kThreads = 256;
 constexpr int kTerms = 8;        // x loads a thread issues ahead of products
 constexpr int kTileGroups = 1;   // row groups a thread takes in a tile
@@ -96,6 +109,21 @@ struct Offsets {
   int ndiag;
   int64_t off[kMaxDiags];   // diagonal offsets, container order
   int64_t row[kMaxDiags];   // k * m: where diagonal k's values start
+
+  __device__ __forceinline__ int64_t offset(int k) const { return off[k]; }
+  __device__ __forceinline__ int64_t start(int k, int64_t) const {
+    return row[k];
+  }
+};
+
+struct WideOffsets {
+  int ndiag;
+  int32_t off[kWideDiags];  // diagonal offsets, container order, clamped
+
+  __device__ __forceinline__ int64_t offset(int k) const { return off[k]; }
+  __device__ __forceinline__ int64_t start(int k, int64_t m) const {
+    return k * m;
+  }
 };
 
 template <typename T, int R>
@@ -159,12 +187,14 @@ __device__ __forceinline__ void pick(int s, const Pack<TC, R>& a,
   }
 }
 
-// Group [i, i + R): dr points at data[0, i], xr at x[i], yr at y[i].
-// CHECK tests each term's column against [0, n); an interior group skips
-// the test.  PAIR reads x as two aligned vectors (R divides n).
-template <bool CHECK, int R, typename TD, typename TC>
-__device__ __forceinline__ void group_product(const Offsets& o,
+// Group [i, i + R): dr points at data[0, i], xr at x[i], yr at y[i]; m
+// is the container's row count (its row stride).  CHECK tests each term's
+// column against [0, n); an interior group skips the test.  PAIR reads x
+// as two aligned vectors (R divides n).
+template <bool CHECK, int R, typename TD, typename TC, typename O>
+__device__ __forceinline__ void group_product(const O& o,
                                               const TD* __restrict__ dr,
+                                              int64_t m,
                                               const TC* __restrict__ xr,
                                               int64_t i, int64_t n,
                                               TC* __restrict__ yr,
@@ -187,8 +217,8 @@ __device__ __forceinline__ void group_product(const Offsets& o,
 #pragma unroll
       for (int r = 0; r < R; ++r) live[u][r] = on;
       if (on) {
-        const int64_t off = o.off[k];
-        dv[u] = load_values(reinterpret_cast<const DP*>(dr + o.row[k]));
+        const int64_t off = o.offset(k);
+        dv[u] = load_values(reinterpret_cast<const DP*>(dr + o.start(k, m)));
         if (CHECK) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
@@ -223,10 +253,10 @@ __device__ __forceinline__ void group_product(const Offsets& o,
   store_values(reinterpret_cast<YP*>(yr), acc);
 }
 
-template <typename TD, typename TC, int R>
+template <typename TD, typename TC, int R, typename O>
 __global__ void __launch_bounds__(kThreads)
     dia_spmv_kernel(const TD* __restrict__ data,
-                    const __grid_constant__ Offsets o,
+                    const __grid_constant__ O o,
                     const TC* __restrict__ x, TC* __restrict__ y, int64_t m,
                     int64_t n, int64_t lo, int64_t hi) {
   constexpr int kTileRows = kThreads * kTileGroups * R;
@@ -247,20 +277,22 @@ __global__ void __launch_bounds__(kThreads)
       if (r0 < rows) {
         const int64_t i = i0 + r0;
         if (i >= lo && i + R <= hi) {
-          group_product<false, R>(o, db + r0, xb + r0, i, n, yb + r0, pair);
+          group_product<false, R>(o, db + r0, m, xb + r0, i, n, yb + r0,
+                                  pair);
         } else {
-          group_product<true, R>(o, db + r0, xb + r0, i, n, yb + r0, pair);
+          group_product<true, R>(o, db + r0, m, xb + r0, i, n, yb + r0,
+                                 pair);
         }
       }
     }
   }
 }
 
-template <typename TD, typename TC, int R>
-int launch_kernel(const TD* data, const Offsets& o, const TC* x, TC* y,
+template <typename TD, typename TC, int R, typename O>
+int launch_kernel(const TD* data, const O& o, const TC* x, TC* y,
                   int64_t m, int64_t n, int64_t lo, int64_t hi,
                   cudaStream_t stream) {
-  auto kernel = dia_spmv_kernel<TD, TC, R>;
+  auto kernel = dia_spmv_kernel<TD, TC, R, O>;
   constexpr int64_t kTileRows = int64_t{kThreads} * kTileGroups * R;
   int64_t blocks = (m + kTileRows - 1) / kTileRows;  // a block a tile
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
@@ -273,6 +305,26 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// An interior row i reads x[i + off] unchecked: [lo, hi) must keep every
+// offset in range.
+bool interior_ok(int64_t off, int64_t lo, int64_t hi, int64_t n) {
+  return lo == hi || (lo + off >= 0 && hi + off <= n);
+}
+
+// An offset outside (-m, n) has no term inside the matrix; clamped to -m
+// or n it still has none.
+int64_t clamp_offset(int64_t off, int64_t m, int64_t n) {
+  return off < -m ? -m : (off > n ? n : off);
+}
+
+template <typename TD, typename TC, int RW, typename O>
+int launch_rows(const TD* d, const O& o, int64_t r, const TC* x, TC* y,
+                int64_t m, int64_t n, int64_t lo, int64_t hi,
+                cudaStream_t s) {
+  if (r == 1) return launch_kernel<TD, TC, 1>(d, o, x, y, m, n, lo, hi, s);
+  return launch_kernel<TD, TC, RW>(d, o, x, y, m, n, lo, hi, s);
+}
+
 // r rows a group (1, or RW = 16 bytes of storage when RW divides m and
 // data, x and y are 16-byte aligned); [lo, hi) the interior the wrapper
 // planned, which must lie inside the rows whose every term is in range.
@@ -281,7 +333,9 @@ int launch(const void* data, const void* offsets, int64_t ndiag, int64_t r,
            int64_t lo, int64_t hi, const void* x, void* y, int64_t m,
            int64_t n, void* stream) {
   constexpr int RW = 16 / static_cast<int>(sizeof(TD));
-  if (ndiag < 0 || ndiag > kMaxDiags || m < 1 || n < 0 ||
+  constexpr int64_t kMax32 = INT32_MAX;
+  if (ndiag < 0 || ndiag > kWideDiags || m < 1 || n < 0 ||
+      (ndiag > kMaxDiags && (m > kMax32 || n > kMax32)) ||
       (r != 1 && r != RW) ||
       (r == RW && (m % RW != 0 || !aligned16(data) || !aligned16(x) ||
                    !aligned16(y))) ||
@@ -289,13 +343,8 @@ int launch(const void* data, const void* offsets, int64_t ndiag, int64_t r,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t* src = static_cast<const int64_t*>(offsets);
-  Offsets o = {};
-  o.ndiag = static_cast<int>(ndiag);
-  for (int k = 0; k < o.ndiag; ++k) {
-    o.off[k] = src[k];
-    o.row[k] = k * m;
-    // an interior row i reads x[i + off] unchecked
-    if (lo < hi && (lo + src[k] < 0 || hi + src[k] > n)) {
+  for (int64_t k = 0; k < ndiag; ++k) {
+    if (!interior_ok(src[k], lo, hi, n)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -303,8 +352,22 @@ int launch(const void* data, const void* offsets, int64_t ndiag, int64_t r,
   const TC* xs = static_cast<const TC*>(x);
   TC* ys = static_cast<TC*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r == 1) return launch_kernel<TD, TC, 1>(d, o, xs, ys, m, n, lo, hi, s);
-  return launch_kernel<TD, TC, RW>(d, o, xs, ys, m, n, lo, hi, s);
+  if (ndiag <= kMaxDiags) {
+    Offsets o = {};
+    o.ndiag = static_cast<int>(ndiag);
+    for (int k = 0; k < o.ndiag; ++k) {
+      o.off[k] = src[k];
+      o.row[k] = k * m;
+    }
+    return launch_rows<TD, TC, RW>(d, o, r, xs, ys, m, n, lo, hi, s);
+  }
+  // the slots past ndiag are never read
+  WideOffsets o;
+  o.ndiag = static_cast<int>(ndiag);
+  for (int k = 0; k < o.ndiag; ++k) {
+    o.off[k] = static_cast<int32_t>(clamp_offset(src[k], m, n));
+  }
+  return launch_rows<TD, TC, RW>(d, o, r, xs, ys, m, n, lo, hi, s);
 }
 
 }  // namespace

@@ -135,9 +135,6 @@ class HaloDiaOperator(LinearOperator):
         if kernel not in ("auto", True, False):
             raise ValueError("kernel must be 'auto', True or False; got %r"
                              % (kernel,))
-        if ndiag > K.MAX_DIAGS:
-            raise ValueError("%d diagonals exceed the DIA kernel's %d"
-                             % (ndiag, K.MAX_DIAGS))
         # rows m..mp are zero on every diagonal, so nothing leaks from the
         # padding into the last shard's halo
         shards = [None] * mesh.size

@@ -25,10 +25,10 @@ from ..utils.ranks import (col_norms, col_vdots_real, norm, rows, sum_rows,
                           vdots_norms)
 from ..utils.types import result_type, to_tensor
 
-__all__ = ["as_operator", "apply_op", "apply_op_T", "apply_op_H",
-           "vdot_real", "dotu", "vdots_norms", "norm", "sum_rows",
-           "col_norms", "col_vdots_real", "rows", "fdiv", "finite",
-           "real_dtype", "promote_rhs",
+__all__ = ["as_operator", "as_apply_pair", "apply_op", "apply_op_T",
+           "apply_op_H", "vdot_real", "dotu", "vdots_norms", "norm",
+           "sum_rows", "col_norms", "col_vdots_real", "rows", "fdiv",
+           "finite", "real_dtype", "promote_rhs",
            "threshold_of", "default_maxiter", "history_init", "history_push",
            "history_from", "table_init", "table_push", "table_tensor",
            "require_square", "attach_true_residual",
@@ -46,6 +46,12 @@ def as_operator(A) -> LinearOperator:
     if isinstance(A, np.ndarray):
         return MatrixOperator(A)
     raise TypeError("cannot interpret %r as a linear operator" % (type(A),))
+
+
+def as_apply_pair(A):
+    """``(operator, apply, apply_T, apply_H)`` for solvers that need the
+    adjoint (the least-squares family)."""
+    return as_operator(A), apply_op, apply_op_T, apply_op_H
 
 
 def apply_op(op, x):

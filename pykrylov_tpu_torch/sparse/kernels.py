@@ -4,7 +4,9 @@ Counterpart of ``pykrylov_tpu/sparse/kernels.py``.  The SpMV kernel is
 ``csrc/dia_spmv.cu`` (it replaces ``_dia_kernel_ring`` and ``_dia_kernel``),
 the block product (SpMM) kernel ``csrc/dia_spmm.cu`` (it replaces
 ``_dia_mm_kernel_ring``); ``_build`` compiles them at first use.  Both take
-the unpadded ``(ndiag, m)`` container of :mod:`.formats`, and the SpMM the
+the unpadded ``(ndiag, m)`` container of :mod:`.formats` with up to
+``MAX_DIAGS`` = 4096 diagonals (``dia_from_coo``'s limit; the Pallas
+kernels unroll over any number), and the SpMM the
 (n, K) row-major block as the batched solvers hold it, so the TPU kernels'
 block padding, block choice and packing (``choose_block``,
 ``ensure_dia_padded``, ``pack_dia``, the ``_halo_rows*`` helpers, the
@@ -42,7 +44,10 @@ __all__ = ["DIA_LAUNCHES", "DIA_MM_LAUNCHES", "MAX_DIAGS", "DiaMMPlan",
 DIA_LAUNCHES = 0
 DIA_MM_LAUNCHES = 0
 
-MAX_DIAGS = 64  # size of the kernel's by-value offsets argument
+# Diagonals the kernels take: dia_from_coo's limit.  The offsets travel by
+# value in the kernels' parameters, with a k * m table up to 64 diagonals
+# and as int32 past that (csrc/dia_spmv.cu, design step 4).
+MAX_DIAGS = 4096
 
 # (storage dtype, compute dtype) -> C entry point; an f64 x or X with f32 or
 # bf16 storage computes in f64, as the plain versions' promotion does
@@ -80,8 +85,14 @@ def _mm_entry(name):
 
 
 @functools.lru_cache(maxsize=256)
-def _offsets_arg(offsets):
-    return (ctypes.c_int64 * max(1, len(offsets)))(*offsets)
+def _offsets_info(offsets):
+    """``offsets`` (a tuple) as the kernels' int64 argument, with their
+    least and greatest (0 and 0 for none): worked out once per tuple, not
+    on every launch, which would walk a wide container's offsets in
+    Python each time."""
+    ints = [int(o) for o in offsets]
+    return ((ctypes.c_int64 * max(1, len(ints)))(*ints),
+            min(ints, default=0), max(ints, default=0))
 
 
 def _check(data, offsets, x, xdim=1):
@@ -94,7 +105,7 @@ def _check(data, offsets, x, xdim=1):
         raise ValueError("%d offsets for %d diagonals"
                          % (len(offsets), data.shape[0]))
     if len(offsets) > MAX_DIAGS:
-        raise ValueError("%d diagonals exceed the kernel's %d"
+        raise ValueError("%d diagonals exceed the kernels' %d"
                          % (len(offsets), MAX_DIAGS))
 
 
@@ -156,11 +167,11 @@ def dia_mv_plan(offsets, m, n, itemsize, aligned):
     """
     rw = 16 // itemsize
     r = rw if aligned and m % rw == 0 else 1
-    offsets = [int(o) for o in offsets]
-    if not offsets:
+    if not len(offsets):
         return DiaMVPlan(r, 0, m)
-    lo = min(max(0, -min(offsets)), m)
-    hi = max(lo, min(m, n - max(offsets)))
+    _, least, greatest = _offsets_info(tuple(offsets))
+    lo = min(max(0, -least), m)
+    hi = max(lo, min(m, n - greatest))
     return DiaMVPlan(r, lo, hi)
 
 
@@ -187,10 +198,10 @@ def _launch(data, offsets, x):
     if m == 0:
         return y
     fn = _entry(_ENTRY[(data.dtype, ct)])
-    offsets = tuple(int(o) for o in offsets)
+    offsets = tuple(offsets)
     plan = dia_mv_plan(offsets, m, x.shape[0], data.element_size(),
                        _aligned(data, x, y))
-    offs = _offsets_arg(offsets)
+    offs = _offsets_info(offsets)[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
@@ -253,7 +264,8 @@ def dia_mm_plan(offsets, k, itemsize, aligned):
     """
     vw = 16 // itemsize
     v = vw if aligned and k % vw == 0 else 1
-    reach = max((abs(int(o)) for o in offsets), default=0)
+    _, least, greatest = _offsets_info(tuple(offsets))
+    reach = max(-least, greatest, 0)
     kc = k
     while (2 * reach * kc * itemsize > L2_WINDOW_BYTES and kc % 2 == 0
            and (kc // 2) % v == 0):
@@ -281,10 +293,10 @@ def _launch_mm(data, offsets, X):
     if m == 0 or K == 0:
         return Y
     fn = _mm_entry(_MM_ENTRY[(data.dtype, ct)])
-    offsets = tuple(int(o) for o in offsets)
+    offsets = tuple(offsets)
     plan = dia_mm_plan(offsets, K, X.element_size(),
                        X.data_ptr() % 16 == 0)
-    offs = _offsets_arg(offsets)
+    offs = _offsets_info(offsets)[0]
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
@@ -298,27 +310,30 @@ def _launch_mm(data, offsets, X):
 
 
 def dia_transpose(a: F.DIA) -> F.DIA:
-    """Host-side transpose of a square DIA container.
+    """Transpose of a square DIA container, on its device.
 
     Entry (i, i+off) of A is entry (j, j-off) of A^T at j = i+off, so
     diagonal ``off`` becomes diagonal ``-off`` with its data shifted by
-    ``off``: ``dataT[-off][j] = data[off][j-off]``.  The work is done on a
-    host copy and the result returns to the container's device.
+    ``off``: ``dataT[-off][j] = data[off][j-off]``.  Each input diagonal
+    gives one output diagonal, in ascending order of ``-off`` (a repeated
+    offset's diagonals in container order), so the offsets are the JAX
+    package's ``sorted(-off)``; a diagonal that lies wholly outside the
+    matrix (|off| >= m) gives a zero one.
     """
     m, n = a.shape
     if m != n:
         raise ValueError("dia_transpose expects a square container")
-    data = a.data.cpu()
-    offsets_t = tuple(sorted(-o for o in a.offsets))
-    out = torch.zeros((len(offsets_t), m), dtype=data.dtype)
-    pos = {o: k for k, o in enumerate(offsets_t)}
-    for k, off in enumerate(a.offsets):
-        row = out[pos[-off]]
-        if off >= 0:
-            row[off:] = data[k, :m - off]
-        else:
-            row[:m + off] = data[k, -off:]
-    return F.DIA(out.to(a.data.device), offsets_t, (m, n))
+    order = sorted(range(len(a.offsets)), key=lambda k: -a.offsets[k])
+    offsets_t = tuple(-a.offsets[k] for k in order)
+    out = torch.zeros((len(order), m), dtype=a.data.dtype,
+                      device=a.data.device)
+    for row, k in zip(out, order):
+        off = a.offsets[k]
+        if 0 <= off < m:
+            row[off:] = a.data[k, :m - off]
+        elif -m < off < 0:
+            row[:m + off] = a.data[k, -off:]
+    return F.DIA(out, offsets_t, (m, n))
 
 
 def cuda_dia_operator(dia: F.DIA, symmetric=False):

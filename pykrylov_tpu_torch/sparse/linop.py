@@ -4,14 +4,16 @@ Counterpart of ``pykrylov_tpu/sparse/linop.py``.  The solver-facing object
 is a :class:`~pykrylov_tpu_torch.ops.LinearOperator` whose products run
 over a :mod:`.formats` container on the container's device.
 
-Format policy (the JAX package's, with its thresholds, so both packages
-pick the same format): matrices whose nonzeros lie on at most 64 distinct
-diagonals with at least 0.25 fill use DIA, other sparsity ELL.  On a CUDA
-device, square DIA-eligible matrices of at least 65,536 rows get the CUDA
-DIA kernel (``fmt="cuda-dia"``), and general matrices of at least 4,096
-rows the CUDA BELL kernel when their packing qualifies
-(:func:`_try_bell`), as the JAX package gives them its Pallas kernels on a
-TPU.  Entry points build on the card unless ``device`` names another.
+Format policy (the JAX package's, with its thresholds and options, so both
+packages pick the same format): matrices whose nonzeros lie on at most
+``max_diags`` (default 64) distinct diagonals with at least
+``dia_density_threshold`` (default 0.25) fill use DIA, other sparsity ELL.
+On a CUDA device, square DIA-eligible matrices of at least 65,536 rows get
+the CUDA DIA kernels (``fmt="cuda-dia"``, up to their 4096 diagonals), and
+general matrices of at least 4,096 rows the CUDA BELL kernel when their
+packing qualifies (:func:`_try_bell`), as the JAX package gives them its
+Pallas kernels on a TPU.  Entry points build on the card unless
+``device`` names another.
 """
 
 from __future__ import annotations
@@ -100,9 +102,10 @@ _BUILDERS = {
 }
 
 
-# The auto policy's thresholds (the JAX package's).  The diagonal limit is
-# the kernel's own, so "auto" never hands the kernel a matrix it refuses.
-DIA_MAX_DIAGS = K.MAX_DIAGS
+# The auto policy's thresholds (the JAX package's defaults of
+# operator_from_coo's max_diags and dia_density_threshold).  The kernels
+# take up to K.MAX_DIAGS diagonals, as many as dia_from_coo builds.
+DIA_MAX_DIAGS = 64
 DIA_MIN_DENSITY = 0.25
 KERNEL_MIN_ROWS = 1 << 16
 BELL_MIN_ROWS = 1 << 12
@@ -116,9 +119,10 @@ BELL_MIN_SPEEDUP_VS_ELL = 4.0
 ELL_NS_PER_NNZ = 24.0
 
 
-def auto_format(ndiag, density, shape, device_type):
+def auto_format(ndiag, density, shape, device_type, max_diags=DIA_MAX_DIAGS,
+                dia_density_threshold=DIA_MIN_DENSITY):
     """The ``fmt="auto"`` choice: ``"cuda-dia"``, ``"dia"`` or ``"ell"``."""
-    if ndiag > DIA_MAX_DIAGS or density < DIA_MIN_DENSITY:
+    if ndiag > max_diags or density < dia_density_threshold:
         return "ell"
     if (shape[0] == shape[1] and shape[0] >= KERNEL_MIN_ROWS
             and device_type == "cuda"):
@@ -127,14 +131,20 @@ def auto_format(ndiag, density, shape, device_type):
 
 
 def operator_from_coo(vals, rows, cols, shape, symmetric=False,
-                      fmt="auto", dtype=None, device="cuda"):
+                      fmt="auto", dtype=None,
+                      dia_density_threshold=DIA_MIN_DENSITY,
+                      max_diags=DIA_MAX_DIAGS, device="cuda"):
     """Build an operator on ``device`` from COO triples, choosing a
     compute format.
 
     ``fmt`` is one of ``auto | dia | cuda-dia | bell | bell-rcm | ell |
-    csr | coo``.  ``auto`` picks by :func:`auto_format`, then, for a
+    csr | coo``.  ``auto`` picks DIA when the nonzeros lie on at most
+    ``max_diags`` distinct diagonals with at least
+    ``dia_density_threshold`` fill (:func:`auto_format`), then, for a
     general matrix of at least ``BELL_MIN_ROWS`` rows on a CUDA device,
-    tries the BELL kernel (:func:`_try_bell`).  ``bell`` and ``bell-rcm``
+    tries the BELL kernel (:func:`_try_bell`).  DIA storage holds at most
+    4096 diagonals (``dia_from_coo`` raises past that, as in the JAX
+    package).  ``bell`` and ``bell-rcm``
     (RCM-reordered first) give a :class:`~.bell.BellOperator` whatever
     the packing.  The containers are built on the host (the native host
     pipeline where its library is available, else NumPy) and moved to
@@ -145,7 +155,8 @@ def operator_from_coo(vals, rows, cols, shape, symmetric=False,
     if fmt == "auto":
         ndiag, density = F.bandwidth_profile(coo)
         device_type = torch.device(device).type
-        fmt = auto_format(ndiag, density, coo.shape, device_type)
+        fmt = auto_format(ndiag, density, coo.shape, device_type,
+                          max_diags, dia_density_threshold)
         if (fmt == "ell" and coo.shape[0] >= BELL_MIN_ROWS
                 and device_type == "cuda"):
             op = _try_bell(coo, symmetric, device)

@@ -127,6 +127,14 @@ def test_wrapper_checks_and_counts(rng):
     # neither CPU nor CUDA: no silent fallback to the plain version
     with pytest.raises(ValueError, match="CUDA device"):
         K.dia_matvec(dia.data.to("meta"), dia.offsets, x.to("meta"))
-    wide = F.DIA(torch.zeros(65, 100), tuple(range(-32, 33)), (100, 100))
+    # past 64 diagonals the kernels take the wide path, up to
+    # dia_from_coo's 4096
+    wide = F.DIA(torch.ones(65, 100, dtype=torch.float64),
+                 tuple(range(-32, 33)), (100, 100))
+    y = K.cuda_dia_operator(wide, symmetric=True) * x.new_ones(100)
+    assert torch.equal(y, F.to_dense(wide) @ x.new_ones(100))
+    over = F.DIA(torch.zeros(K.MAX_DIAGS + 1, 100),
+                 tuple(range(K.MAX_DIAGS + 1)), (100, 100))
+    assert K.MAX_DIAGS == 4096
     with pytest.raises(ValueError, match="exceed"):
-        K.cuda_dia_operator(wide, symmetric=True) * torch.zeros(100)
+        K.cuda_dia_operator(over, symmetric=True) * torch.zeros(100)

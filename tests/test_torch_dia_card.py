@@ -121,6 +121,16 @@ def test_poisson64_takes_row_groups(card, entry):
      (-700, -1, 0, 2, 990)),
     ("halo shard, L + 2w rows", 3456 + 2 * 144, 3456 + 2 * 144, STENCIL),
     ("no diagonals", 64, 64, ()),
+    # past 64 the offsets travel as int32, those outside (-m, n) clamped
+    ("65 diagonals", 40000, 40000, tuple(range(-40, 25))),
+    ("125 B-spline diagonals", 13824, 13824,
+     tuple(a * 576 + b * 24 + c for a in range(-2, 3) for b in range(-2, 3)
+           for c in range(-2, 3))),
+    ("125 unsorted, repeated, past m", 20016, 20016,
+     tuple(range(600, -600, -10)) + (5, -3, 5, -30000, 1 << 40)),
+    ("4096 diagonals", 20016, 20016, tuple(range(-2048, 2048))),
+    ("4096 diagonals, rectangular", 9000, 12000,
+     tuple(range(-1000, 3096))),
 ])
 def test_container_cases(card, entry, name, m, n, offsets):
     data, x = case(card, entry, m, n, offsets, m + n + len(offsets))

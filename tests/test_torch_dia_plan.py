@@ -39,6 +39,11 @@ OFFSET_SETS = {
     "64 diagonals": tuple(range(-40, 24)),
     "unsorted with duplicates": (5, -3, 0, 5, -3),
     "none": (),
+    # the 3-D B-spline Laplacian at n = 240: the kernels' wide path
+    "125 B-spline diagonals": tuple(a * N3 + b * 240 + c
+                                    for a in range(-2, 3)
+                                    for b in range(-2, 3)
+                                    for c in range(-2, 3)),
 }
 
 
@@ -401,6 +406,11 @@ def test_mv_walk_equals_plain(entry, m):
     ("halo shard, L + 2w rows", 3456 + 2 * 144, 3456 + 2 * 144,
      (-144, -12, -1, 0, 1, 12, 144)),
     ("no diagonals", 64, 64, ()),
+    ("125 B-spline diagonals", 1728, 1728,
+     tuple(a * 144 + b * 12 + c for a in range(-2, 3) for b in range(-2, 3)
+           for c in range(-2, 3))),
+    ("125 unsorted, repeated, past m", 2000, 2000,
+     tuple(range(600, -600, -10)) + (5, -3, 5, -3000, 1 << 40)),
 ])
 def test_mv_walk_equals_plain_on_container_cases(entry, name, m, n, offsets):
     data, x = mv_case(m, n, offsets, entry, m + n + len(offsets))

@@ -52,14 +52,32 @@ def test_source_does_not_import_jax(path):
                          re.MULTILINE)
 
 
+# The JAX package's Pallas-only names: the port's counterpart under
+# another name, or None where ROADMAP.md lists the name as not ported (the
+# kernels take the unpadded container, so there is no block to choose, pad
+# or pack)
+PALLAS_ONLY = {
+    "pallas_dia_sparse_operator": "cuda_dia_sparse_operator",
+    "pallas_dia_operator": "cuda_dia_operator",
+    "dia_matvec_pallas": "dia_matvec",
+    "dia_matvec_packed": "dia_matvec",
+    "choose_block": None,
+    "ensure_dia_padded": None,
+    "pack_dia": None,
+    "DEFAULT_BLOCK": None,
+}
+
+
 @pytest.mark.parametrize("module", ["ops", "solvers.diff",
                                     "solvers.pipelined", "parallel",
                                     "utils", "io", "solvers.show", "native",
-                                    ""])
+                                    "", "solvers.common", "sparse.linop",
+                                    "sparse.kernels"])
 def test_public_names_match_the_jax_package(module):
     # every name of the JAX package's ops, diff, pipelined, parallel, utils,
-    # io, show and native modules and of its package root has its
-    # counterpart under the same name
+    # io, show, native, solvers.common, sparse.linop and sparse.kernels
+    # modules and of its package root has its counterpart under the same
+    # name, or under PALLAS_ONLY's
     import importlib
     jax_mod = importlib.import_module(("pykrylov_tpu." + module).rstrip("."))
     port = importlib.import_module(("pykrylov_tpu_torch." + module)
@@ -67,8 +85,29 @@ def test_public_names_match_the_jax_package(module):
     names = list(jax_mod.__all__) if module else [
         n for n in dir(jax_mod) if not n.startswith("_")
         and n not in ("annotations", "version")]
-    missing = [n for n in names if not hasattr(port, n)]
+    missing = [n for n in names
+               if not hasattr(port, PALLAS_ONLY.get(n) or n)
+               and PALLAS_ONLY.get(n, n) is not None]
     assert not missing, missing
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    start = roadmap.index("**Not ported.**")
+    not_ported = roadmap[start:roadmap.index("\n- **", start)]
+    for name in names:
+        if name in PALLAS_ONLY and PALLAS_ONLY[name] is None:
+            assert "`%s`" % name in not_ported, name
+
+
+def test_operator_from_coo_takes_the_jax_options():
+    # the JAX package's keyword arguments and defaults, plus the device
+    import inspect
+    from pykrylov_tpu.sparse import operator_from_coo as jax_version
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+    jax_params = inspect.signature(jax_version).parameters
+    params = inspect.signature(operator_from_coo).parameters
+    assert list(params) == list(jax_params) + ["device"]
+    for name, p in jax_params.items():
+        assert params[name].default == p.default, name
+    assert params["device"].default == "cuda"
 
 
 def test_every_module_imports_without_jax():
@@ -164,3 +203,27 @@ def test_public_entry_points_default_to_the_card():
                       lambda: make_mesh2d(2, 2)):
             with pytest.raises(RuntimeError, match="CUDA"):
                 build()
+
+
+def test_as_apply_pair_matches_the_jax_package():
+    # (operator, apply, apply_T, apply_H) on a complex unsymmetric matrix,
+    # the three products against the JAX package's
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from pykrylov_tpu.solvers.common import as_apply_pair as jax_pair
+    from pykrylov_tpu_torch.solvers.common import as_apply_pair
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((5, 3)) + 1j * rng.standard_normal((5, 3))
+    x = rng.standard_normal(3) + 1j * rng.standard_normal(3)
+    u = rng.standard_normal(5) + 1j * rng.standard_normal(5)
+    op, mv, rmv, hmv = as_apply_pair(torch.from_numpy(a))
+    jop, jmv, jrmv, jhmv = jax_pair(jnp.asarray(a))
+    assert op.shape == jop.shape == (5, 3)
+    for port, ref in ((mv(op, torch.from_numpy(x)), jmv(jop, jnp.asarray(x))),
+                      (rmv(op, torch.from_numpy(u)),
+                       jrmv(jop, jnp.asarray(u))),
+                      (hmv(op, torch.from_numpy(u)),
+                       jhmv(jop, jnp.asarray(u)))):
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref),
+                                   rtol=1e-13, atol=0)

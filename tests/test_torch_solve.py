@@ -26,6 +26,7 @@ from pykrylov_tpu.sparse import operator_from_coo as jax_operator_from_coo
 import pykrylov_tpu_torch as pt
 from pykrylov_tpu_torch.ops import DiagonalOperator, MatrixOperator
 from pykrylov_tpu_torch.solvers import cg
+from pykrylov_tpu_torch.sparse import formats as F
 from pykrylov_tpu_torch.sparse import kernels as K
 from pykrylov_tpu_torch.sparse import operator_from_coo
 from pykrylov_tpu_torch.sparse.linop import auto_format
@@ -73,13 +74,19 @@ def test_auto_format_policy(args, expected):
     assert auto_format(*args) == expected
 
 
-@pytest.mark.parametrize("ndiag", [K.MAX_DIAGS + 1, 100, 4096])
+@pytest.mark.parametrize("ndiag", [65, 100, 4096])
 def test_auto_format_never_exceeds_the_kernel(ndiag):
-    # the policy's diagonal limit is the kernel's: a matrix the kernel
-    # would refuse never gets fmt="cuda-dia"
-    assert auto_format(ndiag, 1.0, (1 << 20, 1 << 20), "cuda") != "cuda-dia"
-    assert auto_format(K.MAX_DIAGS, 1.0, (1 << 20, 1 << 20),
-                       "cuda") == "cuda-dia"
+    # the default keeps the JAX package's 64 diagonals; asked for more,
+    # the policy gives the kernels what they take, up to dia_from_coo's
+    # 4096 (past which dia_from_coo raises, as in the JAX package)
+    big = (1 << 20, 1 << 20)
+    assert auto_format(ndiag, 1.0, big, "cuda") == "ell"
+    assert auto_format(64, 1.0, big, "cuda") == "cuda-dia"
+    assert auto_format(ndiag, 1.0, big, "cuda",
+                       max_diags=ndiag) == "cuda-dia"
+    assert auto_format(ndiag, 0.5, big, "cuda", max_diags=ndiag,
+                       dia_density_threshold=0.6) == "ell"
+    assert ndiag <= K.MAX_DIAGS == F.dia_from_coo.__defaults__[0]
 
 
 def test_no_unported_knobs():
@@ -93,10 +100,20 @@ def test_no_unported_knobs():
     assert torch.equal(cg(spd, b, leg_rtol=1e-3).x, cg(spd, b).x)
     with pytest.raises(TypeError, match="leg_tol"):
         cg(spd, b, leg_tol=1e-2)
+    # the DIA policy's options are the JAX package's, with its choices
     vals, rows, cols, shape = poisson3d_coo(4)
-    with pytest.raises(TypeError, match="max_diags"):
-        operator_from_coo(vals, rows, cols, shape, max_diags=100,
-                          device=DEV)
+    x = np.random.default_rng(3).standard_normal(shape[0])
+    for opts, fmt in (({"max_diags": 100}, "dia"),
+                      ({"max_diags": 6}, "ell"),
+                      ({"dia_density_threshold": 0.9}, "ell")):
+        A = operator_from_coo(vals, rows, cols, shape, symmetric=True,
+                              device=DEV, **opts)
+        jA = jax_operator_from_coo(vals, rows, cols, shape, symmetric=True,
+                                   **opts)
+        assert A.fmt == fmt == type(jA.container).__name__.lower()
+        np.testing.assert_allclose((A * torch.from_numpy(x)).numpy(),
+                                   np.asarray(jA * jnp.asarray(x)),
+                                   rtol=1e-13, atol=0)
 
 
 def test_auto_on_cpu_keeps_plain_dia_for_large_stencils():

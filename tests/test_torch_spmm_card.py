@@ -97,6 +97,13 @@ def _dia_case(name, card, dtype, ncols):
     elif name == "shorter than a tile":
         m = n = 37
         offsets = (-5, 0, 2)
+    elif name == "125 diagonals, unsorted, repeated, past m":
+        # the kernels' wide path: offsets as int32, the out-of-range ones
+        # clamped
+        wide = rng.permutation(np.arange(-1500, 1500, 25))[:118].tolist()
+        offsets = tuple(wide + wide[:5] + [-m - 9, 4 * m])
+    elif name == "4096 diagonals":
+        offsets = tuple(range(-2048, 2048))
     vals = rng.standard_normal((len(offsets), m))
     i = np.arange(m)
     for d, off in enumerate(offsets):
@@ -111,7 +118,8 @@ def _dia_case(name, card, dtype, ncols):
 
 DIA_CASES = ["rectangular, n > m", "rectangular, n < m", "far offsets",
              "64 diagonals, one cluster", "64 diagonals, scattered",
-             "shorter than a tile", "non-finite outside"]
+             "shorter than a tile", "non-finite outside",
+             "125 diagonals, unsorted, repeated, past m", "4096 diagonals"]
 
 
 @pytest.mark.cuda
