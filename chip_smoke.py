@@ -37,12 +37,16 @@ block-diagonal, L-BFGS and Cholesky operators; and a checkpointed and a
 traced solve, and the sharded operators on a mesh of shard slots that
 share the card, each shard's product one kernel launch; and the native
 host pipeline (the C++ MatrixMarket parser, DIA fill and BELL planners)
-held against the NumPy path at full size, and the port's examples.
+held against the NumPy path at full size, and the port's examples; and
+the kernels that ask of the card what ``tools/probes/`` asked of the TPU
+(its read floor, a DIA SpMV fed by a TMA ring, the SELL SpMV with parts
+removed), each held against its plain version.
 
 Phases, in order:
 
   1. device: torch/CUDA versions, card name and power limit, TF32 off;
-  2. build: the four kernel libraries from source at once, the native
+  2. build: every kernel library from source at once (the four SpMV and
+     SpMM kernels and the three probe kernels of phase 23), the native
      host library (g++, ``native/native.cpp``) beside them (the phase
      fails without g++ or if the library does not load), the compiler's
      registers and spills per kernel, the card's published peaks
@@ -296,6 +300,17 @@ Phases, in order:
      at n = 16); the wide SpMV and K = 8 SpMM timed against their bound
      and torch's CSR product, and a wrapper call's host time at 125 and 7
      diagonals;
+  23. the TPU probes' kernels (:func:`phase_probes`; ``chip_probes.py``
+     sweeps them): with every launch count set to 0 just before and read
+     just after, ``stream_fold`` over 512 MB in one and two streams,
+     direct and through its TMA ring, ``dia_matvec_ring`` on phase 4's
+     Poisson container and every ``sell_matvec_ablated`` variant on phase
+     5's card form (4, 1 and 7 launches, no solver kernel), each bit for
+     bit its plain version; edge cases at small size (lengths the chunk
+     does not divide, 1, 7, 64, 65 and 125 diagonals, offsets past the
+     matrix, ragged last tiles, depth 2 with odd diagonal counts, a card
+     form with empty rows); one timed point of each against its plain
+     version, its bound and one torch call of the same function;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -329,10 +344,11 @@ Phases, in order:
      phases 11-13 that ran through them (``block_solves``); the DIA
      SpMM's with its host plan, V columns a thread, T rows a tile, Kc
      columns a panel, at each K, and each template instance's registers
-     and spill bytes), then the result line ``{"ok": true, "device":
-     {...}}``.
+     and spill bytes; the three probe kernels with phase 23's launches
+     and times, the fold with its best read rate), then the result line
+     ``{"ok": true, "device": {...}}``.
 
-Phases 8-22 run after 5b and before 6; each resets every launch count
+Phases 8-23 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.  Each phase's
 seconds are logged as it ends (``[time]``).
 
@@ -6133,6 +6149,208 @@ def phase_wide(pt, rates):
     return out
 
 
+PROBE_BYTES = 512 << 20  # bytes a stream fold of 23 reads (the probe's)
+PROBE_UNROLL = 4        # rows of loads in flight a thread, 23's direct fold
+PROBE_RING = (16384, 4)  # chunk bytes and depth of 23's ring fold
+PROBE_DIA = (1024, 2)   # tile rows and depth of 23's DIA ring
+PROBE_ITERS = 20        # calls a timing of 23 averages
+
+
+def _probe_edges(tag):
+    """23b: the probe kernels at small sizes on their edge cases, each bit
+    for bit its plain version."""
+    from pykrylov_tpu_torch.probes import dia_ring as DR
+    from pykrylov_tpu_torch.probes import sell_ablation as SA
+    from pykrylov_tpu_torch.probes import stream_floor as SF
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import operator_from_coo
+
+    # lengths of 37 rows of 4 KB: no chunk above 4 KB divides them
+    for nstreams in (1, 2):
+        streams = SF.probe_streams(nstreams, nstreams * 37 * 4096, seed=37,
+                                   device=DEVICE)
+        ref = SF.stream_fold_plain(streams)
+        for label, kw in (("direct U=8", dict(mode="direct", unroll=8)),
+                          ("direct, 1 block", dict(mode="direct", blocks=1)),
+                          ("ring 16 KB x 2", dict(mode="ring", chunk=16384,
+                                                  depth=2)),
+                          ("ring 32 KB x 3, 1 block",
+                           dict(mode="ring", chunk=32768, depth=3,
+                                blocks=1))):
+            y = SF.stream_fold(streams, **kw)
+            torch.cuda.synchronize()
+            _exact("fold, %d stream(s) of 37 rows, %s" % (nstreams, label),
+                   y, ref, tag=tag)
+    bspline = tuple(a * 576 + b * 24 + c for a in range(-2, 3)
+                    for b in range(-2, 3) for c in range(-2, 3))
+    rng = np.random.default_rng(23)
+    # (label, m, n, offsets, tile, depth): depth 2 with 1, 5, 7 and 125
+    # diagonals (odd: ring positions cross tiles on alternating slots);
+    # every m here leaves a ragged last tile
+    for label, m, n, offsets, tile, depth in (
+            ("1 diagonal", 20012, 20012, (0,), 1024, 2),
+            ("7 diagonals", 20012, 20012, (-400, -20, -1, 0, 1, 20, 400),
+             1024, 2),
+            ("64 diagonals", 40004, 40004, tuple(range(-40, 24)), 2048, 4),
+            ("65 diagonals", 40004, 40004, tuple(range(-40, 25)), 512, 3),
+            ("125 B-spline diagonals", 13828, 13828, bspline, 1024, 2),
+            ("offsets past the matrix", 20016, 20016,
+             (-30000, -3, 0, 2, 25000), 256, 2),
+            ("rectangular", 20016, 15000, (-700, -1, 0, 2, 990), 4096, 8)):
+        data = torch.from_numpy(rng.standard_normal((len(offsets), m))).to(
+            DEVICE, torch.float32)
+        x = torch.from_numpy(rng.standard_normal(n)).to(DEVICE,
+                                                        torch.float32)
+        data = _poison(data, offsets, n)
+        y = DR.dia_matvec_ring(data, offsets, x, tile, depth)
+        torch.cuda.synchronize()
+        _exact("DIA ring, %s (m=%d, tile %d, depth %d)"
+               % (label, m, tile, depth), y,
+               K.dia_matvec_plain(data, offsets, x), tag=tag)
+    # a rectangular card form with empty rows and rows of 40-odd entries
+    rows = np.concatenate([rng.integers(0, 1500, 9000),
+                           np.repeat(rng.integers(0, 1500, 5), 40)])
+    cols = rng.integers(0, 1700, len(rows))
+    keys = np.unique(rows * 1700 + cols)
+    rect = operator_from_coo(
+        rng.standard_normal(len(keys)).astype(np.float32), keys // 1700,
+        keys % 1700, (3000, 1700), fmt="bell", device=DEVICE).card
+    x = torch.from_numpy(rng.standard_normal(1700)).to(DEVICE, torch.float32)
+    for variant in SA.VARIANTS:
+        y = SA.sell_matvec_ablated(rect, x, variant)
+        torch.cuda.synchronize()
+        _exact("SELL %s, 3000 x 1700 with empty rows" % variant, y,
+               SA.sell_matvec_ablated_plain(rect, x, variant), tag=tag)
+
+
+def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
+    """23: the TPU probes' kernels (``pykrylov_tpu_torch.probes``; swept in
+    full by ``chip_probes.py``), on objects earlier phases built.
+
+    a. The probes' path, with every launch count set to 0 just before and
+       read just after: ``stream_fold`` over PROBE_BYTES in one and in two
+       streams, direct and through the TMA ring (4 launches);
+       ``dia_matvec_ring`` on phase 4's Poisson container (1);
+       ``sell_matvec_ablated``, every variant, on phase 5's card form (7);
+       no solver kernel.  Each output bit for bit its plain version, and
+       ``full`` bit for bit ``sell_matvec``.
+    b. Edge cases at small size (:func:`_probe_edges`).
+    c. One timed point of each kernel (the direct fold on one stream, the
+       ring fold beside it; the DIA ring beside ``dia_matvec``; ``full``
+       beside ``sell_matvec``) against its plain version, its bound and
+       one torch call of the same function (``a.view(-1, 1024).sum(0)``,
+       torch's CSR product)."""
+    from pykrylov_tpu_torch import probes
+    from pykrylov_tpu_torch.probes import dia_ring as DR
+    from pykrylov_tpu_torch.probes import sell_ablation as SA
+    from pykrylov_tpu_torch.probes import stream_floor as SF
+    from pykrylov_tpu_torch.sparse import kernels as K
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    tag = "23 probes"
+    data, offsets = A_dia.container.data, A_dia.container.offsets
+    card = A_bell.card
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    x_dia = torch.randn(data.shape[1], generator=g, device=DEVICE)
+    x_sell = torch.randn(card.n, generator=g, device=DEVICE)
+    streams = {k: SF.probe_streams(k, PROBE_BYTES, seed=k, device=DEVICE)
+               for k in (1, 2)}
+    modes = {"direct": dict(mode="direct", unroll=PROBE_UNROLL),
+             "ring": dict(mode="ring", chunk=PROBE_RING[0],
+                          depth=PROBE_RING[1])}
+    torch.cuda.synchronize()
+
+    # a. the path
+    _reset_counts()
+    probes.reset_counts()
+    folds = {(k, mode): SF.stream_fold(streams[k], **kw)
+             for k in streams for mode, kw in modes.items()}
+    y_ring = DR.dia_matvec_ring(data, offsets, x_dia, *PROBE_DIA)
+    ys = {v: SA.sell_matvec_ablated(card, x_sell, v) for v in SA.VARIANTS}
+    torch.cuda.synchronize()
+    launches, solver = probes.counts(), _counts()
+    log("[%s] the path's launches: %s; solver kernels %s"
+        % (tag, launches, solver))
+    expect = {"probe_stream": 2 * len(modes), "probe_dia_ring": 1,
+              "probe_sell_ablation": len(SA.VARIANTS)}
+    if launches != expect or any(solver.values()):
+        raise AssertionError("%s: launches %s and %s, not %s"
+                             % (tag, launches, solver, expect))
+    for (k, mode), y in folds.items():
+        _exact("fold, %d stream(s) of %d MB, %s" % (
+            k, PROBE_BYTES >> 20, mode), y, SF.stream_fold_plain(streams[k]),
+            tag=tag)
+    _exact("DIA ring on phase 4's Poisson (tile %d, depth %d)" % PROBE_DIA,
+           y_ring, K.dia_matvec_plain(data, offsets, x_dia), tag=tag)
+    for v, y in ys.items():
+        _exact("SELL %s on phase 5's card form" % v, y,
+               SA.sell_matvec_ablated_plain(card, x_sell, v), tag=tag)
+    _exact("SELL full = sell_matvec", ys["full"],
+           S.sell_matvec(card, x_sell), tag=tag)
+    del folds, y_ring, ys, streams[2]
+
+    # b. edge cases
+    _probe_edges(tag)
+
+    # c. one timed point each
+    out = {"launches": launches}
+    a = streams[1]
+    nbytes = SF.stream_bytes(a)
+    best = _best_ms([("direct", lambda: SF.stream_fold(a, **modes["direct"])),
+                     ("ring", lambda: SF.stream_fold(a, **modes["ring"])),
+                     ("plain", lambda: SF.stream_fold_plain(a)),
+                     ("torch sum", lambda: a[0].view(-1, SF.BINS).sum(0))],
+                    PROBE_ITERS)
+    b = _bound(nbytes, nbytes // 4, rates)
+    rate = max(nbytes / best[k] / 1e6 for k in ("direct", "ring"))
+    out["stream"] = {"ms": best["direct"], "ring_ms": best["ring"],
+                     "plain_ms": best["plain"],
+                     "library_ms": best["torch sum"], "read_gbps": rate, **b}
+    log("[%s] fold of %d MB: direct %.4f ms, ring %.4f, plain %.4f, torch "
+        "sum %.4f; bound %.4f ms; best read rate %.1f GB/s (copy rate %.1f "
+        "GB/s)" % (tag, nbytes >> 20, best["direct"], best["ring"],
+                   best["plain"], best["torch sum"], b["bound_ms"], rate,
+                   rates["copy"] / 1e9))
+    del a, streams
+    csr = _dia_csr(A_dia.container)
+    m, ndiag = data.shape[1], len(offsets)
+    best = _best_ms([("ring", lambda: DR.dia_matvec_ring(data, offsets, x_dia,
+                                                         *PROBE_DIA)),
+                     ("dia_matvec", lambda: K.dia_matvec(data, offsets,
+                                                         x_dia)),
+                     ("plain", lambda: K.dia_matvec_plain(data, offsets,
+                                                          x_dia)),
+                     ("torch CSR", lambda: csr @ x_dia)], PROBE_ITERS)
+    b = _bound(DR.dia_ring_bytes(ndiag, m, m), 2 * ndiag * m, rates)
+    out["dia"] = {"ms": best["ring"], "dia_matvec_ms": best["dia_matvec"],
+                  "plain_ms": best["plain"], "library_ms": best["torch CSR"],
+                  **b}
+    log("[%s] DIA ring, Poisson n=%d: %.4f ms (dia_matvec %.4f), plain "
+        "%.4f, torch CSR %.4f; bound %.4f ms, ring at %.1f%% of it"
+        % (tag, N, best["ring"], best["dia_matvec"], best["plain"],
+           best["torch CSR"], b["bound_ms"],
+           100 * b["bound_ms"] / best["ring"]))
+    del csr
+    csr = _torch_csr(coo_bell, DEVICE)
+    nnz = int(card.row_len.sum())
+    best = _best_ms([("full", lambda: SA.sell_matvec_ablated(card, x_sell)),
+                     ("sell_matvec", lambda: S.sell_matvec(card, x_sell)),
+                     ("plain", lambda: SA.sell_matvec_ablated_plain(
+                         card, x_sell)),
+                     ("torch CSR", lambda: csr @ x_sell)], 100,
+                    host_waits=("plain",))
+    b = _bound(SA.ablation_bytes(card, card.n, "full"), 2 * nnz, rates)
+    out["sell"] = {"ms": best["full"], "sell_matvec_ms": best["sell_matvec"],
+                   "plain_ms": best["plain"], "library_ms": best["torch CSR"],
+                   **b}
+    log("[%s] SELL full, tiled 1138bus: %.4f ms (sell_matvec %.4f, ratio "
+        "%.4f), plain %.4f, torch CSR %.4f; bound %.4f ms"
+        % (tag, best["full"], best["sell_matvec"],
+           best["full"] / best["sell_matvec"], best["plain"],
+           best["torch CSR"], b["bound_ms"]))
+    return out
+
+
 # --------------------------------------------------------------------------
 # 6. timing
 # --------------------------------------------------------------------------
@@ -6627,7 +6845,9 @@ def main():
                          pt, A_dia, dia, coo_bell, bell, keep["se"],
                          new_s["20a"][0]["mtx_path"], _earlier(new_s, dia,
                                                                bell))),
-                     ("22", lambda: phase_wide(pt, rates))):
+                     ("22", lambda: phase_wide(pt, rates)),
+                     ("23", lambda: phase_probes(pt, A_dia, A_bell, coo_bell,
+                                                 rates))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
         log("[time] phase %s: %.1f s (%.1f s since the start)"
@@ -6936,6 +7156,30 @@ def main():
            wide["spmv"]["library_ms"], KB, wide["spmm"]["ms"],
            wide["spmm"]["bound_ms"], wide["spmm"]["library_ms"], BS_ROUTE_N,
            wide["route"]["fmt"]))
+    p23 = new_s["23"][0]
+    for name, src, replaces, extra, key in (
+            ("probe_stream", "probe_stream.cu",
+             "tools/probes/probe_stream_floor.py:59",
+             ["tools/probes/probe_stream_floor.py:111"], "stream"),
+            ("probe_dia_ring", "probe_dia_ring.cu",
+             "tools/probes/probe_dia_manual_dma.py:137", [], "dia"),
+            ("probe_sell_ablation", "probe_sell_ablation.cu",
+             "tools/probes/probe_bell_ablation.py:111",
+             ["tools/probes/probe_bell_ablation_w1.py:129",
+              "tools/probes/probe_ablate_r3.py:149",
+              "tools/probes/probe_skew.py:169"], "sell")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "pykrylov_tpu_torch/csrc/" + src,
+                        "replaces": replaces, "also_replaces": extra,
+                        "launches": p23["launches"][name],
+                        "max_abs_err": 0.0, **p23[key],
+                        "registers": regs.get(name)})
+    log("[7 result] phase 23 (%.1f s): fold %.4f ms (%.1f GB/s read), DIA "
+        "ring %.4f ms (dia_matvec %.4f), SELL full %.4f ms (sell_matvec "
+        "%.4f)" % (new_s["23"][1], p23["stream"]["ms"],
+                   p23["stream"]["read_gbps"], p23["dia"]["ms"],
+                   p23["dia"]["dia_matvec_ms"], p23["sell"]["ms"],
+                   p23["sell"]["sell_matvec_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``.  The libraries land in ``_build/`` beside this file, each named
-by a hash of its source and the flags, so an edited source is rebuilt and
-an unchanged one is built once per checkout.  :func:`build` with no name
+by a hash of its source, the ``.cuh`` headers beside it and the flags, so
+an edited source is rebuilt and an unchanged one is built once per
+checkout.  :func:`build` with no name
 starts every missing compile at once and waits for all of them.  The
 compiler's report (``-Xptxas -v``: registers, shared memory and spills
 per kernel) is kept beside each library as ``<library>.log``.
@@ -23,7 +24,9 @@ __all__ = ["SOURCES", "BUILD_DIR", "find_nvcc", "build", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", name + ".cu")
-           for name in ("dia_spmv", "sell_spmv", "dia_spmm", "sell_spmm")}
+           for name in ("dia_spmv", "sell_spmv", "dia_spmm", "sell_spmm",
+                        "probe_stream", "probe_dia_ring",
+                        "probe_sell_ablation")}
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,9 +47,14 @@ def find_nvcc():
 
 
 def _digest(name):
+    """Hash of the flags, the source and the headers beside it (a source
+    may include any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(SOURCES[name], "rb") as f:
-        h.update(f.read())
+    csrc = os.path.dirname(SOURCES[name])
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for path in [SOURCES[name]] + [os.path.join(csrc, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     return h.hexdigest()[:16]
 
 

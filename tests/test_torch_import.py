@@ -33,6 +33,7 @@ def test_import_loads_no_jax():
         "import pykrylov_tpu_torch.utils.observe\n"
         "import pykrylov_tpu_torch.native\n"
         "import pykrylov_tpu_torch.examples.bmark\n"
+        "import pykrylov_tpu_torch.probes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pykrylov_tpu'))\n"
         "assert not bad, bad\n")
@@ -41,7 +42,8 @@ def test_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py",
-                                            "chip_sell_variants.py"])
+                                            "chip_sell_variants.py",
+                                            "chip_probes.py"])
 def test_source_does_not_import_jax(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|pykrylov_tpu)\b", text,
