@@ -5,9 +5,9 @@ GPU: the counterpart of the ``__main__`` blocks of ``tools/probes/``.
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
-    python3 chip_probes.py [--stream] [--dia] [--sell]
+    python3 chip_probes.py [--stream] [--dia] [--sell] [--mma]
 
-(no flag: all three).  Every configuration's output is first held bit for
+(no flag: all four).  Every configuration's output is first held bit for
 bit against its plain version, then timed with ``chip_smoke.device_ms``
 (the host enqueues the calls behind a sleep kernel; best of 3 runs in
 turns).  Bounds are bytes at the card's published memory rate
@@ -35,6 +35,19 @@ turns).  Bounds are bytes at the card's published memory rate
   bound (the bytes the variant still moves), ``full`` beside
   ``sell_matvec`` (the built kernel: the two must be within 3%) and
   torch's CSR product.
+* ``--mma`` (``probe_ablate_r3b.py``, ``probe_int8_mxu.py``): every
+  configuration of ``bell_step_mma`` (the probe's nine and the four
+  controls) on the probe's matrix (``chip_smoke.probe_mma_matrix``: tiled
+  jpwh_991, 1,014,784 rows, window-1 BELL), each held against its plain
+  version (the ``add`` scatters bit for bit, the mma scatters within
+  ``chip_smoke.MMA_SCATTER_BOUND`` of a row's sum of |group sums|) and
+  timed beside its bound (bytes at 3.35 TB/s against the tensor cores'
+  dense rates), ``sell.sell_matvec`` over the card form of the same
+  container and torch's CSR product; ``onehot_select`` in both modes at
+  (1024, 256, 128), timed alone and as a dependent chain of 200 calls (the
+  probe's ``fori_loop``: each call's w depends on the last output), beside
+  ``w[base]`` and the f32 product ``oh.float() @ w`` timed the same two
+  ways.
 
 It prints the card, one line a configuration and, last, a JSON line of
 every number, then ``{"ok": true}``.  Without a card it exits 2.
@@ -246,9 +259,104 @@ def sell_sweep(cs, rates):
     return out
 
 
+CHAIN = 200                  # dependent calls of the select's chain
+
+
+def mma_sweep(cs, rates):
+    from pykrylov_tpu_torch.probes import bell_mma as BM
+    from pykrylov_tpu_torch.probes import onehot_mma as OM
+    from pykrylov_tpu_torch.sparse import sell as S
+
+    t0 = time.perf_counter()
+    forms, coo, x = cs.probe_mma_matrix()
+    b32 = forms["f32"]
+    card = S.sell_from_levels((b32,), b32.shape[0])
+    log("[mma] probe_ablate_r3b.py's matrix: %d x %d, %d nonzeros; %d steps "
+        "of %d rows, nb %d, nblk %d (built in %.1f s)"
+        % (b32.shape[0], b32.shape[1], len(coo[0]), b32.data.shape[0],
+           b32.data.shape[1], b32.nb, b32.nblk, time.perf_counter() - t0))
+    configs = BM.PROBE_CONFIGS + BM.CONTROLS
+    runs, sums, errs = [], {}, {}
+    for cfg in configs:
+        label, values = cfg[0], cfg[1]
+        y = BM.bell_step_mma(forms[values], x, *cfg[2:])
+        torch.cuda.synchronize()
+        errs[label] = cs.hold_bell_mma("mma", label, forms[values], x, y,
+                                       cfg, sums)
+        runs.append((label, (lambda b, args: lambda: BM.bell_step_mma(
+            b, x, *args))(forms[values], cfg[2:])))
+    del sums
+    # the same product, each row's terms summed one by one in slot order
+    # (not by 4-row groups and block sums): f32 rounding apart
+    m = b32.shape[0]
+    rel = cs.relerr(S.sell_matvec(card, x),
+                    BM.bell_step_mma(b32, x, "load", "tile", "add")[:m])
+    if rel > cs.REL_BOUND[torch.float32]:
+        raise AssertionError("sell_matvec off load/tile/add by %.3e" % rel)
+    csr = cs._torch_csr(coo, DEVICE)
+    runs += [("sell_matvec", lambda: S.sell_matvec(card, x)),
+             ("torch CSR", lambda: csr @ x)]
+    best = cs._best_ms(runs, ITERS)
+    out = {"bell": {}}
+    for cfg in configs:
+        label, values, stage, _, scatter, nseg = cfg
+        b = cs._bound(BM.bell_mma_bytes(forms[values], x.shape[0], nseg),
+                      BM.bell_mma_flops(b32, stage, scatter, nseg), rates)
+        ms = best[label]
+        out["bell"][label] = {"ms": ms, "max_abs_err": errs[label], **b}
+        log("[mma] %-32s %.4f ms  bound %.4f ms (%s)  %.1f%% of it  max err "
+            "%.3e" % (label, ms, b["bound_ms"], b["bound_by"],
+                      100 * b["bound_ms"] / ms, errs[label]))
+    for label in ("sell_matvec", "torch CSR"):
+        out["bell"][label] = {"ms": best[label]}
+        log("[mma] %-32s %.4f ms" % (label, best[label]))
+    del csr, card, forms, x
+
+    # the library's product in f32, not tf32 (the default on the card,
+    # stated here as chip_smoke.phase_device does)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gs, nb, l = cs.PROBE_SELECT
+    oh, w = cs.probe_select_inputs(gs, nb, l)
+    base = oh.to(torch.uint8).argmax(1)
+    ohf = oh.float()
+    calls = {"int8": lambda w: OM.onehot_select(oh, w, "int8"),
+             "bf16x3": lambda w: OM.onehot_select(oh, w, "bf16x3"),
+             "w[base]": lambda w: w[base],
+             "oh.float() @ w": lambda w: ohf @ w}
+    for mode in OM.MODES:
+        ref = OM.onehot_select_plain(oh, w, mode)
+        if not torch.equal(calls[mode](w).view(torch.int32),
+                           ref.view(torch.int32)):
+            raise AssertionError("select %s differs from its plain version"
+                                 % mode)
+
+    def chain(fn):
+        def run():
+            y = fn(w)
+            for _ in range(CHAIN - 1):
+                y = fn(w + y[0, :1] * 0)
+            return y
+        return run
+
+    best = cs._best_ms([(k, (lambda f: lambda: f(w))(f))
+                        for k, f in calls.items()], ITERS)
+    chained = {k: min(cs.events_ms(chain(f), 1) for _ in range(3)) / CHAIN
+               for k, f in calls.items()}
+    b = cs._bound(OM.onehot_select_bytes(gs, nb, l),
+                  {"int8": 4 * 2 * gs * nb * l}, rates)
+    out["select"] = {"bound_ms": b["bound_ms"]}
+    for k in calls:
+        out["select"][k] = {"ms": best[k], "chained_ms": chained[k]}
+        log("[mma] select (%d, %d, %d) %-15s %.4f ms, %.4f ms a call in a "
+            "chain of %d; bound %.4f ms" % (gs, nb, l, k, best[k],
+                                           chained[k], CHAIN,
+                                           b["bound_ms"]))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    for flag in ("stream", "dia", "sell"):
+    for flag in ("stream", "dia", "sell", "mma"):
         parser.add_argument("--" + flag, action="store_true",
                             help="the %s sweep" % flag)
     args = parser.parse_args()
@@ -267,9 +375,10 @@ def main():
         _build.load(name)
     log("built in %.1f s" % (time.perf_counter() - t0))
     rates = cs.phase_rates()
-    todo = [f for f in ("stream", "dia", "sell") if getattr(args, f)] or \
-        ["stream", "dia", "sell"]
-    sweeps = {"stream": stream_sweep, "dia": dia_sweep, "sell": sell_sweep}
+    todo = [f for f in ("stream", "dia", "sell", "mma")
+            if getattr(args, f)] or ["stream", "dia", "sell", "mma"]
+    sweeps = {"stream": stream_sweep, "dia": dia_sweep, "sell": sell_sweep,
+              "mma": mma_sweep}
     result = {"card": torch.cuda.get_device_name(0),
               "copy_gbps": rates["copy"] / 1e9}
     for name in todo:

@@ -310,7 +310,20 @@ Phases, in order:
      does not divide, 1, 7, 64, 65 and 125 diagonals, offsets past the
      matrix, ragged last tiles, depth 2 with odd diagonal counts, a card
      form with empty rows); one timed point of each against its plain
-     version, its bound and one torch call of the same function;
+     version, its bound and one torch call of the same function.  On the
+     same path, the tensor-core probes at the probes' sizes:
+     ``bell_step_mma``'s nine configurations of ``probe_ablate_r3b.py``
+     and two controls (``load``/``tile``/``add``, ``load``/``halves``/
+     ``add``) on its matrix (tiled jpwh_991, 1,014,784 rows; window-1
+     BELL, f32 and bf16 values; 11 launches), the ``add`` scatters bit for
+     bit their plain version and the mma scatters within 2**-20 of each
+     row's sum of |group sums| (largest error logged), and
+     ``onehot_select`` in both modes at ``probe_int8_mxu.py``'s (1024,
+     256, 128) (2 launches) bit for bit; every f32 pattern through both at
+     a small size; the baseline configuration, the control and both
+     selects timed against their plain versions, bounds (bytes at 3.35
+     TB/s against the tensor cores' dense rates) and torch's CSR product,
+     ``w[base]`` and the f32 product ``oh.float() @ w``;
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -392,12 +405,13 @@ CLASS_ROWS = 1 << 17  # rows of bench.py's matrix classes
 COPY_BYTES = 1 << 30  # bytes of the copy that measures the copy rate
 DEVICE = "cuda"
 # Published peaks by the name torch.cuda.get_device_name reports (NVIDIA's
-# data sheet, H100 SXM at its 700 W limit): device-memory bytes a second and
-# float32 operations a second outside the tensor cores.  The bounds divide
-# by these; the copy rate measured in phase 2 gives an achievable time
-# beside them.
+# data sheet, H100 SXM at its 700 W limit): device-memory bytes a second,
+# float32 operations a second outside the tensor cores, and the tensor
+# cores' dense rates (bf16, tf32, int8).  The bounds divide by these; the
+# copy rate measured in phase 2 gives an achievable time beside them.
 PEAKS = {"NVIDIA H100 80GB HBM3": {"bytes": 3.35e12, "f32": 67e12,
-                                   "f64": 34e12}}
+                                   "f64": 34e12, "bf16": 989e12,
+                                   "tf32": 495e12, "int8": 1979e12}}
 SLEEP_HZ = 2e9      # above the card's SM clock: a sleep of n cycles lasts
                     # at least n / SLEEP_HZ seconds
 KB = 8              # right-hand sides of the block paths (phases 4b, 5b)
@@ -6159,7 +6173,9 @@ PROBE_ITERS = 20        # calls a timing of 23 averages
 def _probe_edges(tag):
     """23b: the probe kernels at small sizes on their edge cases, each bit
     for bit its plain version."""
+    from pykrylov_tpu_torch.probes import bell_mma as BM
     from pykrylov_tpu_torch.probes import dia_ring as DR
+    from pykrylov_tpu_torch.probes import onehot_mma as OM
     from pykrylov_tpu_torch.probes import sell_ablation as SA
     from pykrylov_tpu_torch.probes import stream_floor as SF
     from pykrylov_tpu_torch.sparse import kernels as K
@@ -6221,6 +6237,128 @@ def _probe_edges(tag):
         torch.cuda.synchronize()
         _exact("SELL %s, 3000 x 1700 with empty rows" % variant, y,
                SA.sell_matvec_ablated_plain(rect, x, variant), tag=tag)
+    # every f32 pattern through both selects, at the probe's shape and a
+    # ragged one
+    for shape in ((1024, 256, 128), (512, 96, 96)):
+        oh, w = probe_select_inputs(*shape, seed=1,
+                                    specials=SELECT_SPECIALS)
+        for mode in OM.MODES:
+            y = OM.onehot_select(oh, w, mode)
+            torch.cuda.synchronize()
+            _hold_select("select %s at %s, every pattern" % (mode, shape),
+                         y, OM.onehot_select_plain(oh, w, mode), tag)
+    # a short x, whose window columns past it read 0, on 16 tiles
+    forms, _, x = probe_mma_matrix(tiles=16)
+    x = x[:-1000].contiguous()
+    for stage in BM.STAGES:
+        for fold in BM.FOLDS:
+            y = BM.bell_step_mma(forms["bf16"], x, stage, fold, "add", 4)
+            torch.cuda.synchronize()
+            _exact("BELL mma %s/%s/add nseg 4, bf16 values, short x"
+                   % (stage, fold), y, BM.bell_step_mma_plain(
+                       forms["bf16"], x, stage, fold, "add", 4), tag=tag)
+
+
+PROBE_MMA_TILES = 1024   # jpwh_991 tiles of 23's BELL mma product
+PROBE_SELECT = (1024, 256, 128)  # GS, NB, L of 23's one-hot select
+MMA_SCATTER_BOUND = 2.0 ** -20   # the mma scatters, of a row's sum of
+                                 # |group sums|: the tensor cores sum a
+                                 # block's groups in f32 in their own order
+# the f32 patterns the select must carry beside normals, by kind
+SELECT_SPECIALS = {
+    "-0": (0x80000000,),
+    "subnormal": (0x00000001, 0x807FFFFF, 0x00012345),
+    "inf": (0x7F800000, 0xFF800000),
+    "nan": (0x7FC00000, 0xFFC12345, 0x7F800001, 0x7FBFFFFF),
+}
+
+
+def probe_mma_matrix(tiles=None, device=None):
+    """``probe_ablate_r3b.py:26-33``'s matrix: ``tiled_general_coo(tiles)``
+    (jpwh_991, coupling 4) scaled by its largest absolute row sum, as its
+    window-1 BELL packing on ``device``: {"f32": container, "bf16": the
+    same with bf16 values}, the COO triples and x (standard normal, seed
+    23)."""
+    from pykrylov_tpu_torch.gallery import tiled_general_coo
+    from pykrylov_tpu_torch.sparse import bell as B
+    from pykrylov_tpu_torch.sparse import formats as F
+
+    device = device or DEVICE
+    vals, rows, cols, shape = tiled_general_coo(
+        tiles=tiles or PROBE_MMA_TILES)
+    rowsum = np.zeros(shape[0])
+    np.add.at(rowsum, rows, np.abs(vals))
+    vals = (vals / rowsum.max()).astype(np.float32)
+    b = B.bell_from_coo(F.coo_from_arrays(vals, rows, cols, shape,
+                                          device=None),
+                        spill_cost=None, device=device, window=1)
+    x = torch.randn(shape[1], device=device, generator=torch.Generator(
+        device=device).manual_seed(23))
+    return ({"f32": b, "bf16": B.bell_with_values_dtype(b, torch.bfloat16)},
+            (vals, rows, cols, shape), x)
+
+
+def probe_select_inputs(gs, nb, l, seed=0, specials=(), device=None):
+    """``probe_int8_mxu.py``'s inputs: a (gs, nb) bool one-hot oh of random
+    rows (every row of w picked where gs >= nb) and a standard-normal
+    (nb, l) f32 w, with the patterns of the kinds ``specials`` (keys of
+    SELECT_SPECIALS) placed in columns of their own."""
+    device = device or DEVICE
+    rng = np.random.default_rng(seed)
+    base = rng.permutation(np.arange(gs) % nb)
+    oh = base[:, None] == np.arange(nb)[None, :]
+    w = rng.standard_normal((nb, l)).astype(np.float32)
+    wb = w.view(np.uint32)
+    placed = [p for kind in specials for p in SELECT_SPECIALS[kind]]
+    for i, p in enumerate(placed):
+        wb[rng.integers(0, nb), 3 + 7 * i] = p
+    return torch.from_numpy(oh).to(device), torch.from_numpy(w).to(device)
+
+
+def _hold_select(label, y, ref, tag):
+    """The select bit for bit its plain version; NaN where it is NaN (any
+    payload) in ``bf16x3``."""
+    nan = torch.isnan(ref)
+    same = torch.equal(torch.isnan(y), nan) and torch.equal(
+        y.view(torch.int32)[~nan], ref.view(torch.int32)[~nan])
+    if not same:
+        raise AssertionError("%s: kernel differs from plain" % label)
+    log("[%s] %-44s kernel = plain bit for bit (%d NaN)"
+        % (tag, label, int(nan.sum())))
+
+
+def hold_bell_mma(tag, label, b, x, y, cfg, sums):
+    """A ``bell_step_mma`` output against its plain version: the group sums
+    (computed once a staging, fold and nseg, in ``sums``) scattered as the
+    plain version does.  ``add``: bit for bit; mma: within
+    MMA_SCATTER_BOUND of each row's sum of |group sums|.  Returns the
+    largest absolute error."""
+    from pykrylov_tpu_torch.probes import bell_mma as BM
+
+    _, values, stage, fold, scatter, nseg = cfg
+    key = (values, stage, fold, nseg)
+    if key not in sums:
+        sums[key] = BM.bell_group_sums(b, x, stage, fold, nseg)
+    ps = sums[key]
+    ref = BM.bell_block_sums(b, ps, scatter)
+    if scatter == "add":
+        _exact(label, y, ref, tag=tag)
+        return 0.0
+    if y.shape != ref.shape or not torch.isfinite(y).all():
+        raise AssertionError("%s: kernel gave %s, finite %s"
+                             % (label, tuple(y.shape),
+                                bool(torch.isfinite(y).all())))
+    scale = BM.bell_block_sums(b, ps.abs())
+    err = (y - ref).abs()
+    worst = (err / scale.clamp(min=1e-30)).max().item()
+    if not (err <= MMA_SCATTER_BOUND * scale).all():
+        raise AssertionError("%s: mma scatter off by %.3e of a row's sum of "
+                             "|group sums|, past %.3e"
+                             % (label, worst, MMA_SCATTER_BOUND))
+    log("[%s] %-44s max |kernel - plain| %.3e, %.3e of the row's sum of "
+        "|group sums| (bound %.3e)"
+        % (tag, label, err.max().item(), worst, MMA_SCATTER_BOUND))
+    return err.max().item()
 
 
 def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
@@ -6239,15 +6377,39 @@ def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
        ring fold beside it; the DIA ring beside ``dia_matvec``; ``full``
        beside ``sell_matvec``) against its plain version, its bound and
        one torch call of the same function (``a.view(-1, 1024).sum(0)``,
-       torch's CSR product)."""
+       torch's CSR product).
+
+    The tensor-core probes ride on the same path: a. also runs
+    ``bell_step_mma``'s nine configurations and two controls on
+    ``probe_ablate_r3b.py``'s matrix (:func:`probe_mma_matrix`; 11
+    launches) and ``onehot_select`` in both modes at PROBE_SELECT (2);
+    b. every f32 pattern through both selects, and a short x; c. the
+    baseline configuration and its control against the plain version, the
+    bound and torch's CSR product, the selects against ``w[base]`` and
+    ``oh.float() @ w``."""
     from pykrylov_tpu_torch import probes
+    from pykrylov_tpu_torch.probes import bell_mma as BM
     from pykrylov_tpu_torch.probes import dia_ring as DR
+    from pykrylov_tpu_torch.probes import onehot_mma as OM
     from pykrylov_tpu_torch.probes import sell_ablation as SA
     from pykrylov_tpu_torch.probes import stream_floor as SF
+    from pykrylov_tpu_torch.sparse import bell as B
     from pykrylov_tpu_torch.sparse import kernels as K
     from pykrylov_tpu_torch.sparse import sell as S
 
     tag = "23 probes"
+    t0 = time.perf_counter()
+    mma_forms, mma_coo, x_mma = probe_mma_matrix()
+    b32 = mma_forms["f32"]
+    nsteps, gs, _ = b32.data.shape
+    log("[%s] probe_ablate_r3b.py's matrix: %d x %d, %d nonzeros; window-1 "
+        "BELL of %d steps of %d rows, nb %d, nblk %d, fill %.3f, %d in the "
+        "remainder (packed in %.1f s)"
+        % (tag, mma_coo[3][0], mma_coo[3][1], len(mma_coo[0]), nsteps, gs,
+           b32.nb, b32.nblk, B.bell_fill(b32), b32.nnz_spill,
+           time.perf_counter() - t0))
+    mma_cfgs = BM.PROBE_CONFIGS + BM.CONTROLS[:2]
+    oh, w_sel = probe_select_inputs(*PROBE_SELECT)
     data, offsets = A_dia.container.data, A_dia.container.offsets
     card = A_bell.card
     g = torch.Generator(device=DEVICE).manual_seed(23)
@@ -6267,12 +6429,17 @@ def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
              for k in streams for mode, kw in modes.items()}
     y_ring = DR.dia_matvec_ring(data, offsets, x_dia, *PROBE_DIA)
     ys = {v: SA.sell_matvec_ablated(card, x_sell, v) for v in SA.VARIANTS}
+    ys_mma = {cfg[0]: BM.bell_step_mma(mma_forms[cfg[1]], x_mma, *cfg[2:])
+              for cfg in mma_cfgs}
+    sel = {mode: OM.onehot_select(oh, w_sel, mode) for mode in OM.MODES}
     torch.cuda.synchronize()
     launches, solver = probes.counts(), _counts()
     log("[%s] the path's launches: %s; solver kernels %s"
         % (tag, launches, solver))
     expect = {"probe_stream": 2 * len(modes), "probe_dia_ring": 1,
-              "probe_sell_ablation": len(SA.VARIANTS)}
+              "probe_sell_ablation": len(SA.VARIANTS),
+              "probe_onehot_mma": len(OM.MODES),
+              "probe_bell_mma": len(mma_cfgs)}
     if launches != expect or any(solver.values()):
         raise AssertionError("%s: launches %s and %s, not %s"
                              % (tag, launches, solver, expect))
@@ -6287,7 +6454,24 @@ def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
                SA.sell_matvec_ablated_plain(card, x_sell, v), tag=tag)
     _exact("SELL full = sell_matvec", ys["full"],
            S.sell_matvec(card, x_sell), tag=tag)
-    del folds, y_ring, ys, streams[2]
+    sums, mma_err = {}, 0.0
+    for cfg in mma_cfgs:
+        mma_err = max(mma_err, hold_bell_mma(
+            tag, "BELL mma " + cfg[0], mma_forms[cfg[1]], x_mma,
+            ys_mma[cfg[0]], cfg, sums))
+    # the container's own product, whose index_add_ has no fixed order on
+    # the card
+    rel = relerr(ys_mma[BM.CONTROLS[0][0]], B.bell_matvec_plain(b32, x_mma))
+    if rel > REL_BOUND[torch.float32]:
+        raise AssertionError("%s: load/tile/add off bell_matvec_plain by "
+                             "%.3e" % (tag, rel))
+    log("[%s] BELL mma control load/tile/add within %.3e of "
+        "bell_matvec_plain (bound %.0e)" % (tag, rel,
+                                             REL_BOUND[torch.float32]))
+    for mode, y in sel.items():
+        _hold_select("select %s at (%d, %d, %d)" % ((mode,) + PROBE_SELECT),
+                     y, OM.onehot_select_plain(oh, w_sel, mode), tag)
+    del folds, y_ring, ys, streams[2], ys_mma, sel, sums
 
     # b. edge cases
     _probe_edges(tag)
@@ -6348,6 +6532,58 @@ def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
         % (tag, best["full"], best["sell_matvec"],
            best["full"] / best["sell_matvec"], best["plain"],
            best["torch CSR"], b["bound_ms"]))
+    del csr
+    base_cfg, control = BM.PROBE_CONFIGS[0], BM.CONTROLS[0]
+    csr = _torch_csr(mma_coo, DEVICE)
+    best = _best_ms([("mma", lambda: BM.bell_step_mma(b32, x_mma,
+                                                      *base_cfg[2:])),
+                     ("control", lambda: BM.bell_step_mma(b32, x_mma,
+                                                          *control[2:])),
+                     ("torch CSR", lambda: csr @ x_mma)], PROBE_ITERS)
+    # once: section a ran the same plain product, so this one is warm
+    plain = events_ms(lambda: BM.bell_step_mma_plain(
+        b32, x_mma, *base_cfg[2:]), 1)
+    nbytes = BM.bell_mma_bytes(b32, x_mma.shape[0])
+    b = _bound(nbytes, BM.bell_mma_flops(b32, base_cfg[2], base_cfg[4]),
+               rates)
+    b_bf16 = _bound(BM.bell_mma_bytes(mma_forms["bf16"], x_mma.shape[0]),
+                    BM.bell_mma_flops(b32, "f32", "f32"), rates)
+    out["bell_mma"] = {"ms": best["mma"], "control_ms": best["control"],
+                       "plain_ms": plain, "library_ms": best["torch CSR"],
+                       "max_abs_err": mma_err,
+                       "bf16_values_bound_ms": b_bf16["bound_ms"], **b}
+    log("[%s] BELL mma %s: %.4f ms, control load/tile/add %.4f, plain %.4f, "
+        "torch CSR %.4f; bound %.4f ms (%s; %.1f MB), kernel at %.1f%% of "
+        "it; bf16 values, tf32 stage and scatter: bound %.4f ms; largest "
+        "mma scatter error %.3e"
+        % (tag, base_cfg[0], best["mma"], best["control"], plain,
+           best["torch CSR"], b["bound_ms"], b["bound_by"], nbytes / 1e6,
+           100 * b["bound_ms"] / best["mma"], b_bf16["bound_ms"], mma_err))
+    del csr
+    base = oh.to(torch.uint8).argmax(1)
+    ohf = oh.float()
+    best = _best_ms([("int8", lambda: OM.onehot_select(oh, w_sel, "int8")),
+                     ("bf16x3", lambda: OM.onehot_select(oh, w_sel,
+                                                         "bf16x3")),
+                     ("plain", lambda: OM.onehot_select_plain(oh, w_sel)),
+                     ("plain bf16x3", lambda: OM.onehot_select_plain(
+                         oh, w_sel, "bf16x3")),
+                     ("w[base]", lambda: w_sel[base]),
+                     ("oh.float() @ w", lambda: ohf @ w_sel)], PROBE_ITERS)
+    gs_, nb_, l_ = PROBE_SELECT
+    b = _bound(OM.onehot_select_bytes(*PROBE_SELECT),
+               {"int8": 4 * 2 * gs_ * nb_ * l_}, rates)
+    out["onehot"] = {"ms": best["int8"], "bf16x3_ms": best["bf16x3"],
+                     "plain_ms": best["plain"],
+                     "plain_bf16x3_ms": best["plain bf16x3"],
+                     "library_ms": best["w[base]"],
+                     "matmul_ms": best["oh.float() @ w"], **b}
+    log("[%s] select at (%d, %d, %d): int8 %.4f ms, bf16x3 %.4f, plain "
+        "%.4f / %.4f, w[base] %.4f, oh.float() @ w (f32) %.4f; bound %.4f ms"
+        % ((tag,) + PROBE_SELECT + (best["int8"], best["bf16x3"],
+                                    best["plain"], best["plain bf16x3"],
+                                    best["w[base]"], best["oh.float() @ w"],
+                                    b["bound_ms"])))
     return out
 
 
@@ -6428,12 +6664,14 @@ def _csr_bytes(nnz, m, n):
 
 def _bound(nbytes, flops, rates, ops="f32"):
     """The least time for work that must move ``nbytes`` and do ``flops``
-    operations of type ``ops`` ("f32" or "f64"): the larger of the bytes at
-    the card's published memory rate and the operations at its rate for
-    that type; beside it, as ``achievable_ms``, the bytes at the copy rate
-    measured in phase 2."""
+    operations of type ``ops`` ("f32" or "f64"; or ``flops`` a dict of
+    {type: operations}, the tensor cores' "bf16", "tf32" and "int8" among
+    them): the larger of the bytes at the card's published memory rate and
+    the operations at its rate for each type; beside it, as
+    ``achievable_ms``, the bytes at the copy rate measured in phase 2."""
+    work = flops if isinstance(flops, dict) else {ops: flops}
     t_bytes = nbytes / rates["bytes"] * 1e3
-    t_ops = flops / rates[ops] * 1e3
+    t_ops = sum(f / rates[k] for k, f in work.items()) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "achievable_ms": nbytes / rates["copy"] * 1e3}
@@ -7167,7 +7405,11 @@ def main():
              "tools/probes/probe_bell_ablation.py:111",
              ["tools/probes/probe_bell_ablation_w1.py:129",
               "tools/probes/probe_ablate_r3.py:149",
-              "tools/probes/probe_skew.py:169"], "sell")):
+              "tools/probes/probe_skew.py:169"], "sell"),
+            ("probe_bell_mma", "probe_bell_mma.cu",
+             "tools/probes/probe_ablate_r3b.py:172", [], "bell_mma"),
+            ("probe_onehot_mma", "probe_onehot_mma.cu",
+             "tools/probes/probe_int8_mxu.py:57", [], "onehot")):
         kernels.append({"name": name, "route": "cuda",
                         "source": "pykrylov_tpu_torch/csrc/" + src,
                         "replaces": replaces, "also_replaces": extra,
@@ -7176,10 +7418,13 @@ def main():
                         "registers": regs.get(name)})
     log("[7 result] phase 23 (%.1f s): fold %.4f ms (%.1f GB/s read), DIA "
         "ring %.4f ms (dia_matvec %.4f), SELL full %.4f ms (sell_matvec "
-        "%.4f)" % (new_s["23"][1], p23["stream"]["ms"],
-                   p23["stream"]["read_gbps"], p23["dia"]["ms"],
-                   p23["dia"]["dia_matvec_ms"], p23["sell"]["ms"],
-                   p23["sell"]["sell_matvec_ms"]))
+        "%.4f), BELL mma %.4f ms (control %.4f, bound %.4f), select int8 "
+        "%.4f ms, bf16x3 %.4f"
+        % (new_s["23"][1], p23["stream"]["ms"], p23["stream"]["read_gbps"],
+           p23["dia"]["ms"], p23["dia"]["dia_matvec_ms"], p23["sell"]["ms"],
+           p23["sell"]["sell_matvec_ms"], p23["bell_mma"]["ms"],
+           p23["bell_mma"]["control_ms"], p23["bell_mma"]["bound_ms"],
+           p23["onehot"]["ms"], p23["onehot"]["bf16x3_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

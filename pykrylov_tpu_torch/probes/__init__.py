@@ -13,6 +13,15 @@ solver's path; ``chip_probes.py`` sweeps them and ``chip_smoke.py`` (phase
   at a time, each variant a defined function
   (``csrc/probe_sell_ablation.cu``; ``probe_bell_ablation.py``,
   ``probe_bell_ablation_w1.py``, ``probe_ablate_r3.py``, ``probe_skew.py``).
+* :mod:`.onehot_mma` -- a one-hot select ``oh @ w`` on the tensor cores,
+  f32 values carried as four u8 byte planes (exact for every pattern) or
+  three bf16 pieces (``csrc/probe_onehot_mma.cu``, with the one-hot
+  fragments and transports of ``csrc/onehot_mma.cuh``;
+  ``probe_int8_mxu.py``).
+* :mod:`.bell_mma` -- one product over a window-1 BELL container with the
+  x window staged and the group sums scattered by one-hot products on the
+  tensor cores (bf16 or tf32 pieces) or by loads and adds, and two folds
+  (``csrc/probe_bell_mma.cu``; ``probe_ablate_r3b.py``).
 
 Each wrapper launches its kernel for CUDA tensors, runs its plain torch
 version for CPU tensors and raises for anything else, and adds one to its
@@ -23,17 +32,19 @@ from __future__ import annotations
 
 import importlib
 
-from . import dia_ring, sell_ablation, stream_floor
+from . import bell_mma, dia_ring, onehot_mma, sell_ablation, stream_floor
 
-__all__ = ["COUNTERS", "counts", "dia_ring", "reset_counts",
-           "sell_ablation", "stream_floor"]
+__all__ = ["COUNTERS", "bell_mma", "counts", "dia_ring", "onehot_mma",
+           "reset_counts", "sell_ablation", "stream_floor"]
 
 # (kernel, module, counter): each wrapper adds one per launch and nothing
 # else touches them except a caller resetting them
 COUNTERS = (("probe_stream", "stream_floor", "STREAM_LAUNCHES"),
             ("probe_dia_ring", "dia_ring", "DIA_RING_LAUNCHES"),
             ("probe_sell_ablation", "sell_ablation",
-             "SELL_ABLATION_LAUNCHES"))
+             "SELL_ABLATION_LAUNCHES"),
+            ("probe_onehot_mma", "onehot_mma", "ONEHOT_LAUNCHES"),
+            ("probe_bell_mma", "bell_mma", "BELL_MMA_LAUNCHES"))
 
 
 def _module(name):

@@ -152,6 +152,24 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     assert _build.build("sell_spmv") == libs["sell_spmv"]
 
 
+# The probe kernels' modules (``pykrylov_tpu_torch.probes``): one launch
+# counter each, named by the kernel's source in ``_build.SOURCES``
+PROBE_MODULES = {"stream_floor": "probe_stream", "dia_ring": "probe_dia_ring",
+                 "sell_ablation": "probe_sell_ablation",
+                 "onehot_mma": "probe_onehot_mma",
+                 "bell_mma": "probe_bell_mma"}
+
+
+def test_probe_modules_are_listed_and_counted():
+    from pykrylov_tpu_torch import _build, probes
+    assert sorted(probes.__all__) == sorted(
+        list(PROBE_MODULES) + ["COUNTERS", "counts", "reset_counts"])
+    assert {mod: name for name, mod, _ in probes.COUNTERS} == PROBE_MODULES
+    assert set(PROBE_MODULES.values()) <= set(_build.SOURCES)
+    probes.reset_counts()
+    assert probes.counts() == dict.fromkeys(PROBE_MODULES.values(), 0)
+
+
 def _public_device_defaults():
     """(qualified name, default of ``device``) for every public function
     and class of the port that takes a ``device``."""

@@ -138,7 +138,8 @@ def test_fold_on_the_cpu_launches_nothing():
         ref = sum(a.view(-1, 1024).sum(0) for a in streams).view(8, 128)
         assert torch.equal(out, ref)
     assert probes.counts() == {"probe_stream": 0, "probe_dia_ring": 0,
-                               "probe_sell_ablation": 0}
+                               "probe_sell_ablation": 0,
+                               "probe_onehot_mma": 0, "probe_bell_mma": 0}
 
 
 def test_probe_streams():

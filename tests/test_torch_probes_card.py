@@ -293,6 +293,7 @@ def test_ablation_refuses(card, forms, monkeypatch):
 def test_counters(card):
     probes.reset_counts()
     assert probes.counts() == {"probe_stream": 0, "probe_dia_ring": 0,
-                               "probe_sell_ablation": 0}
+                               "probe_sell_ablation": 0,
+                               "probe_onehot_mma": 0, "probe_bell_mma": 0}
     SF.stream_fold(SF.probe_streams(1, 4096, device=card))
     assert probes.counts()["probe_stream"] == 1
