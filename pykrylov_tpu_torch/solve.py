@@ -57,7 +57,7 @@ from .solvers.batched import (bicgstab_batched, cg_batched,
 from .solvers.bicgstab import bicgstab
 from .solvers.cg import cg
 from .solvers.cgs import cgs
-from .solvers.common import apply_op, as_operator, promote_rhs
+from .solvers.common import apply_op, as_operator, host_read, promote_rhs
 from .solvers.craig import craig
 from .solvers.craigmr import craigmr
 from .solvers.lsmr import lsmr
@@ -68,6 +68,7 @@ from .solvers.refine import (refined_lls, refined_solve,
                              refined_solve_batched)
 from .solvers.symmlq import symmlq
 from .solvers.tfqmr import tfqmr
+from .utils.observe import solving
 from .utils.types import to_tensor
 
 __all__ = ["solve"]
@@ -195,7 +196,17 @@ def solve(A, b, method=None, verified=False, **opts):
     solver; ``method=`` picks one explicitly (``"cg"``, ``"minres"``,
     ``"symmlq"``, ``"bicgstab"``, ``"cgs"``, ``"tfqmr"``, ``"lsqr"``,
     ``"lsmr"``, ``"craig"`` or ``"craigmr"``).  A rectangular operator goes
-    to LSMR, ``min ||Ax - b||``."""
+    to LSMR, ``min ||Ax - b||``.  The call runs inside the front door's
+    ``solve`` span (:func:`~.utils.observe.solving`), with ``method``
+    ("auto" when not given) and the right-hand sides ``K`` as its
+    attributes."""
+    shape = b.shape if isinstance(b, torch.Tensor) else np.shape(b)
+    with solving(method=method or "auto",
+                 K=int(shape[1]) if len(shape) == 2 else 1):
+        return _dispatch(A, b, method, verified, opts)
+
+
+def _dispatch(A, b, method, verified, opts):
     A = as_operator(A)
     if getattr(A, "solve_permutation", None) is not None:
         return _solve_permuted(A, b, method, verified, opts)
@@ -223,11 +234,11 @@ def solve(A, b, method=None, verified=False, **opts):
         return _solve_verified(A, b, opts)
     if A.symmetric or A.hermitian:
         res = cg(A, b, check_curvature=True, **opts)
-        if int(res.istop) == 2:     # indefinite: MINRES handles it
+        if host_read(res.istop) == 2:   # indefinite: MINRES handles it
             return _minres_fallback(A, b, res, opts)
         return res
     res = bicgstab(A, b, **opts)
-    if int(res.istop) == 3:         # breakdown: another recurrence
+    if host_read(res.istop) == 3:       # breakdown: another recurrence
         # BiCGSTAB and TFQMR share their whole keyword surface, so every
         # option (x0, M, rtol, atol, matvec_max, store_history,
         # verify_final) carries over
@@ -243,8 +254,8 @@ def _solve_verified(A, b, opts):
     if not (A.symmetric or A.hermitian):
         return refined_solve(bicgstab, A, b, **opts)
     res = refined_solve(cg, A, b, **dict({"check_curvature": True}, **opts))
-    if not bool(res.converged) and bool((res.info["inner_istop"] == 2)
-                                        .any()):
+    if not host_read(res.converged) and host_read(
+            (res.info["inner_istop"] == 2).any()):
         ok = (set(inspect.signature(minres).parameters)
               | set(inspect.signature(refined_solve).parameters))
         return refined_solve(minres, A, b,
@@ -274,7 +285,7 @@ def _minres_fallback(A, b, cg_res, opts):
         mopts["itnlim"] = opts["matvec_max"]
     atol = opts.get("atol")
     if atol is not None:
-        resid0 = float(cg_res.resid_norm0)
+        resid0 = float(host_read(cg_res.resid_norm0))
         if resid0 > 0:
             mopts["rtol"] = max(float(mopts.get("rtol", 1e-12)),
                                 float(atol) / resid0)

@@ -49,12 +49,13 @@ import torch
 
 from ..ops.base import ShapeError, _block_apply
 from .common import (as_operator, col_norms, col_vdots_real, default_maxiter,
-                     history_init, promote_rhs, real_dtype, rows, sum_rows,
-                     threshold_of)
+                     history_init, host_read, promote_rhs, real_dtype, rows,
+                     sum_rows, threshold_of)
 from .ffmv import resolve_ff_matmat
 from .result import SolveResult
 from ..utils.ff import (ff_add_ff, ff_div, ff_hypot, ff_mul, ff_sqrt,
                         ff_vdot_cols, two_prod, two_sum)
+from ..utils.observe import span
 from ..utils.types import to_tensor
 
 __all__ = ["cg_batched", "cg_pipelined_batched", "bicgstab_batched",
@@ -126,8 +127,8 @@ def _safe(x):
 
 def _poll(active):
     """The iteration's one host read: whether any column is active and
-    whether all are."""
-    return torch.stack([active.any(), active.all()]).tolist()
+    whether all are (:func:`~.common.host_read`)."""
+    return host_read(torch.stack([active.any(), active.all()]))
 
 
 def _sel(all_on, mask, new, old):
@@ -244,46 +245,60 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
     iters = torch.zeros(K, dtype=torch.int32, device=dev)
     one = torch.ones((), dtype=ry.dtype, device=dev)
     k = 0
-    while k < maxiter:
-        any_active, all_active = _poll(active)     # the one host sync
-        if not any_active:
-            break
-        AP = _apply_block(A, P)
-        pAp = _col_dot(P, AP)
-        bad = active & (pAp <= 0) if check_curvature \
-            else torch.zeros_like(active)
-        act = active & ~bad
-        # frozen columns take alpha = 0 and keep their direction, so every
-        # block column they own is carried unchanged
-        alpha = torch.where(act, ry / torch.where(pAp == 0, one, pAp), 0)
-        X2 = torch.addcmul(X, alpha.to(dtype), P)
-        R2 = torch.addcmul(R, alpha.to(dtype), AP, value=-1)
-        Y2 = _apply_block(M, R2) if M is not None else R2
-        ry2 = _col_dot(R2, Y2)
-        beta = torch.where(act, ry2 / torch.where(ry == 0, one, ry), 0)
-        P2 = torch.addcmul(Y2, beta.to(dtype), P)
-        resid2 = torch.where(act, torch.sqrt(torch.clamp(ry2, min=0)),
-                             resid)
-        # a non-finite column freezes (single cg's loop test resid > thresh
-        # is False for NaN) and reports istop 1
-        done = act & ((resid2 <= thresh) | ~torch.isfinite(resid2))
-        if hist is not None:
-            hist[k + 1] = torch.where(active, resid2, float("nan"))
-        if check_curvature or not all_active:
-            X = torch.where(act, X2, X)
-            R = torch.where(act, R2, R)
-            Y = R if M is None else torch.where(act, Y2, Y)
-            P = torch.where(act, P2, P)
-        else:
-            # every column active: the masks would select X2, R2, Y2, P2
-            # in full, so the block-wide selects are skipped
-            X, R, Y, P = X2, R2, Y2, P2
-        ry = torch.where(act, ry2, ry)
-        resid = resid2
-        iters += active.to(torch.int32)
-        definite &= ~bad
-        active = act & ~done
-        k += 1
+    # the one host sync an iteration, at its end (and one before the loop)
+    any_active, all_active = _poll(active) if maxiter > 0 else (False, False)
+    while k < maxiter and any_active:
+        with span("cg_batched.iter"):
+            with span("product"):
+                AP = _apply_block(A, P)
+            with span("dots"):
+                pAp = _col_dot(P, AP)
+            with span("update"):
+                bad = active & (pAp <= 0) if check_curvature \
+                    else torch.zeros_like(active)
+                act = active & ~bad
+                # frozen columns take alpha = 0 and keep their direction,
+                # so every block column they own is carried unchanged
+                alpha = torch.where(act, ry / torch.where(pAp == 0, one, pAp),
+                                    0)
+                X2 = torch.addcmul(X, alpha.to(dtype), P)
+                R2 = torch.addcmul(R, alpha.to(dtype), AP, value=-1)
+            if M is not None:
+                with span("product"):
+                    Y2 = _apply_block(M, R2)
+            else:
+                Y2 = R2
+            with span("dots"):
+                ry2 = _col_dot(R2, Y2)
+                resid2 = torch.where(act, torch.sqrt(torch.clamp(ry2, min=0)),
+                                     resid)
+            with span("direction"):
+                beta = torch.where(act, ry2 / torch.where(ry == 0, one, ry),
+                                   0)
+                P2 = torch.addcmul(Y2, beta.to(dtype), P)
+            with span("select"):
+                # a non-finite column freezes (single cg's loop test resid >
+                # thresh is False for NaN) and reports istop 1
+                done = act & ((resid2 <= thresh) | ~torch.isfinite(resid2))
+                if hist is not None:
+                    hist[k + 1] = torch.where(active, resid2, float("nan"))
+                if check_curvature or not all_active:
+                    X = torch.where(act, X2, X)
+                    R = torch.where(act, R2, R)
+                    Y = R if M is None else torch.where(act, Y2, Y)
+                    P = torch.where(act, P2, P)
+                else:
+                    # every column active: the masks would select X2, R2,
+                    # Y2, P2 in full, so the block-wide selects are skipped
+                    X, R, Y, P = X2, R2, Y2, P2
+                ry = torch.where(act, ry2, ry)
+                resid = resid2
+                iters += active.to(torch.int32)
+                definite &= ~bad
+                active = act & ~done
+            k += 1
+            if k < maxiter:
+                any_active, all_active = _poll(active)
 
     converged = resid <= thresh
     istop = torch.where(converged, 0, torch.where(definite, 1, 2))

@@ -30,12 +30,13 @@ from __future__ import annotations
 import torch
 
 from .common import (apply_op, as_operator, attach_true_residual,
-                     default_maxiter, history_init, history_push, norm,
-                     promote_rhs, require_square, rows, threshold_of,
+                     default_maxiter, history_init, history_push, host_read,
+                     norm, promote_rhs, require_square, rows, threshold_of,
                      vdot_real, vdots_norms)
 from .ffmv import resolve_ff_matvec
 from .result import SolveResult
 from ..utils.ff import ff_add_ff, two_prod, two_sum
+from ..utils.observe import span
 from ..utils.types import to_tensor
 
 __all__ = ["cg", "ISTOP_MSG"]
@@ -45,6 +46,15 @@ ISTOP_MSG = {
     1: "matvec budget exhausted before convergence",
     2: "operator appears indefinite: nonpositive curvature encountered",
 }
+
+
+def _precondition(M, r):
+    """``M r`` inside a ``product`` span, or ``r`` without a
+    preconditioner."""
+    if M is None:
+        return r
+    with span("product"):
+        return apply_op(M, r)
 
 
 def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
@@ -130,41 +140,49 @@ def cg(A, b, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8, maxiter=None,
     definite = True
     inf_desc = torch.zeros_like(b)
     resid = resid0
-    resid_h, thresh_h = torch.stack([resid0, thresh]).tolist()
+    resid_h, thresh_h = host_read(torch.stack([resid0, thresh]))
     while resid_h > thresh_h and k < maxiter:
-        Ap = apply_op(A, p)
-        pAp = vdot_real(p, Ap)
-        # The step is taken before the curvature test so that both scalars
-        # reach the host in one synchronisation; an aborted step is dropped.
-        alpha = (ry / pAp).to(dtype)
-        x2 = torch.addcmul(x, alpha, p)
-        r2 = torch.addcmul(r, alpha, Ap, value=-1)
-        y2 = apply_op(M, r2) if M is not None else r2
-        ry2 = vdot_real(r2, y2)
-        p2 = torch.addcmul(y2, (ry2 / ry).to(dtype), p)
-        resid2 = torch.sqrt(ry2)
-        if check_curvature:
-            pAp_h, resid2_h = torch.stack([pAp, resid2]).tolist()
-            if pAp_h <= 0:
-                # Record the direction of nonpositive curvature and abort;
-                # history rows repeat the current values (the reference
-                # appends nothing on abort).
-                k += 1
-                definite = False
-                inf_desc = p
-                history_push(hist, k, resid)
-                history_push(curv, k, pAp)
-                history_push(iters, k, x)
-                history_push(resids, k, y)
-                break
-        else:
-            resid2_h = resid2.item()
-        x, r, y, p, ry, resid, resid_h = x2, r2, y2, p2, ry2, resid2, resid2_h
-        k += 1
-        history_push(hist, k, resid)
-        history_push(curv, k, pAp)
-        history_push(iters, k, x)
-        history_push(resids, k, y)
+        with span("cg.iter"):
+            with span("product"):
+                Ap = apply_op(A, p)
+            with span("dots"):
+                pAp = vdot_real(p, Ap)
+            # The step is taken before the curvature test so that both
+            # scalars reach the host in one synchronisation; an aborted
+            # step is dropped.
+            with span("update"):
+                alpha = (ry / pAp).to(dtype)
+                x2 = torch.addcmul(x, alpha, p)
+                r2 = torch.addcmul(r, alpha, Ap, value=-1)
+            y2 = _precondition(M, r2)
+            with span("dots"):
+                ry2 = vdot_real(r2, y2)
+                resid2 = torch.sqrt(ry2)
+            with span("direction"):
+                p2 = torch.addcmul(y2, (ry2 / ry).to(dtype), p)
+            if check_curvature:
+                pAp_h, resid2_h = host_read(torch.stack([pAp, resid2]))
+                if pAp_h <= 0:
+                    # Record the direction of nonpositive curvature and
+                    # abort; history rows repeat the current values (the
+                    # reference appends nothing on abort).
+                    k += 1
+                    definite = False
+                    inf_desc = p
+                    history_push(hist, k, resid)
+                    history_push(curv, k, pAp)
+                    history_push(iters, k, x)
+                    history_push(resids, k, y)
+                    break
+            else:
+                resid2_h = host_read(resid2)
+            x, r, y, p, ry = x2, r2, y2, p2, ry2
+            resid, resid_h = resid2, resid2_h
+            k += 1
+            history_push(hist, k, resid)
+            history_push(curv, k, pAp)
+            history_push(iters, k, x)
+            history_push(resids, k, y)
 
     converged = resid_h <= thresh_h
     istop = 0 if converged else (1 if definite else 2)
@@ -233,60 +251,70 @@ def _cg_verified(A, b, x0, M, rtol, atol, maxiter, check_curvature,
     definite = True
     inf_desc = zero
     resid = resid0
-    resid_h, thresh_h = torch.stack([resid0, thresh]).tolist()
+    resid_h, thresh_h = host_read(torch.stack([resid0, thresh]))
     leg_r0 = resid_h
     while resid_h > thresh_h and k < maxiter:
-        if ff_mv is not None:
-            Ap, Apl = ff_mv(p, zero)
-            pAp = vdot_real(p, Ap) + vdot_real(p, Apl)
-        else:
-            Ap, Apl = apply_op(A, p), None
-            pAp = vdot_real(p, Ap)
-        alpha = (ry / pAp).to(dtype)
-        ps, pe = two_prod(alpha, p)
-        x2, xl2 = ff_add_ff(x, xl, ps, pe)
-        qs, qe = two_prod(-alpha, Ap)
-        if Apl is not None:
-            qe = qe - alpha * Apl
-        r2, rl2 = ff_add_ff(r, rl, qs, qe)
-        y2 = apply_op(M, r2) if M is not None else r2
-        (ry2,), (resid2,) = vdots_norms([(r2, y2)], [r2])
-        if check_curvature:
-            pAp_h, resid2_h = torch.stack([pAp, resid2]).tolist()
-            if pAp_h <= 0:
-                k += 1
-                definite = False
-                inf_desc = p
-                history_push(hist, k, resid)
-                history_push(curv, k, pAp)
-                history_push(iters, k, x)
-                history_push(resids, k, y)
-                break
-        else:
-            resid2_h = resid2.item()
-        if resid2_h <= max(leg_rtol * leg_r0, thresh_h) \
-                or (k + 1) % replace_every == 0:
-            if ff_mv is not None:
-                sh, sl = ff_mv(x2, xl2)
+        with span("cg.iter"):
+            with span("product"):
+                if ff_mv is not None:
+                    Ap, Apl = ff_mv(p, zero)
+                else:
+                    Ap, Apl = apply_op(A, p), None
+            with span("dots"):
+                pAp = vdot_real(p, Ap)
+                if Apl is not None:
+                    pAp = pAp + vdot_real(p, Apl)
+            with span("update"):
+                alpha = (ry / pAp).to(dtype)
+                ps, pe = two_prod(alpha, p)
+                x2, xl2 = ff_add_ff(x, xl, ps, pe)
+                qs, qe = two_prod(-alpha, Ap)
+                if Apl is not None:
+                    qe = qe - alpha * Apl
+                r2, rl2 = ff_add_ff(r, rl, qs, qe)
+            y2 = _precondition(M, r2)
+            with span("dots"):
+                (ry2,), (resid2,) = vdots_norms([(r2, y2)], [r2])
+            if check_curvature:
+                pAp_h, resid2_h = host_read(torch.stack([pAp, resid2]))
+                if pAp_h <= 0:
+                    k += 1
+                    definite = False
+                    inf_desc = p
+                    history_push(hist, k, resid)
+                    history_push(curv, k, pAp)
+                    history_push(iters, k, x)
+                    history_push(resids, k, y)
+                    break
             else:
-                sh = apply_op(A, x2)
-                sl = apply_op(A, xl2)
-            d, de = two_sum(b, -sh)
-            r2, rl2 = two_sum(d, de - sl)
-            y2 = apply_op(M, r2) if M is not None else r2
-            (ry2,), (resid2,) = vdots_norms([(r2, y2)], [r2])
-            resid2_h = leg_r0 = resid2.item()
-            nrep += 1
-            p2 = y2
-        else:
-            p2 = y2 + (ry2 / ry).to(dtype) * p
-        x, xl, r, rl, y, p, ry = x2, xl2, r2, rl2, y2, p2, ry2
-        resid, resid_h = resid2, resid2_h
-        k += 1
-        history_push(hist, k, resid)
-        history_push(curv, k, pAp)
-        history_push(iters, k, x)
-        history_push(resids, k, y)
+                resid2_h = host_read(resid2)
+            if resid2_h <= max(leg_rtol * leg_r0, thresh_h) \
+                    or (k + 1) % replace_every == 0:
+                with span("product"):
+                    if ff_mv is not None:
+                        sh, sl = ff_mv(x2, xl2)
+                    else:
+                        sh = apply_op(A, x2)
+                        sl = apply_op(A, xl2)
+                with span("update"):
+                    d, de = two_sum(b, -sh)
+                    r2, rl2 = two_sum(d, de - sl)
+                y2 = _precondition(M, r2)
+                with span("dots"):
+                    (ry2,), (resid2,) = vdots_norms([(r2, y2)], [r2])
+                resid2_h = leg_r0 = host_read(resid2)
+                nrep += 1
+                p2 = y2
+            else:
+                with span("direction"):
+                    p2 = y2 + (ry2 / ry).to(dtype) * p
+            x, xl, r, rl, y, p, ry = x2, xl2, r2, rl2, y2, p2, ry2
+            resid, resid_h = resid2, resid2_h
+            k += 1
+            history_push(hist, k, resid)
+            history_push(curv, k, pAp)
+            history_push(iters, k, x)
+            history_push(resids, k, y)
 
     converged = resid_h <= thresh_h
     istop = 0 if converged else (1 if definite else 2)

@@ -21,6 +21,7 @@ import torch
 
 from ..ops.base import BaseLinearOperator, LinearOperator, MatrixOperator
 from ..utils import ranks
+from ..utils.observe import count, span
 from ..utils.ranks import (col_norms, col_vdots_real, norm, rows, sum_rows,
                           vdots_norms)
 from ..utils.types import result_type, to_tensor
@@ -32,7 +33,20 @@ __all__ = ["as_operator", "as_apply_pair", "apply_op", "apply_op_T",
            "threshold_of", "default_maxiter", "history_init", "history_push",
            "history_from", "table_init", "table_push", "table_tensor",
            "require_square", "attach_true_residual",
-           "attach_true_lls_residual"]
+           "attach_true_lls_residual", "host_read"]
+
+
+def host_read(t):
+    """``t.tolist()``: a solver's read of device values on the host (a
+    synchronisation on a card), inside a ``read`` span and counted as
+    ``host_syncs`` (:mod:`..utils.observe`).  A 0-d tensor is read with
+    ``item()``, whose copy goes through the caching host allocator's
+    pinned memory (``tolist()`` copies to pageable memory); a process's
+    first such copy pins a block, which takes milliseconds."""
+    with span("read"):
+        v = t.item() if t.dim() == 0 else t.tolist()
+    count("host_syncs")
+    return v
 
 
 def as_operator(A) -> LinearOperator:

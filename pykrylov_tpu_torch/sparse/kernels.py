@@ -32,6 +32,7 @@ import torch
 
 from . import formats as F
 from .. import _build
+from ..utils.observe import span
 
 __all__ = ["DIA_LAUNCHES", "DIA_MM_LAUNCHES", "MAX_DIAGS", "DiaMMPlan",
            "DiaMVPlan", "dia_matvec", "dia_matvec_plain", "dia_matvec_plan",
@@ -189,29 +190,30 @@ def dia_matvec_plan(data, offsets, x):
 
 def _launch(data, offsets, x):
     global DIA_LAUNCHES
-    ct = _compute_dtype(data, x)
-    x = x.to(ct)
-    if not (data.is_contiguous() and x.is_contiguous()):
-        raise ValueError("the DIA kernel needs contiguous data and x")
-    ndiag, m = data.shape
-    y = torch.empty(m, dtype=ct, device=x.device)
-    if m == 0:
+    with span("launch.dia_spmv"):
+        ct = _compute_dtype(data, x)
+        x = x.to(ct)
+        if not (data.is_contiguous() and x.is_contiguous()):
+            raise ValueError("the DIA kernel needs contiguous data and x")
+        ndiag, m = data.shape
+        y = torch.empty(m, dtype=ct, device=x.device)
+        if m == 0:
+            return y
+        fn = _entry(_ENTRY[(data.dtype, ct)])
+        offsets = tuple(offsets)
+        plan = dia_mv_plan(offsets, m, x.shape[0], data.element_size(),
+                           _aligned(data, x, y))
+        offs = _offsets_info(offsets)[0]
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p),
+                     ndiag, plan.r, plan.lo, plan.hi, x.data_ptr(),
+                     y.data_ptr(), m, x.shape[0], stream)
+        if err != 0:
+            raise RuntimeError("DIA kernel launch failed with CUDA error %d"
+                               % err)
+        DIA_LAUNCHES += 1
         return y
-    fn = _entry(_ENTRY[(data.dtype, ct)])
-    offsets = tuple(offsets)
-    plan = dia_mv_plan(offsets, m, x.shape[0], data.element_size(),
-                       _aligned(data, x, y))
-    offs = _offsets_info(offsets)[0]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
-                 plan.r, plan.lo, plan.hi, x.data_ptr(), y.data_ptr(), m,
-                 x.shape[0], stream)
-    if err != 0:
-        raise RuntimeError("DIA kernel launch failed with CUDA error %d"
-                           % err)
-    DIA_LAUNCHES += 1
-    return y
 
 
 def dia_matmat_plain(data, offsets, X):
@@ -283,30 +285,31 @@ def dia_matmat_plan(data, offsets, X):
 
 def _launch_mm(data, offsets, X):
     global DIA_MM_LAUNCHES
-    ct = _compute_dtype(data, X)
-    X = X.to(ct).contiguous()           # the kernel reads X row-major
-    if not data.is_contiguous():
-        raise ValueError("the DIA SpMM kernel needs contiguous data")
-    ndiag, m = data.shape
-    n, K = X.shape
-    Y = torch.empty((m, K), dtype=ct, device=X.device)
-    if m == 0 or K == 0:
+    with span("launch.dia_spmm"):
+        ct = _compute_dtype(data, X)
+        X = X.to(ct).contiguous()           # the kernel reads X row-major
+        if not data.is_contiguous():
+            raise ValueError("the DIA SpMM kernel needs contiguous data")
+        ndiag, m = data.shape
+        n, K = X.shape
+        Y = torch.empty((m, K), dtype=ct, device=X.device)
+        if m == 0 or K == 0:
+            return Y
+        fn = _mm_entry(_MM_ENTRY[(data.dtype, ct)])
+        offsets = tuple(offsets)
+        plan = dia_mm_plan(offsets, K, X.element_size(),
+                           X.data_ptr() % 16 == 0)
+        offs = _offsets_info(offsets)[0]
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p),
+                     ndiag, plan.v, plan.kc, X.data_ptr(), Y.data_ptr(), m,
+                     n, K, stream)
+        if err != 0:
+            raise RuntimeError("DIA SpMM kernel launch failed with CUDA "
+                               "error %d" % err)
+        DIA_MM_LAUNCHES += 1
         return Y
-    fn = _mm_entry(_MM_ENTRY[(data.dtype, ct)])
-    offsets = tuple(offsets)
-    plan = dia_mm_plan(offsets, K, X.element_size(),
-                       X.data_ptr() % 16 == 0)
-    offs = _offsets_info(offsets)[0]
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = fn(data.data_ptr(), ctypes.cast(offs, ctypes.c_void_p), ndiag,
-                 plan.v, plan.kc, X.data_ptr(), Y.data_ptr(), m, n, K,
-                 stream)
-    if err != 0:
-        raise RuntimeError("DIA SpMM kernel launch failed with CUDA error %d"
-                           % err)
-    DIA_MM_LAUNCHES += 1
-    return Y
 
 
 def dia_transpose(a: F.DIA) -> F.DIA:

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from ..ops.base import DiagonalOperator, LinearOperator
+from ..utils.observe import building, span
+from ..utils.types import to_tensor
 from . import bell as B
 from . import formats as F
 from . import kernels as K
@@ -149,31 +151,45 @@ def operator_from_coo(vals, rows, cols, shape, symmetric=False,
     the packing.  The containers are built on the host (the native host
     pipeline where its library is available, else NumPy) and moved to
     ``device`` once.
+
+    The build is recorded on its own and kept
+    (:func:`~..utils.observe.building`) in three spans:
+    ``build.container`` (the host COO and the bandwidth profile),
+    ``build.fill`` (the host DIA fill, the BELL packing and its planners,
+    or a plain container built and moved at once) and ``build.to_card``
+    (the transfer, and what is derived on the card: the SELL card form, a
+    DIA transpose).
     """
-    coo = F.coo_from_arrays(vals, rows, cols, shape, dtype=dtype,
-                            device=None)
-    if fmt == "auto":
-        ndiag, density = F.bandwidth_profile(coo)
-        device_type = torch.device(device).type
-        fmt = auto_format(ndiag, density, coo.shape, device_type,
-                          max_diags, dia_density_threshold)
-        if (fmt == "ell" and coo.shape[0] >= BELL_MIN_ROWS
+    with building():
+        with span("build.container"):
+            coo = F.coo_from_arrays(vals, rows, cols, shape, dtype=dtype,
+                                    device=None)
+            auto = fmt == "auto"
+            device_type = torch.device(device).type
+            if auto:
+                ndiag, density = F.bandwidth_profile(coo)
+                fmt = auto_format(ndiag, density, coo.shape, device_type,
+                                  max_diags, dia_density_threshold)
+        if (auto and fmt == "ell" and coo.shape[0] >= BELL_MIN_ROWS
                 and device_type == "cuda"):
             op = _try_bell(coo, symmetric, device)
             if op is not None:
                 return op
-    if fmt in ("bell", "bell-rcm"):
-        return B.bell_operator(coo, symmetric=symmetric,
-                               reorder=(fmt == "bell-rcm"), device=device)
-    if fmt == "cuda-dia":
-        return cuda_dia_sparse_operator(coo, symmetric=symmetric,
-                                        device=device)
-    if fmt not in _BUILDERS:
-        raise ValueError("unknown format %r" % fmt)
-    build = _BUILDERS[fmt]
-    fwd = build(coo, device)
-    bwd = None if symmetric else build(F.transpose_coo(coo), device)
-    return SparseOperator(fwd, bwd, symmetric=symmetric)
+        if fmt in ("bell", "bell-rcm"):
+            with span("build.fill"):
+                return B.bell_operator(coo, symmetric=symmetric,
+                                       reorder=(fmt == "bell-rcm"),
+                                       device=device)
+        if fmt == "cuda-dia":
+            return cuda_dia_sparse_operator(coo, symmetric=symmetric,
+                                            device=device)
+        if fmt not in _BUILDERS:
+            raise ValueError("unknown format %r" % fmt)
+        build = _BUILDERS[fmt]
+        with span("build.fill"):
+            fwd = build(coo, device)
+            bwd = None if symmetric else build(F.transpose_coo(coo), device)
+        return SparseOperator(fwd, bwd, symmetric=symmetric)
 
 
 def sparse_operator(source, symmetric=False, fmt="auto", dtype=None,
@@ -250,9 +266,14 @@ def cuda_dia_sparse_operator(coo, symmetric=False, device="cuda"):
     """DIA operator on ``device`` whose matvec is the CUDA kernel
     (:func:`.kernels.cuda_dia_operator`), built from a host COO container.
     Counterpart of ``pallas_dia_sparse_operator``; the kernel takes the
-    unpadded container, so there is nothing to pad or trim."""
-    return K.cuda_dia_operator(F.dia_from_coo(coo, device=device),
-                               symmetric=symmetric)
+    unpadded container, so there is nothing to pad or trim.  The host fill
+    and the transfer are the ``build.fill`` and ``build.to_card`` spans."""
+    with span("build.fill"):
+        dia = F.dia_from_coo(coo, device=None)
+    with span("build.to_card"):
+        dia = F.DIA(to_tensor(dia.data, device=device), dia.offsets,
+                    dia.shape)
+        return K.cuda_dia_operator(dia, symmetric=symmetric)
 
 
 def _try_bell(coo, symmetric, device="cuda"):
@@ -268,8 +289,22 @@ def _try_bell(coo, symmetric, device="cuda"):
     ``BELL_MIN_SPEEDUP_VS_ELL`` times below the ELL estimate, packed
     storage under ``BELL_MAX_PAD_BYTES``).  Tries a heavy-row split first, then the raw
     ordering, then RCM (square only).  Candidate packings are planned on
-    the host; only the accepted one goes to ``device``.
+    the host; only the accepted one goes to ``device``.  The planning is
+    the ``build.fill`` span, the accepted operator's construction (the
+    transfer, the SELL card form; a reordered matrix's packing again)
+    ``build.to_card``.
     """
+    with span("build.fill"):
+        make = _bell_plan(coo, symmetric, device)
+    if make is None:
+        return None
+    with span("build.to_card"):
+        return make()
+
+
+def _bell_plan(coo, symmetric, device):
+    """:func:`_try_bell`'s planning: a function that builds the accepted
+    operator, or None."""
     def _ok(lv):
         if sum(b.nnz_spill for b in lv) != 0:
             return False
@@ -319,10 +354,9 @@ def _try_bell(coo, symmetric, device="cuda"):
                     bwd = None
             if symmetric or (bwd is not None and _ok(bwd[0])
                              and _ok(bwd[1])):
-                return B.bell_operator(coo, symmetric=symmetric,
-                                       device=device,
-                                       _prepacked=(fwd, bwd),
-                                       _split=(None, heavy, M0))
+                return lambda: B.bell_operator(
+                    coo, symmetric=symmetric, device=device,
+                    _prepacked=(fwd, bwd), _split=(None, heavy, M0))
 
     for reorder in (False, True):
         c = coo
@@ -335,15 +369,14 @@ def _try_bell(coo, symmetric, device="cuda"):
             continue
         bwd = None if symmetric else _plan(F.transpose_coo(c))
         if symmetric or (bwd is not None and _ok(bwd)):
-            return B.bell_operator(coo, symmetric=symmetric,
-                                   reorder=reorder, device=device,
-                                   _prepacked=None if reorder
-                                   else (fwd, bwd))
+            return lambda: B.bell_operator(
+                coo, symmetric=symmetric, reorder=reorder, device=device,
+                _prepacked=None if reorder else (fwd, bwd))
         if not reorder:
             # directions are judged independently: rows that pack well
             # get the kernel forward, and A^T (which most solvers never
             # apply) the ELL path
-            return _bell_fwd_ell_bwd(coo, fwd, symmetric, device)
+            return lambda: _bell_fwd_ell_bwd(coo, fwd, symmetric, device)
     return None
 
 

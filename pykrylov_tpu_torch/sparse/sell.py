@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils.observe import span
 
 __all__ = ["SELL", "SELL_LAUNCHES", "SELL_MM_LAUNCHES", "SLICE", "SIGMA",
            "sell_from_levels", "sell_bytes", "sell_matvec",
@@ -274,34 +275,36 @@ def _launch(card, x):
     """Launch the SpMV kernel for a 1-D x, the SpMM kernel for a block."""
     global SELL_LAUNCHES, SELL_MM_LAUNCHES
     block = x.ndim == 2
-    ct = torch.promote_types(card.vals.dtype, x.dtype)
-    name = (_MM_ENTRY if block else _ENTRY).get((card.vals.dtype, ct))
-    if name is None:
-        raise TypeError("the SELL kernels take f32 or bf16 values with an "
-                        "f32 or f64 product and f64 values with an f64 "
-                        "product, not %s values with %s x"
-                        % (card.vals.dtype, x.dtype))
-    x = x.to(ct).contiguous()           # the SpMM kernel reads X row-major
-    arrays = (card.vals, card.cols, card.slice_ptr, card.row_len,
-              card.row_idx)
-    if not all(a.is_contiguous() and a.device == x.device for a in arrays):
-        raise ValueError("the SELL kernels need contiguous card arrays on "
-                         "x's device")
-    y = torch.empty((card.rows_out,) + tuple(x.shape[1:]), dtype=ct,
-                    device=x.device)
-    if y.numel() == 0:
+    with span("launch.sell_spmm" if block else "launch.sell_spmv"):
+        ct = torch.promote_types(card.vals.dtype, x.dtype)
+        name = (_MM_ENTRY if block else _ENTRY).get((card.vals.dtype, ct))
+        if name is None:
+            raise TypeError("the SELL kernels take f32 or bf16 values with an "
+                            "f32 or f64 product and f64 values with an f64 "
+                            "product, not %s values with %s x"
+                            % (card.vals.dtype, x.dtype))
+        x = x.to(ct).contiguous()           # the SpMM kernel reads X row-major
+        arrays = (card.vals, card.cols, card.slice_ptr, card.row_len,
+                  card.row_idx)
+        if not all(a.is_contiguous() and a.device == x.device for a in arrays):
+            raise ValueError("the SELL kernels need contiguous card arrays on "
+                             "x's device")
+        y = torch.empty((card.rows_out,) + tuple(x.shape[1:]), dtype=ct,
+                        device=x.device)
+        if y.numel() == 0:
+            return y
+        kcols = (int(x.shape[1]),) if block else ()
+        fn = _entry(name)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(*(a.data_ptr() for a in arrays), x.data_ptr(), x.shape[0],
+                     y.data_ptr(), card.rows_out, *kcols, stream)
+        if err != 0:
+            raise RuntimeError("SELL %s kernel launch failed with CUDA "
+                               "error %d" % ("SpMM" if block else "SpMV",
+                                             err))
+        if block:
+            SELL_MM_LAUNCHES += 1
+        else:
+            SELL_LAUNCHES += 1
         return y
-    kcols = (int(x.shape[1]),) if block else ()
-    fn = _entry(name)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(a.data_ptr() for a in arrays), x.data_ptr(), x.shape[0],
-                 y.data_ptr(), card.rows_out, *kcols, stream)
-    if err != 0:
-        raise RuntimeError("SELL %s kernel launch failed with CUDA error %d"
-                           % ("SpMM" if block else "SpMV", err))
-    if block:
-        SELL_MM_LAUNCHES += 1
-    else:
-        SELL_LAUNCHES += 1
-    return y
