@@ -71,11 +71,12 @@ Phases, in order:
      more solve under torch.profiler (device time by kernel, idle share),
      and the same solve through the plain DIA operator;
   4b. the DIA block path: ``solve(A, B)`` with B = A X_true, X_true (n, 8),
-     the SpMM launches counted from 0 (= block products), every column's
-     true residual in f64 and its iterations against a single solve of
-     that column, a profile of its first PROFILE_ITERS / 2 block
-     iterations, and the block solve through the
-     plain operator;
+     the SpMM launches counted from 0 (= block products) and block CG's
+     passes (3 a block iteration: ``cg_batched``'s fused loop), every
+     column's true residual in f64 and its iterations against a single
+     solve of that column, a profile of its first PROFILE_ITERS / 2 block
+     iterations, and the block solve through the plain operator (its
+     vector work still block CG's passes, 3 a block iteration);
   5. the BELL path: the same on tiled 1138bus, one SELL launch per
      matvec, the time to derive the card form, its first PROFILE_ITERS
      iterations profiled, the same solve through the
@@ -199,7 +200,8 @@ Phases, in order:
   17a. ``chebyshev_preconditioner`` (Lanczos 16, degree 8) on phase 4's
      operator: 16 SpMVs for the bounds; ``cg`` with it (launches =
      n_matvec + 7 (n_iter + 1)) and ``solve(A, B, M=M)`` through the DIA
-     SpMM, outer iterations beside phase 4's;
+     SpMM (block CG's passes 4 a block iteration), outer iterations
+     beside phase 4's;
   17b. ``complex_solve(cg, ...)`` on a Hermitian positive definite complex
      system (3-D Poisson at n = 160 plus a shift, plus i times a skew
      first difference: 8,192,000 real rows), the kernel ``fmt="auto"``
@@ -324,6 +326,14 @@ Phases, in order:
      selects timed against their plain versions, bounds (bytes at 3.35
      TB/s against the tensor cores' dense rates) and torch's CSR product,
      ``w[base]`` and the f32 product ``oh.float() @ w``;
+  24. block CG's passes (:func:`phase_block_cg`; ``csrc/block_cg.cu``) on
+     (n, K) card blocks at phase 4's n: f32 K = 8 (16-byte loads), f32
+     K = 3 (a 12-byte row, one value a load) and f64 K = 8, each pass held
+     against its plain torch version on the same inputs, with columns
+     running, frozen, meeting negative curvature and stopping, the frozen
+     ones bit for bit, without and with M (7 launches a case, no other
+     kernel); then each pass timed alone and the iteration's three against
+     their 10-pass bound and the torch loop's block work (17 passes);
   6. timing (CUDA events around back-to-back calls that a sleep kernel
      lets the host enqueue ahead of the device, so that a kernel shorter
      than its wrapper's host work is timed and not the host; best of 3
@@ -358,10 +368,12 @@ Phases, in order:
      SpMM's with its host plan, V columns a thread, T rows a tile, Kc
      columns a panel, at each K, and each template instance's registers
      and spill bytes; the three probe kernels with phase 23's launches
-     and times, the fold with its best read rate), then the result line
+     and times, the fold with its best read rate; block CG's passes with
+     their launches in 4b, 5b, 17a and 24, phase 24's times, bounds and
+     torch times), then the result line
      ``{"ok": true, "device": {...}}``.
 
-Phases 8-23 run after 5b and before 6; each resets every launch count
+Phases 8-24 run after 5b and before 6; each resets every launch count
 to 0 just before a solve and reads the counts just after.  Each phase's
 seconds are logged as it ends (``[time]``).
 
@@ -1449,6 +1461,20 @@ def phase_bell_path(pt):
                     "b": b, "profile": prof}
 
 
+def _block_cg_passes(tag, label, n_iter):
+    """The launches of block CG's passes (``csrc/block_cg.cu``) since the
+    counts were set to 0, which a solve through ``cg_batched``'s fused
+    loop without M makes 3 a block iteration: checked and returned."""
+    from pykrylov_tpu_torch.solvers import block_cg as BC
+    got = BC.BLOCK_CG_LAUNCHES
+    log("[%s] %s: %d block CG launches for %d block iterations"
+        % (tag, label, got, n_iter))
+    if got != 3 * n_iter or got == 0:
+        raise AssertionError("%s %s: %d block CG launches for %d block "
+                             "iterations" % (tag, label, got, n_iter))
+    return got
+
+
 def _block_checks(pt, tag, A, Bm, res, ax64):
     """What phases 4b and 5b check of a block solve: convergence, a finite
     (n, K) solution, every column's true relative residual in f64 (``ax64``
@@ -1523,8 +1549,7 @@ def phase_dia_block(pt, A, dia):
     torch.cuda.synchronize()
     del warm
 
-    K.DIA_MM_LAUNCHES = 0
-    K.DIA_LAUNCHES = 0
+    _reset_counts()
     res, secs = _timed_block_solve(pt, A, Bm)
     launches, spmv = K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES
     n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
@@ -1534,6 +1559,7 @@ def phase_dia_block(pt, A, dia):
     if launches != n_matvec or launches == 0 or spmv != 0:
         raise AssertionError("%s: %d SpMM and %d SpMV launches for %d block "
                              "products" % (tag, launches, spmv, n_matvec))
+    passes = _block_cg_passes(tag, "solve", n_iter)
     single_ms = 1e3 * dia["solve_s"] / max(dia["n_iter"], 1)
     out = _block_checks(
         pt, tag, A, Bm, res,
@@ -1546,22 +1572,24 @@ def phase_dia_block(pt, A, dia):
     _profile_solve(pt, tag, A, Bm, secs * cap / max(n_iter, 1), maxiter=cap)
 
     A_plain = dia.pop("plain_op")
-    before = (K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES)
+    _reset_counts()
     res_p, secs_p = _timed_block_solve(pt, A_plain, Bm)
     n_p = int(res_p.n_iter)
     log("[%s] plain fmt=dia, column by column: converged=%s n_iter=%d, "
         "%.3f s, %.4f ms per block iteration"
         % (tag, res_p.converged.tolist(), n_p, secs_p,
            1e3 * secs_p / max(n_p, 1)))
-    if (K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES) != before:
+    if (K.DIA_MM_LAUNCHES, K.DIA_LAUNCHES) != (0, 0):
         raise AssertionError("%s: the plain operator launched a kernel" % tag)
+    passes += _block_cg_passes(tag, "plain fmt=dia solve", n_p)
     cols_p = res_p.info["n_iter_columns"].tolist()
     if any(abs(a - b) > ITER_RTOL * b for a, b in zip(out["columns"],
                                                         cols_p)):
         raise AssertionError("%s: iterations %s (kernel) vs %s (plain)"
                              % (tag, out["columns"], cols_p))
     out.update(launches=launches, max_abs_err=err, solve_s=secs,
-               ms_per_iter=per_iter, plain_solve_s=secs_p)
+               ms_per_iter=per_iter, plain_solve_s=secs_p,
+               block_cg_launches=passes)
     return out
 
 
@@ -1591,8 +1619,7 @@ def phase_bell_block(pt, A, coo, bell):
     torch.cuda.synchronize()
     del warm
 
-    S.SELL_MM_LAUNCHES = 0
-    S.SELL_LAUNCHES = 0
+    _reset_counts()
     res, secs = _timed_block_solve(pt, A, Bm)
     launches, spmv = S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES
     n_iter, n_matvec = int(res.n_iter), int(res.n_matvec)
@@ -1602,6 +1629,7 @@ def phase_bell_block(pt, A, coo, bell):
     if launches != n_matvec or launches == 0 or spmv != 0:
         raise AssertionError("%s: %d SpMM and %d SpMV launches for %d block "
                              "products" % (tag, launches, spmv, n_matvec))
+    passes = _block_cg_passes(tag, "solve", n_iter)
     rows = torch.from_numpy(coo[1]).to(DEVICE)
     cols = torch.from_numpy(coo[2]).to(DEVICE)
     vals = torch.from_numpy(coo[0]).to(DEVICE, torch.float64)
@@ -1623,7 +1651,7 @@ def phase_bell_block(pt, A, coo, bell):
     # the plain BELL product streams the container on the host's plan
     # (25 ms a K = 8 block iteration): the first KB_CUT columns are enough
     # to hold the kernel's counts to it
-    before = (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES)
+    _reset_counts()
     res_p, secs_p = _timed_block_solve(pt, A.plain(),
                                        Bm[:, :KB_CUT].contiguous())
     n_p = int(res_p.n_iter)
@@ -1631,15 +1659,17 @@ def phase_bell_block(pt, A, coo, bell):
         "%.3f s, %.4f ms per block iteration"
         % (tag, KB_CUT, res_p.converged.tolist(), n_p, secs_p,
            1e3 * secs_p / max(n_p, 1)))
-    if (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES) != before:
+    if (S.SELL_MM_LAUNCHES, S.SELL_LAUNCHES) != (0, 0):
         raise AssertionError("%s: the plain operator launched a kernel" % tag)
+    passes += _block_cg_passes(tag, "plain BELL solve", n_p)
     cols_p = res_p.info["n_iter_columns"].tolist()
     if any(abs(a - b) > ITER_RTOL * b for a, b in zip(out["columns"],
                                                         cols_p)):
         raise AssertionError("%s: iterations %s (kernel) vs %s (plain)"
                              % (tag, out["columns"], cols_p))
     out.update(launches=launches, max_abs_err=err, solve_s=secs,
-               ms_per_iter=per_iter, plain_solve_s=secs_p)
+               ms_per_iter=per_iter, plain_solve_s=secs_p,
+               block_cg_launches=passes)
     return out
 
 
@@ -1647,23 +1677,24 @@ def phase_bell_block(pt, A, coo, bell):
 # 8-9. indefinite and nonsymmetric systems
 # --------------------------------------------------------------------------
 
-COUNTERS = (("dia_spmv", "kernels", "DIA_LAUNCHES"),
-            ("dia_spmm", "kernels", "DIA_MM_LAUNCHES"),
-            ("sell_spmv", "sell", "SELL_LAUNCHES"),
-            ("sell_spmm", "sell", "SELL_MM_LAUNCHES"))
+COUNTERS = (("dia_spmv", "sparse.kernels", "DIA_LAUNCHES"),
+            ("dia_spmm", "sparse.kernels", "DIA_MM_LAUNCHES"),
+            ("sell_spmv", "sparse.sell", "SELL_LAUNCHES"),
+            ("sell_spmm", "sparse.sell", "SELL_MM_LAUNCHES"),
+            ("block_cg", "solvers.block_cg", "BLOCK_CG_LAUNCHES"))
 
 
 def _reset_counts():
     import importlib
     for _, mod, attr in COUNTERS:
-        setattr(importlib.import_module("pykrylov_tpu_torch.sparse." + mod),
-                attr, 0)
+        setattr(importlib.import_module("pykrylov_tpu_torch." + mod), attr,
+                0)
 
 
 def _counts():
     import importlib
     return {name: getattr(importlib.import_module(
-        "pykrylov_tpu_torch.sparse." + mod), attr)
+        "pykrylov_tpu_torch." + mod), attr)
         for name, mod, attr in COUNTERS}
 
 
@@ -2326,6 +2357,9 @@ BLOCK_PRODUCTS = {"bicgstab": lambda k: 2 * k, "cgs": lambda k: 2 * k,
                   # preconditioner (degree - 1 products an apply)
                   "cg_pipelined": lambda k: k + 1,
                   "cg_cheb": lambda k: k + (CHEB_DEGREE - 1) * (k + 1)}
+# launches of block CG's passes (csrc/block_cg.cu) a block iteration of
+# the routes that run cg_batched's fused loop: 4 with a preconditioner
+BLOCK_CG_PASSES = {"cg_cheb": 4}
 # column 0 against the single solve of the same b: CGS's and TFQMR's
 # counts swing with the rounding order (phase 9's CGS takes 46% of the JAX
 # package's count on this system), the others within ITER_RTOL
@@ -2384,8 +2418,8 @@ def _block_solve(pt, tag, label, name, A, Bm, opts, kernel, single, check,
     """One batched solve, ``solve(A, Bm, **opts)`` (``opts`` names the
     method but for the default route), with every launch count set to 0
     just before and read just after: ``kernel``'s launches must be the
-    solver's block products (``BLOCK_PRODUCTS``), no other kernel may
-    launch; every column converged, its certificates (``check(res)``:
+    solver's block products (``BLOCK_PRODUCTS``), block CG's passes those
+    of ``BLOCK_CG_PASSES``, no other kernel may launch; every column converged, its certificates (``check(res)``:
     name -> (per-column values, bound)) within their bound, and column 0's
     count within COL0_RTOL of ``single`` = (count, ms per iteration), the
     earlier phase's single solve of the same b.  Then a profiled run of the
@@ -2413,7 +2447,11 @@ def _block_solve(pt, tag, label, name, A, Bm, opts, kernel, single, check,
     if counts[kernel] != want or want == 0:
         raise AssertionError("%s %s: %d %s launches for %d block products"
                              % (tag, label, counts[kernel], kernel, want))
-    if any(v for kk, v in counts.items() if kk != kernel):
+    passes = BLOCK_CG_PASSES.get(name, 0) * k
+    if counts["block_cg"] != passes:
+        raise AssertionError("%s %s: %d block CG launches for %d"
+                             % (tag, label, counts["block_cg"], passes))
+    if any(v for kk, v in counts.items() if kk not in (kernel, "block_cg")):
         raise AssertionError("%s %s: other kernels launched: %s"
                              % (tag, label, counts))
     if (res.x.dtype != torch.float64 or res.x.shape[1] != Bm.shape[1]
@@ -3512,7 +3550,7 @@ def phase_chebyshev(pt, A_dia, dia):
     log("[%s] Lanczos bounds [%.6g, %.6g] in %.3f s, %s" % (
         tag, M.lmin, M.lmax, secs, counts))
     if counts != {"dia_spmv": CHEB_LANCZOS, "dia_spmm": 0, "sell_spmv": 0,
-                  "sell_spmm": 0}:
+                  "sell_spmm": 0, "block_cg": 0}:
         raise AssertionError("%s: Lanczos launches %s" % (tag, counts))
     out = {"bounds": [M.lmin, M.lmax],
            "lanczos": {"launches": counts, "s": secs}}
@@ -3654,7 +3692,7 @@ def phase_operators(pt, A_dia, dia, A_bus, bell):
         "launches %s; true relative residual (f64) per block %.3e %.3e"
         % (tag, label, int(res.istop), n_iter, secs, ms, counts, *rels))
     if (counts != {"dia_spmv": n_mv, "sell_spmv": n_mv, "dia_spmm": 0,
-                   "sell_spmm": 0} or int(res.istop) != 0
+                   "sell_spmm": 0, "block_cg": 0} or int(res.istop) != 0
             or not max(rels) <= 1e-4):
         raise AssertionError("%s %s: %r, launches %s, residuals %s"
                              % (tag, label, res, counts, rels))
@@ -3803,7 +3841,7 @@ def phase_checkpoint(pt, A_dia, dia):
         if (int(res.istop) != 0 or not bool(res.converged)
                 or total != sum(c[1] for c in chunks)
                 or counts != {"dia_spmv": total, "dia_spmm": 0,
-                              "sell_spmv": 0, "sell_spmm": 0}
+                              "sell_spmv": 0, "sell_spmm": 0, "block_cg": 0}
                 or not true_rel <= 1e-4):
             raise AssertionError("%s: %r, total_matvec %d, launches %s, "
                                  "residual %.3e" % (tag, res, total, counts,
@@ -5139,7 +5177,7 @@ def _ckpt_leg(mesh, H, b, path):
                                      100 * comm_s / secs, calls))
     if (int(res.istop) != 0 or total != sum(c[1] for c in chunks)
             or counts != {"dia_spmv": total, "dia_spmm": 0, "sell_spmv": 0,
-                          "sell_spmm": 0}):
+                          "sell_spmm": 0, "block_cg": 0}):
         raise AssertionError("%s: %r, total_matvec %d, launches %s"
                              % (tag, res, total, counts))
     return {"n_iter": n, "istop": int(res.istop), "n_matvec": total,
@@ -6588,6 +6626,255 @@ def phase_probes(pt, A_dia, A_bell, coo_bell, rates):
 
 
 # --------------------------------------------------------------------------
+# 24. block CG's passes
+# --------------------------------------------------------------------------
+
+# (dtype, K) of phase 24's cases on (N^3, K) card blocks: 16-byte loads of
+# 4 and of 2 values, and a 12-byte row (one value a load)
+BCG_CASES = ((torch.float32, KB), (torch.float32, 3), (torch.float64, KB))
+# a pass's outputs against its plain torch version on the same inputs, the
+# largest difference in a column over the column's largest |value|: the
+# kernels sum in float64 in another order than torch's and round
+# r - alpha ap once (FMA); a column summed wrong, or a block's rows left
+# out, is off by 1e-4 or more
+BCG_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+BCG_ITERS = 20      # back-to-back calls a timing
+# the columns' roles, in turn: running on, frozen (inactive), negative
+# curvature (AP = -P d), stopping on its threshold in the step
+BCG_ROLES = ("run", "frozen", "bad", "stop")
+
+
+def _bcg_beta(prev, act, ry2, thresh):
+    """The plain version of the scalar step after R'R or R'Y (the torch
+    loop's rules), from the state ``prev`` before it."""
+    resid = torch.where(act, torch.sqrt(torch.clamp(ry2, min=0)),
+                        prev["resid"])
+    done = act & ((resid <= thresh) | ~torch.isfinite(resid))
+    active = act & ~done
+    return {"resid": resid,
+            "beta": torch.where(act, ry2 / torch.where(prev["ry"] == 0, 1,
+                                                       prev["ry"]), 0),
+            "ry": torch.where(act, ry2, prev["ry"]),
+            "iters": prev["iters"] + prev["active"].to(torch.int32),
+            "active": active,
+            "flags": torch.stack([active.any(), active.all()])}
+
+
+def phase_block_cg(pt, rates):
+    """24: block CG's three passes (``csrc/block_cg.cu``, through
+    ``solvers.block_cg.BlockCG``) on (N^3, K) card blocks of BCG_CASES,
+    with the launches counted from 0.
+
+    a. Each pass against its plain torch version on the same inputs
+       (BCG_TOL), the columns in the roles of BCG_ROLES under the curvature
+       test: ``coldot(P, AP)`` (the act mask, alpha, the curvature
+       verdicts), ``update_r(AP)`` (R, then R'R's step: the residuals,
+       beta, ry, the counts, the mask, the poll's flags), ``update_xp(R)``
+       (X and P); then an iteration with M: ``coldot(P, AP)``,
+       ``update_r(AP)`` without sums (the state left as it was),
+       ``coldot(R, Y)`` with the history row, ``update_xp(Y)``.  A column
+       the mask leaves off keeps its values bit for bit; 7 launches a case.
+    b. Each pass timed alone (:func:`device_ms`; every column running,
+       alpha and beta 0, so that the blocks hold still over the calls),
+       and the iteration's three passes, 10 of the block, against their
+       bound and against the torch loop's block work of an iteration with
+       every column active (two column dots and three ``addcmul``, 17
+       passes of the block)."""
+    from pykrylov_tpu_torch.solvers import block_cg as BC
+    from pykrylov_tpu_torch.solvers.common import col_vdots_real
+
+    tag = "24 block CG"
+    n = N ** 3
+    out = {"cases": {}, "max_rel_err": 0.0}
+    _reset_counts()
+    for dtype, k in BCG_CASES:
+        label = "%s K=%d" % (str(dtype).split(".")[-1], k)
+        tol = BCG_TOL[dtype]
+        gen = torch.Generator(device=DEVICE).manual_seed(24)
+        errs = []
+
+        def randn():
+            return torch.randn(n, k, dtype=dtype, device=DEVICE,
+                               generator=gen)
+
+        def role(r):
+            return torch.tensor([BCG_ROLES[c % len(BCG_ROLES)] == r
+                                 for c in range(k)], device=DEVICE)
+
+        def near(what, got, ref, off=None):
+            """``got`` within tol of ``ref`` column by column, the columns
+            of the mask ``off`` bit for bit."""
+            g, r = got.double(), ref.double()
+            if g.dim() == 1:
+                g, r = g[None], r[None]
+            both = torch.isnan(g) & torch.isnan(r)
+            diff = (g - r).abs().masked_fill(both, 0).nan_to_num(
+                nan=float("inf"))
+            err = float((diff.amax(0) / r.abs().nan_to_num().amax(0).clamp(
+                min=1e-300)).max())
+            errs.append(err)
+            if not err <= tol:
+                raise AssertionError("%s %s: %s off its plain version by "
+                                     "%.3e (bound %.0e)"
+                                     % (tag, label, what, err, tol))
+            if off is not None and not torch.equal(got[..., off],
+                                                   ref[..., off]):
+                raise AssertionError("%s %s: %s changed a column the mask "
+                                     "leaves off" % (tag, label, what))
+
+        def same(what, got, ref):
+            if not torch.equal(got, ref):
+                raise AssertionError("%s %s: %s %s, its plain version %s"
+                                     % (tag, label, what, got.tolist(),
+                                        ref.tolist()))
+
+        def state():
+            return {name: getattr(st, name).clone() for name in (
+                "ry", "resid", "active", "iters", "definite", "flags")}
+
+        def check_alpha(prev, A, B):
+            pAp = (A.double() * B.double()).sum(0).to(dtype)
+            bad = prev["active"] & (pAp <= 0)
+            act = prev["active"] & ~bad
+            same("coldot's act mask", st.act, act)
+            same("coldot's curvature verdicts", st.definite,
+                 prev["definite"] & ~bad)
+            near("coldot's alpha", st.alpha, torch.where(
+                act, prev["ry"] / torch.where(pAp == 0, 1, pAp), 0))
+
+        def check_beta(prev, ry2, hist=None):
+            want = _bcg_beta(prev, st.act, ry2, thresh)
+            for name in ("resid", "beta", "ry"):
+                near("the %s of the step" % name, getattr(st, name),
+                     want[name])
+            for name in ("iters", "active", "flags"):
+                same("the %s of the step" % name, getattr(st, name),
+                     want[name])
+            if hist is not None:
+                near("the history row", hist, torch.where(
+                    prev["active"], want["resid"], float("nan")))
+
+        X, R, P = randn(), randn(), randn()
+        d = 1 + torch.rand(n, 1, dtype=dtype, device=DEVICE, generator=gen)
+        AP = P * d
+        AP[:, role("bad")] *= -1
+        ry = (R.double() ** 2).sum(0).to(dtype)
+        thresh = torch.where(role("stop"), 10 * ry.sqrt(), 1e-3 * ry.sqrt())
+        st = BC.BlockCG(X, R, P, ry, ry.sqrt(), thresh, ~role("frozen"),
+                        True)
+        before = BC.BLOCK_CG_LAUNCHES
+
+        # a. the iteration without M, then with M
+        prev = state()
+        P0, AP0 = P.clone(), AP.clone()
+        st.coldot(P, AP)
+        check_alpha(prev, P, AP)
+        same("coldot's P", P, P0)
+        same("coldot's AP", AP, AP0)
+        R0 = R.clone()
+        st.update_r(AP)
+        near("update_r's R", R, torch.where(st.act, R0 - st.alpha * AP, R0),
+             ~st.act)
+        check_beta(prev, (R.double() ** 2).sum(0).to(dtype))
+        X0 = X.clone()
+        st.update_xp(R)
+        near("update_xp's X", X, torch.where(st.act, X0 + st.alpha * P0, X0),
+             ~st.act)
+        near("update_xp's P", P, torch.where(st.act, R + st.beta * P0, P0),
+             ~st.act)
+
+        Y = randn()
+        prev = state()
+        st.coldot(P, AP)
+        check_alpha(prev, P, AP)
+        R0 = R.clone()
+        st.update_r(AP, sums=False)
+        near("update_r's R (M)", R, torch.where(st.act, R0 - st.alpha * AP,
+                                                R0), ~st.act)
+        for name, v in state().items():
+            same("update_r's %s without sums" % name, v, prev[name])
+        row = torch.zeros(k, dtype=dtype, device=DEVICE)
+        st.coldot(R, Y, beta=True, hist_row=row)
+        check_beta(prev, (R.double() * Y.double()).sum(0).to(dtype), row)
+        X0, P0 = X.clone(), P.clone()
+        st.update_xp(Y)
+        near("update_xp's X (M)", X, torch.where(st.act, X0 + st.alpha * P0,
+                                                 X0), ~st.act)
+        near("update_xp's P (M)", P, torch.where(st.act, Y + st.beta * P0,
+                                                 P0), ~st.act)
+        torch.cuda.synchronize()
+        launches = BC.BLOCK_CG_LAUNCHES - before
+        if launches != 7:
+            raise AssertionError("%s %s: %d launches for 7 passes"
+                                 % (tag, label, launches))
+        if any(v for kk, v in _counts().items() if kk != "block_cg"):
+            raise AssertionError("%s %s: other kernels launched: %s"
+                                 % (tag, label, _counts()))
+        log("[%s] %s (V=%d, %d blocks): every pass within %.3e of its plain "
+            "version (bound %.0e), frozen columns bit for bit, %d launches"
+            % (tag, label, st.plan.v, st.plan.blocks, max(errs), tol,
+               launches))
+        del X0, P0, R0, AP0, Y
+
+        # b. the passes timed, every column running and the blocks still
+        def hold():
+            st.check = False
+            thresh.zero_()
+            st.act.fill_(True)
+            st.active.fill_(True)
+            st.alpha.zero_()
+            st.beta.zero_()
+
+        a = torch.zeros(k, dtype=dtype, device=DEVICE)
+
+        def torch_iteration():
+            col_vdots_real(P, AP)
+            torch.addcmul(X, a, P)
+            R2 = torch.addcmul(R, a, AP, value=-1)
+            col_vdots_real(R2, R2)
+            torch.addcmul(R2, a, P)
+
+        best = {}
+        for _ in range(3):
+            for name, fn in (("coldot", lambda: st.coldot(P, AP)),
+                             ("update_r", lambda: st.update_r(AP)),
+                             ("update_xp", lambda: st.update_xp(R)),
+                             ("torch", torch_iteration)):
+                hold()
+                best[name] = min(best.get(name, float("inf")),
+                                 device_ms(fn, BCG_ITERS))
+        if not bool(st.active.all()):
+            raise AssertionError("%s %s: a column stopped while timed"
+                                 % (tag, label))
+        block = n * k * X.element_size()
+        elems = n * k
+        flops = ({"f64": 10 * elems} if dtype == torch.float64
+                 else {"f32": 6 * elems, "f64": 4 * elems})
+        b = _bound(10 * block, flops, rates)
+        ms = best["coldot"] + best["update_r"] + best["update_xp"]
+        out["cases"][label] = {
+            "ms": ms, "coldot_ms": best["coldot"],
+            "update_r_ms": best["update_r"],
+            "update_xp_ms": best["update_xp"],
+            "library_ms": best["torch"], "v": st.plan.v,
+            "blocks": st.plan.blocks, "max_rel_err": max(errs), **b}
+        out["max_rel_err"] = max(out["max_rel_err"], max(errs))
+        log("[%s] %s: coldot %.4f ms (bound %.4f), update_r %.4f (%.4f), "
+            "update_xp %.4f (%.4f); an iteration %.4f ms, %.1f%% of its "
+            "bound %.4f (10 passes of %.1f MB; achievable %.4f); the torch "
+            "loop's block work %.4f ms (17 passes)"
+            % (tag, label, best["coldot"], 0.2 * b["bound_ms"],
+               best["update_r"], 0.3 * b["bound_ms"], best["update_xp"],
+               0.5 * b["bound_ms"], ms, 100 * b["bound_ms"] / ms,
+               b["bound_ms"], block / 1e6, b["achievable_ms"],
+               best["torch"]))
+        del X, R, P, AP, st, d
+        torch.cuda.empty_cache()
+    out["launches"] = _counts()["block_cg"]
+    return out
+
+
+# --------------------------------------------------------------------------
 # 6. timing
 # --------------------------------------------------------------------------
 
@@ -7085,7 +7372,8 @@ def main():
                                                                bell))),
                      ("22", lambda: phase_wide(pt, rates)),
                      ("23", lambda: phase_probes(pt, A_dia, A_bell, coo_bell,
-                                                 rates))):
+                                                 rates)),
+                     ("24", lambda: phase_block_cg(pt, rates))):
         t0 = time.perf_counter()
         new_s[key] = (run(), time.perf_counter() - t0)
         log("[time] phase %s: %.1f s (%.1f s since the start)"
@@ -7425,6 +7713,30 @@ def main():
            p23["sell"]["sell_matvec_ms"], p23["bell_mma"]["ms"],
            p23["bell_mma"]["control_ms"], p23["bell_mma"]["bound_ms"],
            p23["onehot"]["ms"], p23["onehot"]["bf16x3_ms"]))
+    bcg = new_s["24"][0]
+    at = bcg["cases"]["float32 K=%d" % KB]
+    kernels.append({
+        "name": "block_cg", "route": "cuda",
+        "source": "pykrylov_tpu_torch/csrc/block_cg.cu", "replaces": None,
+        "fuses": "cg_batched's vector passes, "
+                 "pykrylov_tpu_torch/solvers/batched.py",
+        "launches": {
+            "4b": dia_mm["block_cg_launches"],
+            "5b": bell_mm["block_cg_launches"],
+            "17a": sum(v["launches"].get("block_cg", 0)
+                       for v in new_s["17a"][0].values()
+                       if isinstance(v, dict) and "launches" in v),
+            "24": bcg["launches"]},
+        "max_rel_err": bcg["max_rel_err"], "k": KB,
+        **{key: at[key] for key in (
+            "ms", "coldot_ms", "update_r_ms", "update_xp_ms", "bound_ms",
+            "bound_by", "achievable_ms", "library_ms")},
+        "cases": bcg["cases"], "registers": regs.get("block_cg")})
+    log("[7 result] phase 24 (%.1f s), block CG's passes: %s"
+        % (new_s["24"][1], "; ".join(
+            "%s %.4f ms an iteration (bound %.4f, torch %.4f)"
+            % (label, v["ms"], v["bound_ms"], v["library_ms"])
+            for label, v in bcg["cases"].items())))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

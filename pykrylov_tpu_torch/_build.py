@@ -27,7 +27,7 @@ SOURCES = {name: os.path.join(_HERE, "csrc", name + ".cu")
            for name in ("dia_spmv", "sell_spmv", "dia_spmm", "sell_spmm",
                         "probe_stream", "probe_dia_ring",
                         "probe_sell_ablation", "probe_onehot_mma",
-                        "probe_bell_mma")}
+                        "probe_bell_mma", "block_cg")}
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

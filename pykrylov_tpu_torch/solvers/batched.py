@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.base import ShapeError, _block_apply
+from .block_cg import BlockCG, takes as _fused
 from .common import (as_operator, col_norms, col_vdots_real, default_maxiter,
                      history_init, host_read, promote_rhs, real_dtype, rows,
                      sum_rows, threshold_of)
@@ -55,7 +56,7 @@ from .ffmv import resolve_ff_matmat
 from .result import SolveResult
 from ..utils.ff import (ff_add_ff, ff_div, ff_hypot, ff_mul, ff_sqrt,
                         ff_vdot_cols, two_prod, two_sum)
-from ..utils.observe import span
+from ..utils.observe import count, span
 from ..utils.types import to_tensor
 
 __all__ = ["cg_batched", "cg_pipelined_batched", "bicgstab_batched",
@@ -221,6 +222,9 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
                                     check_curvature, store_history,
                                     int(replace_every), float(leg_rtol),
                                     resolve_ff_matmat(A))
+    if _fused(B):
+        return _cg_batched_fused(A, B, X0, M, rtol, atol, maxiter,
+                                 check_curvature, store_history)
     dtype, dev = B.dtype, B.device
     K = B.shape[1]
 
@@ -297,6 +301,7 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
                 definite &= ~bad
                 active = act & ~done
             k += 1
+            count("cg_batched.plain")
             if k < maxiter:
                 any_active, all_active = _poll(active)
 
@@ -309,6 +314,81 @@ def cg_batched(A, B, *, x0=None, M=None, rtol=1.0e-6, atol=1.0e-8,
         n_iter=torch.tensor(k, dtype=torch.int32, device=dev),
         n_matvec=torch.tensor(k + extra, dtype=torch.int32, device=dev),
         resid_norm=resid, resid_norm0=resid0, resid_history=hist, info=info)
+
+
+def _cg_batched_fused(A, B, X0, M, rtol, atol, maxiter, check_curvature,
+                      store_history):
+    """:func:`cg_batched` on a card, its vector work in the three in-place
+    passes of :mod:`.block_cg` (``csrc/block_cg.cu``): an iteration is the
+    block product, ``coldot`` (P'AP and alpha), ``update_r`` (R and,
+    without M, R'R and the stop tests), M's product and ``coldot`` (R'Y
+    and the stop tests) when M is given, ``update_xp`` (X and P), and the
+    host's read of the two flags.
+
+    X, R and P are the solve's own blocks: R starts as a copy of B, which
+    is never written, and P as a copy of the preconditioned residual; each
+    iteration's AP is dropped before the next product, so four blocks are
+    live (five with M).  The flags the host reads are copied before
+    ``update_xp`` is enqueued, so that the next product's launch overlaps
+    it.  The per-column rules are the torch path's."""
+    dtype, dev = B.dtype, B.device
+    if X0 is None:
+        X = torch.zeros(B.shape, dtype=dtype, device=dev)
+        R = torch.empty(B.shape, dtype=dtype, device=dev).copy_(B)
+        extra = 0
+    else:
+        X = torch.empty(B.shape, dtype=dtype, device=dev).copy_(X0)
+        R = (B - _apply_block(A, X)).to(dtype).contiguous()
+        extra = 1
+    Y = _apply_block(M, R) if M is not None else R
+    ry = _col_dot(R, Y)
+    resid0 = torch.sqrt(torch.clamp(ry, min=0))
+    thresh = threshold_of(resid0, rtol, atol)
+    hist = _history(store_history, maxiter + 1, resid0)
+    active = resid0 > thresh
+    cg = BlockCG(X, R, torch.empty_like(R).copy_(Y), ry, resid0, thresh,
+                 active, check_curvature)
+    del Y
+    k = 0
+    any_active = _poll(active)[0] if maxiter > 0 else False
+    # the stream and the device are taken once a solve
+    with torch.cuda.device(dev):
+        while k < maxiter and any_active:
+            row = None if hist is None else hist[k + 1]
+            with span("cg_batched.iter"):
+                with span("product"):
+                    AP = _apply_block(A, cg.P)
+                with span("dots"):
+                    cg.coldot(cg.P, AP)
+                with span("update"):
+                    cg.update_r(AP, sums=M is None, hist_row=row)
+                del AP
+                Y = cg.R
+                if M is not None:
+                    with span("product"):
+                        Y = _apply_block(M, cg.R)
+                    with span("dots"):
+                        cg.coldot(cg.R, Y, beta=True, hist_row=row)
+                k += 1
+                if k < maxiter:
+                    cg.send_flags()
+                with span("direction"):
+                    cg.update_xp(Y)
+                del Y
+                count("cg_batched.fused")
+                if k < maxiter:
+                    any_active = cg.read_flags()[0]
+
+    converged = cg.resid <= thresh
+    istop = torch.where(converged, 0, torch.where(cg.definite, 1, 2))
+    info = {"definite": cg.definite, "n_iter_columns": cg.iters,
+            "active_at_exit": cg.active}
+    return SolveResult(
+        x=cg.X, converged=converged, istop=istop.to(torch.int32),
+        n_iter=torch.tensor(k, dtype=torch.int32, device=dev),
+        n_matvec=torch.tensor(k + extra, dtype=torch.int32, device=dev),
+        resid_norm=cg.resid, resid_norm0=resid0, resid_history=hist,
+        info=info)
 
 
 def cg_pipelined_batched(A, B, *, x0=None, M=None, rtol=1.0e-6,
@@ -1953,6 +2033,7 @@ def _cg_batched_verified(A, B, X0, M, rtol, atol, maxiter, check_curvature,
         definite &= ~bad
         active = act & ~done
         k += 1
+        count("cg_batched.plain")
         if any_rep:
             any_active = bool(active.any())
 

@@ -36,14 +36,19 @@ __all__ = ["as_operator", "as_apply_pair", "apply_op", "apply_op_T",
            "attach_true_lls_residual", "host_read"]
 
 
-def host_read(t):
+def host_read(t, after=None):
     """``t.tolist()``: a solver's read of device values on the host (a
     synchronisation on a card), inside a ``read`` span and counted as
     ``host_syncs`` (:mod:`..utils.observe`).  A 0-d tensor is read with
     ``item()``, whose copy goes through the caching host allocator's
     pinned memory (``tolist()`` copies to pageable memory); a process's
-    first such copy pins a block, which takes milliseconds."""
+    first such copy pins a block, which takes milliseconds.  With
+    ``after``, an event recorded behind the copy that fills the host
+    tensor ``t``, the host waits for that event alone, while the work
+    enqueued after it runs on."""
     with span("read"):
+        if after is not None:
+            after.synchronize()
         v = t.item() if t.dim() == 0 else t.tolist()
     count("host_syncs")
     return v
